@@ -18,132 +18,24 @@
 // pass, then the apply pass), so without a residual it reaches at most
 // about 2/3 of that bound, and 3/4 with one. Both passes use 16-byte
 // vector loads and stores with neighbouring threads on neighbouring
-// addresses. The statistics pass writes per-block (sum, sumsq) partials
-// to a [B, n_split, 2] f32 scratch with no atomics, so the order of the
-// sums is fixed and the result is reproducible run to run.
+// addresses. The statistics pass (common.cuh) writes per-block
+// (sum, sumsq) partials to a [B, n_split, 2] f32 scratch with no atomics,
+// so the order of the sums is fixed and the result is reproducible run to
+// run.
 //
 // C interface (bound with ctypes): aa_groupnorm1_gelu launches both
 // passes on the given stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// 16-byte vector load/store of V elements, converted to and from f32.
-template <typename T> struct VecIO;
-
-template <> struct VecIO<float> {
-  static constexpr int V = 4;
-  static __device__ __forceinline__ void load(const float* p, float (&o)[V]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&o)[V]) {
-    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-  static __device__ __forceinline__ float get(const float* p) { return *p; }
-  static __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-};
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ uint32_t bf16_bits(float f) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
-}
-__device__ __forceinline__ uint32_t bf16_pack(float lo, float hi) {
-  return bf16_bits(lo) | (bf16_bits(hi) << 16);
-}
-
-template <> struct VecIO<__nv_bfloat16> {
-  static constexpr int V = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&o)[V]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    o[0] = bf16_lo(v.x); o[1] = bf16_hi(v.x);
-    o[2] = bf16_lo(v.y); o[3] = bf16_hi(v.y);
-    o[4] = bf16_lo(v.z); o[5] = bf16_hi(v.z);
-    o[6] = bf16_lo(v.w); o[7] = bf16_hi(v.w);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&o)[V]) {
-    uint4 v;
-    v.x = bf16_pack(o[0], o[1]);
-    v.y = bf16_pack(o[2], o[3]);
-    v.z = bf16_pack(o[4], o[5]);
-    v.w = bf16_pack(o[6], o[7]);
-    *reinterpret_cast<uint4*>(p) = v;
-  }
-  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum of (a, b) over the block, in a fixed order; the result is valid in
-// thread 0.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[kThreads / 32], sb[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) { sa[warp] = a; sb[warp] = b; }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < kThreads / 32 ? sa[lane] : 0.f;
-    b = lane < kThreads / 32 ? sb[lane] : 0.f;
-    a = warp_sum(a);
-    b = warp_sum(b);
-  }
-}
+using aa::kThreads;
+using aa::VecIO;
 
 __device__ __forceinline__ float gelu_tanh(float y) {
   return 0.5f * y * (1.0f + tanhf(0.7978845608028654f * (y + 0.044715f * y * y * y)));
-}
-
-// grid (n_split, B): block s of row b reduces the slice [lo, hi) of the row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
-                int n, int per, int n_split, int vec_ok) {
-  constexpr int V = VecIO<T>::V;
-  const int b = blockIdx.y, s = blockIdx.x;
-  const T* row = x + static_cast<size_t>(b) * n;
-  const int lo = s * per;
-  const int hi = min(n, lo + per);
-  float s1 = 0.f, s2 = 0.f;
-  int tail = lo;
-  if (vec_ok && hi > lo) {
-    const int vhi = lo + ((hi - lo) / V) * V;
-    for (int i = lo + threadIdx.x * V; i < vhi; i += kThreads * V) {
-      float v[V];
-      VecIO<T>::load(row + i, v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) { s1 += v[k]; s2 += v[k] * v[k]; }
-    }
-    tail = vhi;
-  }
-  for (int i = tail + threadIdx.x; i < hi; i += kThreads) {
-    const float v = VecIO<T>::get(row + i);
-    s1 += v;
-    s2 += v * v;
-  }
-  block_sum2(s1, s2);
-  if (threadIdx.x == 0) {
-    float* p = partials + (static_cast<size_t>(b) * n_split + s) * 2;
-    p[0] = s1;
-    p[1] = s2;
-  }
 }
 
 // grid (blocks_per_row, B): each block folds its row's partials into
@@ -159,16 +51,12 @@ gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
   __shared__ float s_mu, s_rstd;
   const int b = blockIdx.y;
   if (threadIdx.x < 32) {
-    const float* p = partials + static_cast<size_t>(b) * n_split * 2;
-    float a = 0.f, c = 0.f;
-    for (int k = threadIdx.x; k < n_split; k += 32) { a += p[2 * k]; c += p[2 * k + 1]; }
-    a = warp_sum(a);
-    c = warp_sum(c);
+    float mu, rstd;
+    aa::fold_partials(partials + static_cast<size_t>(b) * n_split * 2, n_split, n,
+                      eps, mu, rstd);
     if (threadIdx.x == 0) {
-      const float mu = a / static_cast<float>(n);
-      const float var = fmaxf(c / static_cast<float>(n) - mu * mu, 0.f);
       s_mu = mu;
-      s_rstd = 1.0f / sqrtf(var + eps);
+      s_rstd = rstd;
     }
   }
   __syncthreads();
@@ -236,12 +124,8 @@ void launch_all(int b, int c, int t_len, int n_split, int apply_blocks,
                 int gelu, int has_res, float eps, int vec_ok,
                 const void* x, const void* res, const void* scale,
                 const void* bias, void* y, float* partials, cudaStream_t st) {
-  constexpr int V = VecIO<T>::V;
   const int n = c * t_len;
-  int per = (n + n_split - 1) / n_split;
-  per = ((per + V - 1) / V) * V;
-  gn_stats_kernel<T><<<dim3(n_split, b), kThreads, 0, st>>>(
-      static_cast<const T*>(x), partials, n, per, n_split, vec_ok);
+  aa::launch_stats<T>(x, partials, b, n, n_split, vec_ok, st);
   const dim3 grid(apply_blocks, b);
   if (gelu && has_res)
     launch_apply<T, true, true>(grid, st, x, res, partials, scale, bias, y, n, t_len, n_split, eps, vec_ok);

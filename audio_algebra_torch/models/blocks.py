@@ -1,7 +1,10 @@
 """Shared neural blocks, channels-first (B, C, T).
 
 Port of audio_algebra_tpu/models/blocks.py (the dance-diffusion style
-blocks of DiffusionAttnUnet1D and the SoundStream encoder). Modules and
+blocks of DiffusionAttnUnet1D and the SoundStream encoder), plus the flax
+layers the MIRAGE models use: Dense on the last axis (`Linear`),
+`LayerNorm`, grouped `GroupNorm` [+ FiLM] [+ SiLU] through kernel K5, and
+`ConvTranspose1d` with flax's SAME padding. Modules and
 parameters keep the flax names (`Conv1d_0`, `GroupNorm_1`, `skip_proj`,
 `qkv_proj`, ...) so that utils/params.load_flax_params maps a flax param
 tree onto them mechanically. The numerics follow the JAX code: XLA SAME
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import groupnorm1_gelu
+from ..ops.groupnorm_grouped import grouped_gn_film_silu
 
 
 def same_padding(t_len: int, kernel_size: int, stride: int = 1,
@@ -70,6 +74,75 @@ class Dense(nn.Module):
     def forward(self, x):
         y = torch.matmul(self.weight, x)
         return y if self.bias is None else y + self.bias[:, None]
+
+
+class Linear(nn.Module):
+    """flax nn.Dense over the last axis; flax kernel (in, out) maps to
+    `weight` (out, in)."""
+
+    def __init__(self, c_in: int, c_out: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis (eps 1e-6); flax scale/bias
+    map to weight/bias."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.layer_norm(x, (x.shape[-1],), self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm(num_groups) on (B, C, T), with the FiLM
+    modulation and SiLU of the MIRAGE UNet fused in, through kernel K5
+    (ops/groupnorm_grouped.py). flax scale/bias map to weight/bias.
+    film_scale / film_shift are (B, C) or None."""
+
+    def __init__(self, channels: int, groups: int):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, film_scale=None, film_shift=None, silu: bool = True):
+        return grouped_gn_film_silu(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                    self.groups, film_scale, film_shift, silu)
+
+
+class ConvTranspose1d(nn.Module):
+    """flax nn.ConvTranspose(padding="SAME", transpose_kernel=True) on
+    (B, C, T): torch conv_transpose1d, cropped to lax.conv_transpose's SAME
+    output of T * stride samples. The flax kernel (K, Cout, Cin) maps to
+    `weight` (Cin, Cout, K)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(c_in, c_out, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x):
+        k, s = self.weight.shape[-1], self.stride
+        pad_len = k + s - 2                       # lax.conv_transpose, SAME
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+        left = k - 1 - pad_a                      # crop of the full output
+        right = (k - 1) - (pad_len - pad_a)
+        if left == right:
+            return F.conv_transpose1d(x, self.weight, self.bias, stride=s, padding=left)
+        y = F.conv_transpose1d(x, self.weight, self.bias, stride=s)
+        return y[..., left:y.shape[-1] - right]
 
 
 class FourierFeatures(nn.Module):

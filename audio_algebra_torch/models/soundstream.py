@@ -1,9 +1,12 @@
-"""SoundStream-XL encoder (the DVAE's convolutional front-end), (B, C, T).
+"""SoundStream-XL encoder and decoder (the DVAE's convolutional front-end
+and the first-stage AudioAutoencoder), (B, C, T).
 
-Port of audio_algebra_tpu/models/soundstream.py: conv7 -> per stage
-[3 dilated residual units (1, 3, 9) + ELU + strided conv of kernel
-2*stride] -> ELU -> conv3 to latent_dim. Module names follow flax
-(`l000`, `l001/u0/Conv1d_0`, ...). The decoder comes with a later slice.
+Port of audio_algebra_tpu/models/soundstream.py. Encoder: conv7 -> per
+stage [3 dilated residual units (1, 3, 9) + ELU + strided conv of kernel
+2*stride] -> ELU -> conv3 to latent_dim. Decoder: conv7 -> per stage
+[ELU + transposed conv of kernel 2*stride (flax SAME, torch kernel
+orientation) + 3 residual units] -> ELU -> conv7. Module names follow
+flax (`l000`, `l001/u0/Conv1d_0`, ...).
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv1d
+from .blocks import Conv1d, ConvTranspose1d
 
 
 class ResidualUnit(nn.Module):
@@ -56,6 +59,41 @@ class SoundStreamXLEncoder(nn.Module):
 
     def forward(self, audio):
         x = self.l000(audio)
+        for i in range(self.n_blocks):
+            x = getattr(self, f"l{i + 1:03d}")(x)
+        return getattr(self, f"l{self.n_blocks + 1:03d}")(F.elu(x))
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, c_in: int, features: int, stride: int):
+        super().__init__()
+        self.u0 = ConvTranspose1d(c_in, features, 2 * stride, stride)
+        for j, d in enumerate((1, 3, 9)):
+            setattr(self, f"u{j + 1}", ResidualUnit(features, d))
+
+    def forward(self, x):
+        x = self.u0(F.elu(x))
+        return self.u3(self.u2(self.u1(x)))
+
+
+class SoundStreamXLDecoder(nn.Module):
+    """(B, latent_dim, T') -> (B, out_channels, T' * prod(strides))."""
+
+    def __init__(self, out_channels: int = 2, capacity: int = 32,
+                 latent_dim: int = 64, c_mults: Sequence[int] = (2, 4, 8, 16, 32),
+                 strides: Sequence[int] = (4, 4, 2, 2, 2)):
+        super().__init__()
+        c = capacity * c_mults[-1]
+        self.l000 = Conv1d(latent_dim, c, 7)
+        mults_next = list(c_mults[-2::-1]) + [1]
+        self.n_blocks = len(mults_next)
+        for i, (mult, stride) in enumerate(zip(mults_next, list(strides)[::-1])):
+            setattr(self, f"l{i + 1:03d}", DecoderBlock(c, capacity * mult, stride))
+            c = capacity * mult
+        setattr(self, f"l{self.n_blocks + 1:03d}", Conv1d(c, out_channels, 7))
+
+    def forward(self, latents):
+        x = self.l000(latents)
         for i in range(self.n_blocks):
             x = getattr(self, f"l{i + 1:03d}")(x)
         return getattr(self, f"l{self.n_blocks + 1:03d}")(F.elu(x))

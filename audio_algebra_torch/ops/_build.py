@@ -3,8 +3,9 @@
 Each source under `audio_algebra_torch/csrc/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface, at first use,
 into `audio_algebra_torch/_build/` (listed in .gitignore), and loaded with
-ctypes. The library's file name carries a hash of its source, so an edited
-source is rebuilt. Nothing is built when a module is imported.
+ctypes. The library's file name carries a hash of its source and of the
+shared headers (`csrc/*.cuh`), so an edited source is rebuilt. Nothing is
+built when a module is imported.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ def nvcc_path() -> str:
 
 def _lib_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 

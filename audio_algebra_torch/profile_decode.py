@@ -1,15 +1,24 @@
-"""Where the time of one Destructo decode step goes on the card.
+"""Where the time of one sampler step goes on the card.
 
-    python -m audio_algebra_torch.profile_decode [--batch 4] [--sample-size 65536]
-        [--iters 3] [--out chiprun_out/profile_decode.json]
+    python -m audio_algebra_torch.profile_decode [--model destructo]
+        [--batch 4] [--sample-size 65536] [--iters 3] [--out PATH]
 
-Builds the reference DiffusionDVAE in bf16 with seeded random weights,
-runs two warm-up UNet forwards (one decode step each), times `--iters`
-forwards with CUDA events, then traces `--iters` forwards with
-torch.profiler. Prints one JSON line: wall ms per forward, device kernel ms
-per forward (the sum of kernel times), the device's busy share, device ms
-per forward grouped by kind of kernel, and the top kernels; `--out` gets
-the same with the top 40. Needs a CUDA device.
+`--model` picks the UNet forward that one step runs, in bf16 with seeded
+random weights:
+  destructo     the reference DiffusionDVAE's UNet (a Destructo decode step;
+                --batch chunks of --sample-size samples)
+  mirage_inner  the MIRAGE UNetCFG1d (songs config) at --sample-size / 512
+                latents, CFG scale 4 over the doubled batch, with the rel-pos
+                biases hoisted (a DPM++(2M) step)
+  mirage_outer  the MIRAGE outer DiffusionAttnUnet1D (depth 10, 512 ch, no
+                attention) at --sample-size / 32 first-stage latents (a
+                v-DDIM step)
+It runs two warm-up forwards, times `--iters` forwards with CUDA events,
+then traces `--iters` forwards with torch.profiler. Prints one JSON line:
+wall ms per forward, device kernel ms per forward (the sum of kernel
+times), the device's busy share, device ms per forward grouped by kind of
+kernel, and the top kernels; `--out` gets the same with the top 40. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,9 +28,12 @@ from pathlib import Path
 
 import torch
 
-KINDS = [("k1_groupnorm", ("gn_apply_kernel", "gn_stats_kernel")),
-         ("convolution", ("conv", "cudnn", "xmma", "implicit", "fprop", "winograd")),
-         ("matmul", ("gemm", "cutlass", "gemv")),
+KINDS = [("k3_flash_attention", ("flash_fwd",)),
+         ("k5_grouped_gn_apply", ("ggn_apply_kernel",)),
+         ("k1_groupnorm_apply", ("gn_apply_kernel",)),
+         ("gn_stats_k1_k5", ("gn_stats_kernel",)),
+         ("convolution", ("conv", "cudnn", "implicit", "fprop", "winograd")),
+         ("matmul", ("gemm", "cutlass", "gemv", "xmma", "nvjet")),
          ("elementwise_and_glue", ("elementwise", "vectorized", "reduce", "cat",
                                    "copy", "fill", "index", "softmax"))]
 
@@ -34,8 +46,40 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def _forward(model: str, b: int, n: int, dev: torch.device):
+    """The UNet forward of one sampler step of `model`, on bf16 inputs."""
+    from .models.unet1d import DiffusionAttnUnet1D
+    from .utils.params import random_init_
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    t = torch.full((b,), 0.5, device=dev, dtype=bf16)
+    if model == "destructo":
+        from .models.dvae import DiffusionDVAE
+        dvae = random_init_(DiffusionDVAE(), 0).to(dev, bf16).eval()
+        x, cond = randn(b, 2, n), torch.tanh(randn(b, 64, n // dvae.downsampling_ratio))
+        return lambda: dvae.decode_v(x, t, cond)
+    if model == "mirage_inner":
+        from .models.unet_cfg1d import UNetCFG1d, precompute_rel_biases
+        unet = random_init_(UNetCFG1d(), 0).to(dev, bf16).eval()
+        x, emb = randn(b, 32, n // 512), randn(1, 1, 512)
+        rb = precompute_rel_biases(unet, n // 512)
+        return lambda: unet(x, t, embedding=emb, embedding_scale=4.0, rel_biases=rb)
+    outer = random_init_(DiffusionAttnUnet1D(io_channels=32, cond_dim=32, n_attn_layers=0,
+                                             c_mults=[512] * 10, depth=10), 0)
+    outer = outer.to(dev, bf16).eval()
+    x, cond = randn(b, 32, n // 32), torch.tanh(randn(b, 32, n // 512))
+    return lambda: outer(x, t, cond)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", choices=["destructo", "mirage_inner", "mirage_outer"],
+                   default="destructo")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--sample-size", type=int, default=65536)
     p.add_argument("--iters", type=int, default=3)
@@ -46,21 +90,9 @@ def main(argv=None) -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from .models.dvae import DiffusionDVAE
-    from .utils.params import random_init_
-
     dev = torch.device("cuda")
-    model = random_init_(DiffusionDVAE(), 0).to(dev, torch.bfloat16).eval()
-    g = torch.Generator(device=dev).manual_seed(0)
+    forward = _forward(args.model, args.batch, args.sample_size, dev)
     b, n = args.batch, args.sample_size
-    x = torch.randn((b, 2, n), generator=g, device=dev).bfloat16()
-    t = torch.full((b,), 0.5, device=dev, dtype=torch.bfloat16)
-    cond = torch.tanh(torch.randn((b, 64, n // model.downsampling_ratio),
-                                  generator=g, device=dev)).bfloat16()
-
-    def forward():
-        return model.decode_v(x, t, cond)
-
     with torch.inference_mode():
         for _ in range(2):
             forward()
@@ -92,7 +124,8 @@ def main(argv=None) -> None:
     for r in rows:
         by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["ms_per_forward"]
     device_ms = sum(by_kind.values())
-    result = {"device": torch.cuda.get_device_name(0), "batch": b, "sample_size": n,
+    result = {"device": torch.cuda.get_device_name(0), "model": args.model,
+              "batch": b, "sample_size": n,
               "dtype": "bfloat16", "wall_ms_per_forward": wall_ms,
               "device_kernel_ms_per_forward": device_ms,
               "busy_share": device_ms / wall_ms if wall_ms else None,

@@ -1,6 +1,7 @@
 """v-objective DDIM sampler with the cosine and "crash" schedules.
 
-Port of audio_algebra_tpu/samplers/vddim.py. The JAX `fori_loop` is a
+Port of audio_algebra_tpu/samplers/vddim.py, with `resample_diffusion`
+(the img2img partial-noise init). The JAX `fori_loop` is a
 Python loop. Per step the schedule value t is computed in f32 and handed
 to the model in x's dtype; the update runs in f32 and is cast back to x's
 dtype; the last step returns the predicted clean signal. At eta > 0 the
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -95,3 +97,33 @@ def sample_manual(model_fn: Callable, x: torch.Tensor, steps: int, eta: float,
     else:
         t = torch.as_tensor(step_list, dtype=torch.float32).cpu()
     return _ddim_loop(model_fn, x, t, eta, generator, extra_args)
+
+
+@torch.inference_mode()
+def resample_diffusion(model_fn: Callable, audio_latents: torch.Tensor, steps: int = 100,
+                       eta: float = 0.0, noise_level: float = 1.0,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       **extra_args) -> torch.Tensor:
+    """img2img-style partial-noise init: noise the latents to `noise_level`
+    on the linear schedule, then run its tail. The noise is `noise` when
+    given, else a draw from `generator`. The noised latents keep their
+    dtype."""
+    while audio_latents.dim() < 3:
+        audio_latents = audio_latents[None]
+    t = np.linspace(0.0, 1.0, steps + 1)
+    step_list = torch.tensor(t[t < noise_level], dtype=torch.float32)
+    if step_list.shape[0] == 0:
+        return audio_latents            # nothing to noise or denoise
+    alpha, sigma = get_alphas_sigmas(step_list[-1])
+    if noise is None:
+        if generator is None:
+            generator = torch.Generator(device=audio_latents.device).manual_seed(0)
+        noise = torch.randn(audio_latents.shape, generator=generator,
+                            device=audio_latents.device, dtype=torch.float32)
+    noised = (audio_latents.float() * float(alpha)
+              + noise.to(audio_latents.device).float() * float(sigma)).to(audio_latents.dtype)
+    tail = step_list.flip(0)[:-1]
+    if tail.shape[0] == 0:
+        return noised                   # no denoising step left
+    return _ddim_loop(model_fn, noised, tail, eta, generator, extra_args)

@@ -5,7 +5,8 @@ WAV (PCM 8/16/24/32-bit and float32) goes through a numpy codec. MP3 goes
 through the repository's C++ decoder `native/libaacodec.so` over a ctypes
 binding of this module, when that library has been built
 (`make -C native`). Other rates are resampled with ops.resample.resample_np.
-`batch_it_crazy` chops a signal into a zero-padded batch of chunks.
+`batch_it_crazy` chops a signal into a zero-padded batch of chunks;
+`crossfade_flatten` stitches a batch of generations into one take.
 """
 from __future__ import annotations
 
@@ -149,3 +150,33 @@ def batch_it_crazy(x, chunk_size: int, max_batch_size: int | None = None) -> np.
     if max_batch_size is not None:
         batch = batch[:max_batch_size]
     return batch
+
+
+def crossfade_flatten(fakes, sr: int = 48000, fade_secs: float = 1.5,
+                      fade_type: str = "sine") -> np.ndarray:
+    """Flatten a batch (B, C, N) to (C, ~B*N) with crossfades of fade_secs
+    ('sine', 'linear' or 'sqrt' ramps) between neighbours."""
+    fakes = np.asarray(fakes, dtype=np.float32)
+    b, c, n = fakes.shape
+    if b == 1:
+        return fakes[0]
+    ov = min(int(fade_secs * sr), n // 2)
+    ramp = np.linspace(0.0, 1.0, ov, dtype=np.float32)
+    if fade_type == "sine":
+        fade_in = np.sin(0.5 * np.pi * ramp)
+    elif fade_type == "sqrt":
+        fade_in = np.sqrt(ramp)
+    else:
+        fade_in = ramp
+    fade_out = fade_in[::-1]
+    out = np.zeros((c, b * n - (b - 1) * ov), dtype=np.float32)
+    pos = 0
+    for i in range(b):
+        seg = fakes[i].copy()
+        if i > 0:
+            seg[:, :ov] *= fade_in
+        if i < b - 1:
+            seg[:, -ov:] *= fade_out
+        out[:, pos:pos + n] += seg
+        pos += n - ov
+    return out

@@ -4,12 +4,15 @@ random init.
 The port's modules keep the flax module names, so a flax `params` tree of
 nested dicts of numpy arrays maps onto the torch state by name:
 
-  flax leaf                          torch parameter
-  Conv1d    kernel (K, Cin, Cout)    Conv1d.weight (Cout, Cin, K)
-  Dense     kernel (in, out)         Dense.weight (out, in)
-  GroupNorm scale / bias (C,)        GroupNorm1.weight / bias
-  FourierFeatures weight (out/2, 1)  FourierFeatures.weight, as is
-  any       bias                     bias
+  flax leaf                            torch parameter
+  Conv1d    kernel (K, Cin, Cout)      Conv1d.weight (Cout, Cin, K)
+  ConvTranspose kernel (K, Cout, Cin)  ConvTranspose1d.weight (Cin, Cout, K)
+  Dense     kernel (in, out)           Dense / Linear.weight (out, in)
+  GroupNorm scale (C,)                 GroupNorm1 / GroupNorm.weight
+  LayerNorm scale (C,)                 LayerNorm.weight
+  FourierFeatures weight (out/2, 1)    FourierFeatures.weight, as is
+  rel_pos_bias, fixed_embedding        the parameter of that name, as is
+  any       bias                       bias
 
 `load_flax_params` raises on any leaf left over or missing. It is the
 inverse of audio_algebra_tpu.checkpoint.torch_to_flax_array.
@@ -28,18 +31,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.blocks import Conv1d, Dense, FourierFeatures, GroupNorm1
+from ..models.blocks import (Conv1d, ConvTranspose1d, Dense, FourierFeatures, GroupNorm,
+                             GroupNorm1, LayerNorm, Linear)
+
+# parameters that keep their flax name and layout
+_AS_IS = ("rel_pos_bias", "fixed_embedding")
 
 
 def _flax_leaf(owner: nn.Module, leaf: str) -> tuple[str, Any]:
     """(flax leaf name, torch layout -> flax layout) for a torch parameter."""
-    if leaf == "bias":
-        return "bias", lambda a: a
-    if isinstance(owner, Conv1d):
+    if leaf == "bias" or leaf in _AS_IS:
+        return leaf, lambda a: a
+    if isinstance(owner, (Conv1d, ConvTranspose1d)):
         return "kernel", lambda a: a.transpose(2, 1, 0)
-    if isinstance(owner, Dense):
+    if isinstance(owner, (Dense, Linear)):
         return "kernel", lambda a: a.T
-    if isinstance(owner, GroupNorm1):
+    if isinstance(owner, (GroupNorm1, GroupNorm, LayerNorm)):
         return "scale", lambda a: a
     if isinstance(owner, FourierFeatures):
         return "weight", lambda a: a

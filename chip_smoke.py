@@ -7,18 +7,32 @@ Runs from the root of a checkout of the repository, on a machine with a
 CUDA card (sm_90a: H100). It imports nothing of JAX or of the JAX package.
 Phases, each printing one JSON line:
 
-  build      compile every CUDA source of audio_algebra_torch/csrc with nvcc,
-             all started together
-  kernels    hold kernel K1 (fused GroupNorm(1) [+GELU] [+residual]) against
-             its plain PyTorch twin on the card, at the main path's shapes,
-             and time it beside the twin, the PyTorch library calls and its
-             bound
-  model      one full-width UNet forward, (2, 2, 16384) bf16, through K1 and
-             through the twin with the same weights: rel-RMS under a bound
-  destructo  the Destructo pipeline at the reference width in bf16 with
-             seeded random weights: a 44.1 kHz WAV is loaded, resampled and
-             chunked into 4 x 65536 samples, encoded, negated and decoded in
-             35 v-DDIM steps; K1 must launch 35 x 191 times
+  build         compile every CUDA source of audio_algebra_torch/csrc with
+                nvcc, all started together
+  kernels       hold each kernel against its plain PyTorch twin on the card,
+                at the main paths' shapes, and time it beside the twin, one
+                PyTorch library call and its bound: K1 (fused GroupNorm(1)
+                [+GELU] [+residual]), K3 (rel-pos flash attention) and K5
+                (grouped GroupNorm + FiLM + SiLU)
+  model         one full-width Destructo UNet forward, (2, 2, 16384) bf16,
+                through K1 and through the twin with the same weights:
+                rel-RMS under a bound
+  destructo     the Destructo pipeline at the reference width in bf16 with
+                seeded random weights: a 44.1 kHz WAV is loaded, resampled
+                and chunked into 4 x 65536 samples, encoded, negated and
+                decoded in 35 v-DDIM steps; K1 must launch 35 x 191 times
+  mirage_model  one full-width MIRAGE UNetCFG1d forward (songs config, CFG
+                scale 4, batch 1 -> 2, T = 2048) in f32 and bf16, through K3
+                and K5 and through their twins with the same weights:
+                rel-RMS under a bound; 4 K3 and 63 K5 launches
+  mirage        CLAPDAE().half() at full width with seeded random weights:
+                22 s (1,048,576 samples), batch 1, CFG 4, 150 DPM++(2M)
+                inner steps and 100 v-DDIM outer steps, from the weighted
+                algebra of two seeded unit embeddings, run twice; K3, K5 and
+                K1 must launch 150 x 4, 150 x 63 and 100 x 119 times
+  serve         the port's HTTP service in-process on localhost: /health,
+                two /generate requests with embeddings (slerp, algebra) at
+                full width and reduced steps, and a text prompt refused
 
 Then the `kernels` summary line, the card's name and power limit from
 nvidia-smi, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -39,10 +53,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 GN_CALLS_PER_FORWARD = 191     # 14 levels x 6 blocks x 2 - 1 + 24 attention pre-norms
 STEPS = 35
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}   # (atol, rtol)
 MODEL_REL_RMS_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+# MIRAGE (22 s, songs config): the inner UNet runs 4 flash sites (level 2,
+# T = 1024) and 63 grouped GroupNorms (31 ResnetBlocks x 2 + out_norm) per
+# forward; the outer UNet (depth 10, no attention) 10 x 6 x 2 - 1 = 119 K1.
+K3_PER_INNER, K5_PER_INNER, K1_PER_OUTER = 4, 63, 119
+INNER_STEPS, OUTER_STEPS, MIRAGE_SAMPLES = 150, 100, 1048576
+MIRAGE_REL_RMS_BOUND = {"float32": 1e-3, "bfloat16": 5e-2}
 
 
 def emit(obj) -> None:
@@ -100,6 +121,7 @@ def phase_kernels() -> dict:
              for dt in (torch.bfloat16, torch.float32)
              for gelu in (True, False) for res in (True, False)]
     cases.append(((2, 128, 1000), torch.float32, True, True))
+    cases.append(((1, 512, 32768), torch.bfloat16, True, True))     # MIRAGE outer UNet
     rows = []
     for shape, dt, gelu, res in cases:
         g = torch.Generator(device=dev).manual_seed(len(rows))
@@ -138,6 +160,134 @@ def phase_kernels() -> dict:
         raise AssertionError(f"K1 disagrees with its twin: {failed}")
     return next(r for r in rows if r["shape"] == [4, 256, 65536]
                 and r["dtype"] == "bfloat16" and r["gelu"] and r["residual"])
+
+
+def _compare(got, want, dtype) -> dict:
+    name = str(dtype).removeprefix("torch.")
+    atol, rtol = TOL[name]
+    err = (got.float() - want.float()).abs()
+    return {"dtype": name, "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
+            "n_outside_tol": int((err > atol + rtol * want.float().abs()).sum())}
+
+
+def flash_bound(shape, dtype, bias_dtype) -> tuple[float, str]:
+    """Least time for K3: read q, k, v and the (H, T, T) bias once, write o
+    once; or its 4 B H T^2 D product operations at the peak of q's type
+    (bf16 tensor cores, or f32 outside them), whichever is larger."""
+    import torch
+    b, h, t, d = shape
+    qkv = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * b * h * t * d * qkv + h * t * t * torch.empty((), dtype=bias_dtype).element_size()
+    peak = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * b * h * t * t * d / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels_k3() -> dict:
+    """K3 at the MIRAGE inner UNet's flash sites: 22 s (T = 1024) and 66 s
+    (T = 3072, 1536), B = 2 from CFG, 16 heads x 64, bf16 with a bf16
+    bias; and one f32 row."""
+    import torch
+    import torch.nn.functional as F
+    from audio_algebra_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    cases = [((2, 16, 1024, 64), torch.bfloat16, torch.bfloat16),
+             ((2, 16, 3072, 64), torch.bfloat16, torch.bfloat16),
+             ((2, 16, 1536, 64), torch.bfloat16, torch.bfloat16),
+             ((2, 16, 1024, 64), torch.float32, torch.float32)]
+    rows = []
+    for shape, dt, bdt in cases:
+        g = torch.Generator(device=dev).manual_seed(100 + len(rows))
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(3))
+        h, t = shape[1], shape[2]
+        bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).to(bdt)
+        scale = shape[3] ** -0.5
+        got = fa.flash_attention_relpos(q, k, v, bias_t, scale)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_relpos_ref(q, k, v, bias_t, scale)
+        row = {"shape": list(shape), "bias_dtype": str(bdt).removeprefix("torch."),
+               **_compare(got, want, dt)}
+        del got, want
+        mask = bias_t.transpose(1, 2)[None].to(dt)           # (1, H, T, S)
+        big = t > 1024
+        bound_ms, bound_by = flash_bound(shape, dt, bdt)
+        row.update({
+            "kernel_ms": cuda_ms(lambda: fa.flash_attention_relpos(q, k, v, bias_t, scale),
+                                 20),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_relpos_ref(q, k, v, bias_t, scale),
+                                3 if big else 10, warmup=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        rows.append(row)
+        del q, k, v, bias_t, mask
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "flash_attention_relpos", "cases": rows})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K3 disagrees with its twin: {failed}")
+    return rows[0]
+
+
+def ggn_bound(shape, dtype, film: bool) -> tuple[float, str]:
+    """Least time for K5: read x once, write y once (plus the per-channel
+    planes); or its f32 operations (statistics 3, affine 2, SiLU 4 per
+    element) at the f32 peak, whichever is larger."""
+    import torch
+    b, c, t = shape
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * b * c * t * esize + (2 * c + (2 * b * c if film else 0)) * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = b * c * t * 9 / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels_k5() -> dict:
+    """K5 at the MIRAGE inner UNet's shapes (8 groups, SiLU): the widest
+    level with FiLM, the widest up-level input without FiLM, the deepest
+    level; and one f32 row."""
+    import torch
+    import torch.nn.functional as F
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+
+    dev = torch.device("cuda")
+    cases = [((2, 512, 2048), torch.bfloat16, True), ((2, 1536, 2048), torch.bfloat16, False),
+             ((2, 1024, 32), torch.bfloat16, True), ((2, 512, 2048), torch.float32, True)]
+    rows = []
+    for shape, dt, film in cases:
+        g = torch.Generator(device=dev).manual_seed(200 + len(rows))
+        b, c, _ = shape
+        x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.2).to(dt)
+        scale = (torch.rand(c, generator=g, device=dev) + 0.5).to(dt)
+        bias = (torch.rand(c, generator=g, device=dev) - 0.5).to(dt)
+        ts = (torch.randn((b, 2 * c), generator=g, device=dev) * 0.3).to(dt)
+        fs, sh = ts.chunk(2, dim=1) if film else (None, None)
+        got = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+        torch.cuda.synchronize()
+        want = ggn.grouped_gn_film_silu_ref(x, scale, bias, 8, fs, sh)
+        row = {"shape": list(shape), "film": film, "silu": True, **_compare(got, want, dt)}
+
+        def library():
+            y = F.group_norm(x, 8, scale, bias, 1e-6)
+            if film:
+                y = y * (1 + fs[:, :, None]) + sh[:, :, None]
+            return F.silu(y)
+
+        bound_ms, bound_by = ggn_bound(shape, dt, film)
+        row.update({"kernel_ms": cuda_ms(lambda: ggn.grouped_gn_film_silu(x, scale, bias, 8,
+                                                                           fs, sh), 200),
+                    "plain_ms": cuda_ms(lambda: ggn.grouped_gn_film_silu_ref(x, scale, bias,
+                                                                              8, fs, sh), 50),
+                    "library_ms": cuda_ms(library, 200),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        rows.append(row)
+    emit({"phase": "kernels", "kernel": "grouped_gn_film_silu", "cases": rows})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K5 disagrees with its twin: {failed}")
+    return rows[0]
 
 
 def rel_rms(a, b) -> float:
@@ -244,6 +394,181 @@ def phase_destructo() -> int:
     return launches
 
 
+def phase_mirage_model() -> None:
+    """One full-width MIRAGE UNetCFG1d forward (the songs config, CFG
+    scale 4 over a doubled batch, T = 2048) through K3 and K5 and through
+    their twins with the same weights, in f32 and in bf16. The bf16 twin
+    against the f32 twin gives the size of bf16 rounding itself."""
+    import torch
+    from audio_algebra_torch.models import blocks, unet_cfg1d
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.utils.params import random_init_
+
+    dev = torch.device("cuda")
+    t_len = MIRAGE_SAMPLES // 512
+    unet = random_init_(unet_cfg1d.UNetCFG1d(), 0).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((1, 32, t_len), generator=g, device=dev)
+    t = torch.rand((1,), generator=g, device=dev)
+    emb = torch.randn((1, 1, 512), generator=g, device=dev)
+    emb = emb / emb.norm()
+    out, calls, fwd_ms = {}, {}, {}
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            unet.to(dt)
+            rb = unet_cfg1d.precompute_rel_biases(unet, t_len)
+            kw = dict(embedding=emb.to(dt), embedding_scale=4.0, rel_biases=rb)
+            args = (x.to(dt), t.to(dt))
+            before = (fa.launches, ggn.launches)
+            out["kernel", dt] = unet(*args, **kw).float()
+            calls[str(dt).removeprefix("torch.")] = [fa.launches - before[0],
+                                                     ggn.launches - before[1]]
+            fwd_ms[str(dt).removeprefix("torch.")] = cuda_ms(lambda: unet(*args, **kw), 5)
+            unet_cfg1d.flash_attention_relpos = fa.flash_attention_relpos_ref
+            blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu_ref
+            try:
+                out["plain", dt] = unet(*args, **kw).float()
+            finally:
+                unet_cfg1d.flash_attention_relpos = fa.flash_attention_relpos
+                blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {"float32": rel_rms(out["kernel", f32], out["plain", f32]),
+            "bfloat16": rel_rms(out["kernel", bf16], out["plain", bf16])}
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    emit({"phase": "mirage_model", "shape": [1, 32, t_len], "cfg_scale": 4.0,
+          "k3_k5_launches": calls, "forward_ms": fwd_ms,
+          "rel_rms_kernel_vs_plain": errs, "bound": MIRAGE_REL_RMS_BOUND,
+          "rel_rms_plain_bf16_vs_f32": rel_rms(out["plain", bf16], out["plain", f32]),
+          "finite": finite})
+    if any(c != [K3_PER_INNER, K5_PER_INNER] for c in calls.values()):
+        raise AssertionError(f"UNetCFG1d forward launched (K3, K5) {calls} times")
+    if not finite or any(errs[k] >= MIRAGE_REL_RMS_BOUND[k] for k in errs):
+        raise AssertionError(f"UNetCFG1d through K3/K5 vs plain: rel-RMS {errs}")
+
+
+def phase_mirage():
+    """Full-width 22 s MIRAGE generate in bf16 with seeded random weights,
+    run twice (the second is the steady state). Returns the model (warm,
+    for the serve phase) and the first run's launch counts."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch.embedding_math import weighted_algebra
+    from audio_algebra_torch.given_models import CLAPDAE
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+
+    t0 = time.time()
+    model = CLAPDAE(device="cuda", seed=0).setup("22s").half()
+    init_s = time.time() - t0
+    rng = np.random.default_rng(0)
+    a, b = (v / np.linalg.norm(v) for v in rng.standard_normal((2, 1, 1, 512)).astype("f4"))
+    emb = weighted_algebra([a, b], [1.0, -0.5])
+
+    def run():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fakes, lat = model.generate(emb, cfg_scales=4, demo_steps=INNER_STEPS,
+                                    outer_steps=OUTER_STEPS, batch_size=1, stage_times=True)
+        torch.cuda.synchronize()
+        return fakes, lat, time.perf_counter() - start, dict(model.last_stage_times)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = ggn.launches = gn.launches = 0
+    fakes, lat, first_s, first_stages = run()
+    counts = {"k3": fa.launches, "k5": ggn.launches, "k1": gn.launches}
+    _, _, gen_s, stages = run()
+    expected = {"k3": INNER_STEPS * K3_PER_INNER, "k5": INNER_STEPS * K5_PER_INNER,
+                "k1": OUTER_STEPS * K1_PER_OUTER}
+    finite = bool(torch.isfinite(fakes).all())
+    in_range = bool((lat.abs() <= 1).all())
+    emit({"phase": "mirage", "samples": MIRAGE_SAMPLES, "batch": 1, "cfg_scale": 4,
+          "inner_steps": INNER_STEPS, "outer_steps": OUTER_STEPS, "dtype": "bfloat16",
+          "init_s": init_s, "first_generate_s": first_s, "first_stages_s": first_stages,
+          "inner_s": stages["inner_s"], "outer_s": stages["outer_s"],
+          "ae_decode_s": stages["decode_s"], "generate_s": gen_s,
+          "inner_ms_per_step": stages["inner_s"] / INNER_STEPS * 1e3,
+          "outer_ms_per_step": stages["outer_s"] / OUTER_STEPS * 1e3,
+          "realtime_factor": MIRAGE_SAMPLES / 48000 / gen_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "out_shape": list(fakes.shape), "finite": finite, "latents_in_range": in_range,
+          "launches": counts, "launches_expected": expected})
+    if tuple(fakes.shape) != (2, MIRAGE_SAMPLES) or not finite or not in_range:
+        raise AssertionError(f"mirage output {tuple(fakes.shape)} finite={finite} "
+                             f"latents in range={in_range}")
+    if counts != expected:
+        raise AssertionError(f"mirage launches {counts}, expected {expected}")
+    return model, counts
+
+
+def phase_serve(model) -> None:
+    """The HTTP service in-process on localhost, around the warm model."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import wave
+
+    import numpy as np
+    from audio_algebra_torch import serve
+    from audio_algebra_torch.given_models import CLAP_NOT_PORTED
+
+    svc = serve.MirageService(model=model, verbose=False)
+    server = serve.make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, obj, timeout=600):
+        req = urllib.request.Request(f"{base}{path}", data=json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=timeout)
+
+    rng = np.random.default_rng(1)
+    embs = [(v / np.linalg.norm(v)).tolist() for v in rng.standard_normal((2, 512))]
+    specs = {"slerp": {"embeddings": embs, "interp": 0.3, "steps": 8, "outer_steps": 4,
+                       "seed": 1},
+             "algebra": {"embeddings": embs, "algebra": True, "weights": [1.0, -0.5],
+                         "steps": 8, "outer_steps": 4, "seed": 2}}
+    result = {"phase": "serve", "requests": {}}
+    try:
+        with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
+            result["health"] = json.loads(r.read())
+        for name, spec in specs.items():
+            start = time.perf_counter()
+            with post("/generate", spec) as r:
+                status, ctype, body = r.status, r.headers["Content-Type"], r.read()
+            with wave.open(io.BytesIO(body)) as w:
+                fmt = [w.getnchannels(), w.getframerate(), w.getnframes()]
+                pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            result["requests"][name] = {
+                "status": status, "content_type": ctype, "wav": fmt,
+                "seconds": time.perf_counter() - start, "rms": float(np.sqrt(
+                    np.mean((pcm / 32767.0) ** 2)))}
+        try:
+            post("/generate", {"text": ["low brass"]}, 60)
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = {"code": e.code, "detail": json.loads(e.read())["detail"]}
+        result["text_prompt"] = refused
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    emit(result)
+    if not result["health"].get("ok"):
+        raise AssertionError(f"/health answered {result['health']}")
+    for name, r in result["requests"].items():
+        if r["status"] != 200 or r["content_type"] != "audio/wav" \
+                or r["wav"] != [2, 48000, MIRAGE_SAMPLES]:
+            raise AssertionError(f"/generate ({name}) answered {r}")
+    if refused is None or refused["code"] != 501 or refused["detail"] != CLAP_NOT_PORTED:
+        raise AssertionError(f"a text prompt was not refused with the CLAP message: {refused}")
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -261,16 +586,29 @@ def main() -> int:
           "allow_tf32": {"matmul": False, "cudnn": False}})
     phase_build()
     k1 = phase_kernels()
+    k3 = phase_kernels_k3()
+    k5 = phase_kernels_k5()
     phase_model()
-    launches = phase_destructo()
-    emit({"kernels": [{
-        "name": "groupnorm1_gelu", "route": "cuda",
-        "source": "audio_algebra_torch/csrc/groupnorm.cu",
-        "replaces": "audio_algebra_tpu/ops/pallas/groupnorm.py:721",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]})
+    destructo_k1 = phase_destructo()
+    phase_mirage_model()
+    model, counts = phase_mirage()
+    phase_serve(model)
+
+    def entry(name, source, replaces, launches, row, **extra):
+        return {"name": name, "route": "cuda", "source": f"audio_algebra_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"], **extra}
+
+    emit({"kernels": [
+        entry("groupnorm1_gelu", "groupnorm.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
+              launches_by_path={"destructo": destructo_k1, "mirage": counts["k1"]}),
+        entry("flash_attention_relpos", "flash_attention.cu",
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3),
+        entry("grouped_gn_film_silu", "grouped_gn.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5)]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
