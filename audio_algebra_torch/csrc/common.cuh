@@ -89,12 +89,18 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
 
 // grid (n_split, rows): block s of row r reduces the slice [lo, hi) of the
 // row's n contiguous elements into partials[r, s, 0:2] = (sum, sumsq).
+// Block (0, 0) also zeroes `zero[0:zero_n]` when it is given: the turbo
+// apply pass (groupnorm.cu) max-accumulates its amax there, and this saves
+// it a separate fill launch.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
-                int n, int per, int n_split, int vec_ok) {
+                int n, int per, int n_split, int vec_ok,
+                unsigned* __restrict__ zero, int zero_n) {
   constexpr int V = VecIO<T>::V;
   const int b = blockIdx.y, s = blockIdx.x;
+  if (zero != nullptr && b == 0 && s == 0)
+    for (int k = threadIdx.x; k < zero_n; k += kThreads) zero[k] = 0u;
   const T* row = x + static_cast<size_t>(b) * n;
   const int lo = s * per;
   const int hi = min(n, lo + per);
@@ -126,12 +132,13 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
 // Launch the statistics pass over `rows` rows of n elements each.
 template <typename T>
 void launch_stats(const void* x, float* partials, int rows, int n, int n_split,
-                  int vec_ok, cudaStream_t st) {
+                  int vec_ok, cudaStream_t st, unsigned* zero = nullptr,
+                  int zero_n = 0) {
   constexpr int V = VecIO<T>::V;
   int per = (n + n_split - 1) / n_split;
   per = ((per + V - 1) / V) * V;
   gn_stats_kernel<T><<<dim3(n_split, rows), kThreads, 0, st>>>(
-      static_cast<const T*>(x), partials, n, per, n_split, vec_ok);
+      static_cast<const T*>(x), partials, n, per, n_split, vec_ok, zero, zero_n);
 }
 
 // Fold a row's n_split partials into (mean, rstd) in f32, in a fixed

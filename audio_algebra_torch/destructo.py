@@ -6,6 +6,7 @@ v-DDIM decode, write a WAV.
 
     python -m audio_algebra_torch.destructo input.wav --op destructo \
         --steps 35 --out destructo_out.wav [--device cuda] [--dtype bfloat16]
+        [--turbo --max-batch 16]
 
 Latent ops: destructo (sign flip), dimswap, timereverse, ewma ("latent
 reverb"), overdrive (tanh), none, or a Python expression over `z` with
@@ -75,6 +76,11 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--turbo", action="store_true",
+                   help="int8 turbo decode (the UNet's int8 convs with the amax "
+                        "carry). It engages only at a batch of 16 chunks or more, "
+                        "so it needs --max-batch 16; below that the decode is the "
+                        "float one")
     args = p.parse_args(argv)
 
     from .given_models import DVAEWrapper
@@ -84,7 +90,8 @@ def main(argv=None):
     args_dict = {"demo_steps": args.steps, "sample_size": args.chunk_size}
     args_dict.update(extra_args)
     w = DVAEWrapper(args_dict=args_dict, model_kwargs=model_kwargs, seed=args.seed,
-                    device=args.device, dtype=getattr(torch, args.dtype))
+                    device=args.device, dtype=getattr(torch, args.dtype),
+                    turbo=args.turbo)
 
     def chunks(path):
         return batch_it_crazy(load_audio(path, sr=48000), args.chunk_size,

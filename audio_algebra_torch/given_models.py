@@ -6,7 +6,10 @@ Port of audio_algebra_tpu/given_models.py:DVAEWrapper and CLAPDAE.
 DVAEWrapper. encode: encoder ->
 tanh, and a fresh decode noise is drawn (as the reference does); decode:
 v-DDIM `sample` from that noise conditioned on the latents, then the
-'b d n -> d (b n)' flatten. The noise is an attribute the caller may set
+'b d n -> d (b n)' flatten. `turbo=True` decodes through the UNet's int8
+route with the amax carry (JAX: AA_TURBO_INT8=1), which engages at batch
+>= `turbo_min_b` (16, JAX's AA_TURBO_MIN_B default); below it the decode
+is the float one. The noise is an attribute the caller may set
 (`w.noise = ...`, shape (B, 2, sample_size)).
 
 The wrapper holds one set of weights, the ones inference uses (the JAX
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.blocks import TURBO_MIN_B
 from .models.dvae import DiffusionDVAE
 from .models.stacked import LatentAudioDiffusionAutoencoder, StackedAELatentDiffusionCond
 from .models.unet_cfg1d import precompute_rel_biases
@@ -54,9 +58,11 @@ class DVAEWrapper:
     def __init__(self, args_dict: Optional[dict] = None,
                  model_kwargs: Optional[dict] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, turbo: bool = False,
+                 turbo_min_b: int = TURBO_MIN_B):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.turbo, self.turbo_min_b = turbo, turbo_min_b
         args = dict(self.DEFAULT_ARGS)
         args.update(args_dict or {})
         self.seed = seed
@@ -112,8 +118,16 @@ class DVAEWrapper:
         noise = self.noise
         if noise is None or noise.shape[0] != reps.shape[0]:
             noise = self._draw_noise(reps.shape[0])
-        fakes = vddim_sample(self.model.decode_v, self._as_input(noise),
-                             demo_steps, 0, reps)
+        if self.turbo:
+            # the amax carry: each step quantises on the previous step's grids
+            def model_fn(x, t, aux, cond):
+                return self.model.decode_v_aux(x, t, cond, q_aux=aux,
+                                               turbo_min_b=self.turbo_min_b)
+            fakes = vddim_sample(model_fn, self._as_input(noise), demo_steps, 0, reps,
+                                 aux_mode=True)
+        else:
+            fakes = vddim_sample(self.model.decode_v, self._as_input(noise),
+                                 demo_steps, 0, reps)
         b, d, n = fakes.shape                     # 'b d n -> d (b n)'
         return fakes.transpose(0, 1).reshape(d, b * n)
 

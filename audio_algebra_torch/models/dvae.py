@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .blocks import TURBO_MIN_B
 from .soundstream import SoundStreamXLEncoder
 from .unet1d import DiffusionAttnUnet1D
 
@@ -53,3 +54,11 @@ class DiffusionDVAE(nn.Module):
                  cond: torch.Tensor) -> torch.Tensor:
         """One UNet forward: the predicted velocity (the sampler's model)."""
         return self.diffusion(x, t, cond)
+
+    def decode_v_aux(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                     q_aux=None, turbo_min_b: int = TURBO_MIN_B):
+        """decode_v through the turbo route, in the amax-carry contract:
+        returns (v, q_aux_out); q_aux is the previous sampler step's (None
+        on the first). See DiffusionAttnUnet1D.forward."""
+        return self.diffusion(x, t, cond, q_aux=q_aux, collect_q_aux=True, turbo=True,
+                              turbo_min_b=turbo_min_b)

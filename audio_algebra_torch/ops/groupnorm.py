@@ -1,15 +1,21 @@
-"""Fused GroupNorm(1) [+ tanh-GELU] [+ residual] — kernel K1.
+"""Fused GroupNorm(1) [+ tanh-GELU] [+ residual] — kernels K1 and K2.
 
-`groupnorm1_gelu` is the port of audio_algebra_tpu's Pallas
-`ops/pallas/groupnorm.py:groupnorm1_gelu_btc` (without its turbo int8
-extras), on the port's (B, C, T) layout. On a CUDA tensor it launches the
-hand-written CUDA kernel of `csrc/groupnorm.cu` (built for sm_90a at first
-use) or raises; on a CPU tensor it takes the plain PyTorch twin
-`groupnorm1_gelu_ref`, which computes the same function. There is no
-fallback from the card to the twin.
+The port of audio_algebra_tpu's Pallas `ops/pallas/groupnorm.py:
+groupnorm1_gelu_btc`, on the port's (B, C, T) layout:
 
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+  groupnorm1_gelu        (K1)  y = [res +] [gelu](gn(x) * scale + bias)
+  groupnorm1_gelu_quant  (K2a) int8 of y on a per-channel grid (turbo GN_0)
+  groupnorm1_gelu_res_amax (K2b, K2c) res + y and its per-channel amax,
+                         plus an int8 twin on a given grid (turbo GN_1)
+
+On a CUDA tensor each launches the hand-written CUDA kernel of
+`csrc/groupnorm.cu` (built for sm_90a at first use) or raises; on a CPU
+tensor it takes its plain PyTorch twin (`*_ref`), which computes the same
+function. There is no fallback from the card to a twin.
+
+`launches` (K1), `quant_launches` (K2a), `amax_launches` (K2b) and
+`amax_q_launches` (K2c) count the kernels' launches, so a run can show
+that its main path went through them.
 """
 from __future__ import annotations
 
@@ -21,9 +27,14 @@ SOURCE = "groupnorm.cu"
 GELU_C = 0.7978845608028654
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW = 1 << 30              # the kernel indexes a row with 32-bit ints
+_MAX_AMAX_C = 12288             # the amax table lives in 48 KB of shared memory
 _THREADS = 256
+_QUANT, _RES_AMAX, _RES_AMAX_Q = 0, 1, 2
 
 launches = 0
+quant_launches = 0
+amax_launches = 0
+amax_q_launches = 0
 
 
 def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
@@ -31,21 +42,61 @@ def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
     return 0.5 * y * (1.0 + torch.tanh(GELU_C * (y + 0.044715 * y * y * y)))
 
 
-def groupnorm1_gelu_ref(x, scale, bias, gelu: bool, residual=None,
-                        eps: float = 1e-6):
-    """Plain PyTorch GN(1)[+GELU][+residual] on (B, C, T): f32 statistics
-    over (C, T) per batch row, variance clamped at 0, output in x's dtype."""
+def _gn_f32(x, scale, bias, gelu: bool, eps: float) -> torch.Tensor:
+    """[gelu](GroupNorm1(x) * scale + bias) in f32: f32 statistics over
+    (C, T) per batch row, variance clamped at 0."""
     x32 = x.float()
     mu = x32.mean(dim=(1, 2), keepdim=True)
     var = torch.clamp(x32.square().mean(dim=(1, 2), keepdim=True)
                       - mu.square(), min=0.0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     y = y * scale.float()[None, :, None] + bias.float()[None, :, None]
-    if gelu:
-        y = gelu_tanh(y)
+    return gelu_tanh(y) if gelu else y
+
+
+def groupnorm1_gelu_ref(x, scale, bias, gelu: bool, residual=None,
+                        eps: float = 1e-6):
+    """Plain PyTorch GN(1)[+GELU][+residual] on (B, C, T), output in x's
+    dtype."""
+    y = _gn_f32(x, scale, bias, gelu, eps)
     if residual is not None:
         y = residual.float() + y
     return y.to(x.dtype)
+
+
+def quant_inverse(q_scale: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-channel multiplier 1 / max(q_scale, 1e-12), in f32
+    (the JAX wrapper's `qinv`)."""
+    return (1.0 / torch.clamp(q_scale.float(), min=1e-12)).contiguous()
+
+
+def quantize_rows(v32: torch.Tensor, qinv: torch.Tensor) -> torch.Tensor:
+    """int8 clip(round_half_even(v * qinv_c), +-127) of an f32 (B, C, T)."""
+    return torch.clamp(torch.round(v32 * qinv[None, :, None]), -127, 127).to(torch.int8)
+
+
+def groupnorm1_gelu_quant_ref(x, scale, bias, quant_scale, gelu: bool = True,
+                              eps: float = 1e-6) -> torch.Tensor:
+    """Plain twin of K2a: int8 of [gelu](gn(x) * scale + bias) on the
+    per-channel grid `quant_scale` (C,), multiplied by its inverse."""
+    return quantize_rows(_gn_f32(x, scale, bias, gelu, eps), quant_inverse(quant_scale))
+
+
+def groupnorm1_gelu_res_amax_ref(x, scale, bias, residual, gelu: bool = True,
+                                 q_emit_scale=None, eps: float = 1e-6):
+    """Plain twin of K2b / K2c: out = residual + [gelu](gn(x) * scale +
+    bias) in x's dtype and amax_c = max over (B, T) of |out|, both from the
+    f32 sum; with `q_emit_scale` (C,), also the int8 twin of the f32 sum on
+    that grid. Returns (out, amax) or (out, amax, out8)."""
+    out32 = residual.float() + _gn_f32(x, scale, bias, gelu, eps)
+    if out32.numel():
+        amax = out32.abs().amax(dim=(0, 2))
+    else:
+        amax = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    out = out32.to(x.dtype)
+    if q_emit_scale is None:
+        return out, amax
+    return out, amax, quantize_rows(out32, quant_inverse(q_emit_scale))
 
 
 def _check(x, scale, bias, residual):
@@ -67,14 +118,17 @@ def _check(x, scale, bias, residual):
         raise ValueError("groupnorm1_gelu wants contiguous tensors")
 
 
-def _lib():
+def _lib(name: str = "aa_groupnorm1_gelu"):
     from ._build import load
-    lib = load(SOURCE)
-    fn = lib.aa_groupnorm1_gelu
+    fn = getattr(load(SOURCE), name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, ci, vp]
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "aa_groupnorm1_gelu":
+            fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                           cf, ci, vp]
+        else:
+            fn.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                           ci, ci, ci, cf, ci, vp]
         fn.restype = ci
     return fn
 
@@ -124,3 +178,93 @@ def groupnorm1_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise RuntimeError(f"groupnorm1_gelu kernel launch failed: CUDA error {err}")
     launches += 1
     return y
+
+
+def _check_grid(q, c, x, name):
+    if q.shape != (c,) or not q.is_floating_point() or q.device != x.device:
+        raise ValueError(f"{name} must be a ({c},) float tensor on {x.device}, "
+                         f"got {tuple(q.shape)} {q.dtype} on {q.device}")
+
+
+def _turbo_launch(mode: int, x, scale, bias, residual, q_scale, gelu: bool,
+                  eps: float):
+    """Launch K2 in `mode` on CUDA tensors; returns (y, amax, y8), each
+    None where the mode has no such output."""
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm1 turbo: unsupported device {x.device}")
+    b, c, t_len = x.shape
+    n = c * t_len
+    if n > _MAX_ROW:
+        raise ValueError(f"groupnorm1 turbo: row of {n} elements exceeds {_MAX_ROW}")
+    if mode != _QUANT and c > _MAX_AMAX_C:
+        raise ValueError(f"groupnorm1 turbo: {c} channels exceed the amax table's "
+                         f"{_MAX_AMAX_C}")
+    y = torch.empty_like(x) if mode != _QUANT else None
+    y8 = torch.empty(x.shape, dtype=torch.int8, device=x.device) if mode != _RES_AMAX else None
+    amax = torch.empty(c, dtype=torch.float32, device=x.device) if mode != _QUANT else None
+    if x.numel() == 0:
+        if amax is not None:
+            amax.zero_()
+        return y, amax, y8
+    qinv = quant_inverse(q_scale) if q_scale is not None else None
+    vec = 16 // x.element_size()
+    ptrs = [t.data_ptr() for t in (x, residual, y, y8) if t is not None]
+    vec_ok = int(n % vec == 0 and all(p % 16 == 0 for p in ptrs))
+    n_split, apply_blocks = _launch_shape(b, n, vec)
+    partials = torch.empty((b, n_split, 2), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib("aa_groupnorm1_turbo")(
+        _DTYPES[x.dtype], mode, x.data_ptr(), ptr(residual), scale.data_ptr(),
+        bias.data_ptr(), ptr(qinv), ptr(y), ptr(y8), ptr(amax), partials.data_ptr(),
+        b, c, t_len, n_split, apply_blocks, int(gelu), float(eps), vec_ok, stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm1 turbo kernel launch failed: CUDA error {err}")
+    return y, amax, y8
+
+
+def groupnorm1_gelu_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          quant_scale: torch.Tensor, gelu: bool = True,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """K2a: int8 clip(round([gelu](GroupNorm1(x) * scale + bias) /
+    quant_scale_c)) on (B, C, T), the float output never written.
+    quant_scale is (C,) float (the kernel multiplies by its inverse). CPU
+    tensors take the plain twin; CUDA tensors launch the CUDA kernel."""
+    global quant_launches
+    _check(x, scale, bias, None)
+    _check_grid(quant_scale, x.shape[1], x, "quant_scale")
+    if x.device.type == "cpu":
+        return groupnorm1_gelu_quant_ref(x, scale, bias, quant_scale, gelu, eps)
+    _, _, y8 = _turbo_launch(_QUANT, x, scale, bias, None, quant_scale, gelu, eps)
+    quant_launches += 1
+    return y8
+
+
+def groupnorm1_gelu_res_amax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                             residual: torch.Tensor, gelu: bool = True,
+                             q_emit_scale: torch.Tensor | None = None,
+                             eps: float = 1e-6):
+    """K2b: (out, amax) with out = residual + [gelu](GroupNorm1(x) * scale +
+    bias) in x's dtype and amax (C,) f32 the max over (B, T) of |out|
+    before the cast. K2c, with `q_emit_scale` (C,): (out, amax, out8), out8
+    the int8 twin of out (before the cast) on that grid. CPU tensors take
+    the plain twin; CUDA tensors launch the CUDA kernel."""
+    global amax_launches, amax_q_launches
+    _check(x, scale, bias, residual)
+    if residual is None:
+        raise ValueError("groupnorm1_gelu_res_amax needs a residual")
+    if q_emit_scale is not None:
+        _check_grid(q_emit_scale, x.shape[1], x, "q_emit_scale")
+    if x.device.type == "cpu":
+        return groupnorm1_gelu_res_amax_ref(x, scale, bias, residual, gelu,
+                                            q_emit_scale, eps)
+    mode = _RES_AMAX if q_emit_scale is None else _RES_AMAX_Q
+    y, amax, y8 = _turbo_launch(mode, x, scale, bias, residual, q_emit_scale, gelu, eps)
+    if q_emit_scale is None:
+        amax_launches += 1
+        return y, amax
+    amax_q_launches += 1
+    return y, amax, y8

@@ -1,7 +1,7 @@
 """Where the time of one sampler step goes on the card.
 
     python -m audio_algebra_torch.profile_decode [--model destructo]
-        [--batch 4] [--sample-size 65536] [--iters 3] [--out PATH]
+        [--batch 4] [--sample-size 65536] [--iters 3] [--out PATH] [--turbo]
 
 `--model` picks the UNet forward that one step runs, in bf16 with seeded
 random weights:
@@ -13,6 +13,9 @@ random weights:
   mirage_outer  the MIRAGE outer DiffusionAttnUnet1D (depth 10, 512 ch, no
                 attention) at --sample-size / 32 first-stage latents (a
                 v-DDIM step)
+`--turbo` (destructo only) runs the UNet's int8 route as a decode step
+after the first does: with the amax carry of one earlier forward (K2a,
+K2b, K2c and the int8 convs); it engages at --batch 16 or more.
 It runs two warm-up forwards, times `--iters` forwards with CUDA events,
 then traces `--iters` forwards with torch.profiler. Prints one JSON line:
 wall ms per forward, device kernel ms per forward (the sum of kernel
@@ -28,11 +31,13 @@ from pathlib import Path
 
 import torch
 
-KINDS = [("k3_flash_attention", ("flash_fwd",)),
+KINDS = [("k2_turbo_gn_apply", ("gn_turbo_kernel",)),
+         ("k3_flash_attention", ("flash_fwd",)),
          ("k5_grouped_gn_apply", ("ggn_apply_kernel",)),
          ("k1_groupnorm_apply", ("gn_apply_kernel",)),
          ("gn_stats_k1_k5", ("gn_stats_kernel",)),
          ("convolution", ("conv", "cudnn", "implicit", "fprop", "winograd")),
+         ("int8_matmul", ("gemm_s8", "i16832", "imma", "s8s8")),
          ("matmul", ("gemm", "cutlass", "gemv", "xmma", "nvjet")),
          ("elementwise_and_glue", ("elementwise", "vectorized", "reduce", "cat",
                                    "copy", "fill", "index", "softmax"))]
@@ -46,7 +51,7 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def _forward(model: str, b: int, n: int, dev: torch.device):
+def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False):
     """The UNet forward of one sampler step of `model`, on bf16 inputs."""
     from .models.unet1d import DiffusionAttnUnet1D
     from .utils.params import random_init_
@@ -62,7 +67,13 @@ def _forward(model: str, b: int, n: int, dev: torch.device):
         from .models.dvae import DiffusionDVAE
         dvae = random_init_(DiffusionDVAE(), 0).to(dev, bf16).eval()
         x, cond = randn(b, 2, n), torch.tanh(randn(b, 64, n // dvae.downsampling_ratio))
+        if turbo:
+            with torch.inference_mode():
+                _, aux = dvae.decode_v_aux(x, t, cond)      # step 0 sets the carry
+            return lambda: dvae.decode_v_aux(x, t, cond, q_aux=aux)
         return lambda: dvae.decode_v(x, t, cond)
+    if turbo:
+        raise SystemExit("--turbo profiles the destructo model only")
     if model == "mirage_inner":
         from .models.unet_cfg1d import UNetCFG1d, precompute_rel_biases
         unet = random_init_(UNetCFG1d(), 0).to(dev, bf16).eval()
@@ -84,6 +95,8 @@ def main(argv=None) -> None:
     p.add_argument("--sample-size", type=int, default=65536)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--out", default="chiprun_out/profile_decode.json")
+    p.add_argument("--turbo", action="store_true",
+                   help="destructo: profile an int8 turbo step (amax carry)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -91,7 +104,7 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
-    forward = _forward(args.model, args.batch, args.sample_size, dev)
+    forward = _forward(args.model, args.batch, args.sample_size, dev, args.turbo)
     b, n = args.batch, args.sample_size
     with torch.inference_mode():
         for _ in range(2):
@@ -126,7 +139,7 @@ def main(argv=None) -> None:
     device_ms = sum(by_kind.values())
     result = {"device": torch.cuda.get_device_name(0), "model": args.model,
               "batch": b, "sample_size": n,
-              "dtype": "bfloat16", "wall_ms_per_forward": wall_ms,
+              "dtype": "bfloat16", "turbo": args.turbo, "wall_ms_per_forward": wall_ms,
               "device_kernel_ms_per_forward": device_ms,
               "busy_share": device_ms / wall_ms if wall_ms else None,
               "ms_by_kind": by_kind}

@@ -9,7 +9,10 @@ noise comes from the caller's torch.Generator (a fixed seed of 0 when none
 is given), so the trajectory differs from JAX's fold-in draws: compare
 those by distribution.
 
-`model_fn(x, t, **extra_args)` is any callable.
+`model_fn(x, t, **extra_args)` is any callable. With `aux_mode` (the
+turbo amax carry, JAX `_ddim_scan(aux_mode=True)`) it is
+`model_fn(x, t, aux, **extra_args) -> (v, aux)`: step 0 runs with
+aux=None and each later step takes the previous step's aux.
 """
 from __future__ import annotations
 
@@ -39,19 +42,24 @@ def get_crash_schedule(t: torch.Tensor):
 
 def _ddim_loop(model_fn: Callable, x: torch.Tensor, t_steps: torch.Tensor,
                eta: float, generator: Optional[torch.Generator],
-               extra_args: dict) -> torch.Tensor:
+               extra_args: dict, aux_mode: bool = False) -> torch.Tensor:
     """Shared denoise loop; t_steps is an (S,) f32 CPU tensor, descending."""
     steps = t_steps.shape[0]
     alphas, sigmas = get_alphas_sigmas(t_steps)
     if eta and generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
+    aux = None
     for idx in range(steps):
         nxt = min(idx + 1, steps - 1)
         alpha_i, sigma_i = alphas[idx].item(), sigmas[idx].item()
         alpha_n, sigma_n = alphas[nxt].item(), sigmas[nxt].item()
         t = torch.full((x.shape[0],), t_steps[idx].item(), dtype=x.dtype,
                        device=x.device)
-        v = model_fn(x, t, **extra_args).float()
+        if aux_mode:
+            v, aux = model_fn(x, t, aux, **extra_args)
+        else:
+            v = model_fn(x, t, **extra_args)
+        v = v.float()
         xf = x.float()
         pred = xf * alpha_i - v * sigma_i
         if idx == steps - 1:
@@ -78,12 +86,15 @@ def crash_steps(steps: int) -> torch.Tensor:
 
 @torch.inference_mode()
 def sample(model_fn: Callable, x: torch.Tensor, steps: int, eta: float, logits,
-           generator: Optional[torch.Generator] = None, **extra_args) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None, aux_mode: bool = False,
+           **extra_args) -> torch.Tensor:
     """Draw samples from noise x with the crash schedule; `logits` is the
-    conditioning, passed to the model as `cond`."""
+    conditioning, passed to the model as `cond`. `aux_mode`: the turbo
+    amax-carry model contract (module docstring)."""
     if logits is not None:
         extra_args = dict(extra_args, cond=logits)
-    return _ddim_loop(model_fn, x, crash_steps(steps), eta, generator, extra_args)
+    return _ddim_loop(model_fn, x, crash_steps(steps), eta, generator, extra_args,
+                      aux_mode=aux_mode)
 
 
 @torch.inference_mode()

@@ -21,6 +21,15 @@ Phases, each printing one JSON line:
                 seeded random weights: a 44.1 kHz WAV is loaded, resampled
                 and chunked into 4 x 65536 samples, encoded, negated and
                 decoded in 35 v-DDIM steps; K1 must launch 35 x 191 times
+  kernels (K2)  the turbo GroupNorm modes (int8 emit, residual + amax, +
+                int8 twin) against their twins at the turbo decode's level
+                0 and 2 shapes, and the int8 conv against the bf16 cuDNN
+                conv at level 0
+  destructo_turbo  the same pipeline at B = 16 x 65536 chunks, decoded in 35
+                steps once in bf16 and once through the turbo int8 route with
+                the amax carry, from the same noise: both realtime factors,
+                the rel-RMS between the decodes (< 0.08), and the K1/K2
+                launch counts of the turbo decode
   mirage_model  one full-width MIRAGE UNetCFG1d forward (songs config, CFG
                 scale 4, batch 1 -> 2, T = 2048) in f32 and bf16, through K3
                 and K5 and through their twins with the same weights:
@@ -34,7 +43,7 @@ Phases, each printing one JSON line:
                 two /generate requests with embeddings (slerp, algebra) at
                 full width and reduced steps, and a text prompt refused
 
-Then the `kernels` summary line, the card's name and power limit from
+The phases run in the order above, Destructo's first. Then the `kernels` summary line, the card's name and power limit from
 nvidia-smi, and last `{"ok": true, "device": {...}}`. Any failure exits
 non-zero. Without a CUDA device, or without the package beside it, it
 exits non-zero and prints no result.
@@ -56,6 +65,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 GN_CALLS_PER_FORWARD = 191     # 14 levels x 6 blocks x 2 - 1 + 24 attention pre-norms
 STEPS = 35
+CHUNK = 65536                  # samples per Destructo chunk
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}   # (atol, rtol)
 MODEL_REL_RMS_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
 # MIRAGE (22 s, songs config): the inner UNet runs 4 flash sites (level 2,
@@ -64,6 +74,16 @@ MODEL_REL_RMS_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
 K3_PER_INNER, K5_PER_INNER, K1_PER_OUTER = 4, 63, 119
 INNER_STEPS, OUTER_STEPS, MIRAGE_SAMPLES = 150, 100, 1048576
 MIRAGE_REL_RMS_BOUND = {"float32": 1e-3, "bfloat16": 5e-2}
+# Destructo turbo (B = 16 >= the turbo batch gate): per UNet forward, 83 GN_0
+# int8 emits (every block but stack_000.m0, whose 82-channel input fails the
+# C % 128 gate), GN_1 with amax in the 20 stacks without attention (59 on
+# step 0; on later steps the carry turns m0/m2's 40 into K2c), and K1 at the
+# 24 attention pre-norms, the attention stacks' 24 GN_1 and stack_000.m0.
+TURBO_B = 16
+TURBO_STEP0 = {"k1": 49, "k2a": 83, "k2b": 59, "k2c": 0}
+TURBO_STEP = {"k1": 49, "k2a": 83, "k2b": 19, "k2c": 40}
+TURBO_REL_RMS_BOUND = 0.08     # turbo vs bf16 decode (the JAX package's band)
+INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 
 
 def emit(obj) -> None:
@@ -394,6 +414,208 @@ def phase_destructo() -> int:
     return launches
 
 
+def k2_bound(shape, dtype, mode: str) -> tuple[float, str]:
+    """Least time for K2: read x (and the residual) once, write each output
+    once (int8: 1 byte an element, amax and the (C,) planes negligible
+    but counted); or its f32 operations (statistics 3, normalise + affine
+    4, GELU 8, residual and amax 2, quantise 3 per element) at the f32
+    peak, whichever is larger."""
+    import torch
+    n, c = math.prod(shape), shape[1]
+    esize = torch.empty((), dtype=dtype).element_size()
+    per = {"quant": esize + 1, "res_amax": 3 * esize, "res_amax_q": 3 * esize + 1}[mode]
+    ops = {"quant": 18, "res_amax": 17, "res_amax_q": 20}[mode]
+    t_bytes = (n * per + 4 * c * esize) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels_k2() -> dict:
+    """K2's three modes at the turbo decode's level 0 (16, 256, 65536) and
+    level 2 (16, 512, 16384) in bf16, each against its twin and timed beside
+    the twin, the library chain and the bound; then the int8 conv against
+    the bf16 cuDNN conv at level 0. Returns the level-0 row of each mode."""
+    import torch
+    import torch.nn.functional as F
+    from audio_algebra_torch.models import blocks
+    from audio_algebra_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    rows = []
+    for shape in [(16, 256, 65536), (16, 512, 16384)]:
+        g = torch.Generator(device=dev).manual_seed(300 + len(rows))
+        c = shape[1]
+        dt = torch.bfloat16
+        x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.2).to(dt)
+        res = (torch.randn(shape, generator=g, device=dev) * 2.0).to(dt)
+        scale = (torch.rand(c, generator=g, device=dev) + 0.5).to(dt)
+        bias = (torch.rand(c, generator=g, device=dev) - 0.5).to(dt)
+        grid = torch.rand(c, generator=g, device=dev) * 0.06 + 0.02
+        for mode in ("quant", "res_amax", "res_amax_q"):
+            q = grid if mode == "res_amax_q" else None
+            if mode == "quant":
+                def kernel():
+                    return gn.groupnorm1_gelu_quant(x, scale, bias, grid)
+
+                def plain():
+                    return gn.groupnorm1_gelu_quant_ref(x, scale, bias, grid)
+            else:
+                def kernel():
+                    return gn.groupnorm1_gelu_res_amax(x, scale, bias, res, q_emit_scale=q)
+
+                def plain():
+                    return gn.groupnorm1_gelu_res_amax_ref(x, scale, bias, res, q_emit_scale=q)
+
+            def library():
+                y = F.gelu(F.group_norm(x, 1, scale, bias, 1e-6), approximate="tanh")
+                if mode == "quant":
+                    return torch.clamp(torch.round(y.float() / grid[:, None]), -127,
+                                       127).to(torch.int8)
+                out = res.float() + y.float()
+                amax = out.abs().amax(dim=(0, 2))
+                if q is None:
+                    return out.to(dt), amax
+                return out.to(dt), amax, torch.clamp(torch.round(out / q[:, None]), -127,
+                                                      127).to(torch.int8)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            row = {"shape": list(shape), "dtype": "bfloat16", "mode": mode}
+            errs, bad = [], 0
+            for a, b in zip(got, want):
+                if a.dtype == torch.int8:
+                    d = (a.int() - b.int()).abs()
+                    row["int8_max_lsb"] = int(d.max())
+                    row["int8_share_off"] = float((d > 0).float().mean())
+                    bad += int(d.max() > 1 or row["int8_share_off"] > 1e-3)
+                    errs.append(float(d.max()))
+                elif a.dim() == 1:
+                    row["amax_max_rel_err"] = float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
+                    bad += int(row["amax_max_rel_err"] > 1e-5)
+                else:
+                    cmp = _compare(a, b, dt)
+                    row["out_max_abs_err"] = cmp["max_abs_err"]
+                    bad += cmp["n_outside_tol"]
+                    errs.append(cmp["max_abs_err"])
+            row["max_abs_err"] = max(errs)
+            row["n_outside_tol"] = bad
+            del got, want
+            big = shape[2] > 16384
+            bound_ms, bound_by = k2_bound(shape, dt, mode)
+            row.update({"kernel_ms": cuda_ms(kernel, 20),
+                        "plain_ms": cuda_ms(plain, 3 if big else 10, warmup=1),
+                        "library_ms": cuda_ms(library, 3 if big else 10, warmup=1),
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del x, res
+
+    # the int8 conv of a turbo block at level 0 against the bf16 conv
+    g = torch.Generator(device=dev).manual_seed(310)
+    b, c, t = 16, 256, 65536
+    x = torch.randn((b, c, t), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((c, c, 5), generator=g, device=dev) / math.sqrt(5 * c)).to(torch.bfloat16)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    x8, s_x = blocks.quantize_act(x, x.float().abs().amax(dim=(0, 2)))
+    w8 = torch.randint(-127, 128, (c, c, 5), generator=g, device=dev, dtype=torch.int8)
+    cols = torch.randint(-127, 128, (b * t, 5 * c), generator=g, device=dev, dtype=torch.int8)
+    wmat = w8.permute(0, 2, 1).reshape(c, 5 * c)
+    conv = {"shape": [b, c, t], "c_out": c, "kernel_size": 5,
+            "int8_conv_ms": cuda_ms(lambda: blocks.conv1d_int8(x8, s_x, w, bias,
+                                                               torch.bfloat16), 10),
+            "int8_acc_ms": cuda_ms(lambda: blocks._int8_conv_acc(x8, w8), 10),
+            "int8_product_ms": cuda_ms(lambda: torch._int_mm(wmat, cols.t()), 10),
+            "bf16_cudnn_conv_ms": cuda_ms(lambda: blocks.conv1d(x, w, bias), 10),
+            "int8_bound_ms": 2 * b * t * c * c * 5 / INT8_OPS_PER_S * 1e3,
+            "bf16_bound_ms": 2 * b * t * c * c * 5 / BF16_TC_OPS_PER_S * 1e3}
+    del x, x8, cols
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "groupnorm1_turbo", "cases": rows, "int8_conv": conv})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K2 disagrees with its twin: {failed}")
+    return {r["mode"]: r for r in rows if r["shape"] == [16, 256, 65536]}
+
+
+def phase_destructo_turbo() -> dict:
+    """Destructo at B = 16 x 65536, bf16, 35 steps, through the user's
+    entry points: one wrapper encodes, then decodes the negated latents
+    from the same noise in bf16 and through the turbo int8 route (after a
+    2-step warm-up of each). Returns the turbo decode's launch counts."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch.destructo import mathemangle
+    from audio_algebra_torch.given_models import DVAEWrapper
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.utils.audio_io import batch_it_crazy, load_audio, write_wav
+
+    chunk, sr_in = CHUNK, 44100
+    n_in = int((TURBO_B - 0.25) * chunk * sr_in / 48000)
+    tt = np.arange(n_in) / sr_in
+    rng = np.random.default_rng(3)
+    signal = np.stack([0.3 * np.sin(2 * np.pi * 220 * tt), 0.3 * np.sin(2 * np.pi * 277 * tt)])
+    signal = (signal + 0.05 * rng.standard_normal(signal.shape)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "in.wav"
+        write_wav(path, signal, sr_in)
+        batch = batch_it_crazy(load_audio(path, sr=48000), chunk, max_batch_size=TURBO_B)
+    w = DVAEWrapper(args_dict={"sample_size": chunk, "demo_steps": STEPS},
+                    device="cuda", dtype=torch.bfloat16, turbo=True)
+    w.ensure_params()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    z = mathemangle(w.encode(batch), "destructo")
+    torch.cuda.synchronize()
+    enc_s = time.time() - t0
+
+    def counts():
+        return {"k1": gn.launches, "k2a": gn.quant_launches, "k2b": gn.amax_launches,
+                "k2c": gn.amax_q_launches}
+
+    def decode(turbo: bool, steps: int):
+        w.turbo = turbo
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.time()
+        out = w.decode(z, demo_steps=steps)
+        torch.cuda.synchronize()
+        return out, time.time() - start, torch.cuda.max_memory_allocated() / 1e9
+
+    decode(False, 2)                                  # warm-ups: plans, allocator
+    decode(True, 2)
+    out_bf16, bf16_s, bf16_mem = decode(False, STEPS)
+    gn.launches = gn.quant_launches = gn.amax_launches = gn.amax_q_launches = 0
+    out_turbo, turbo_s, turbo_mem = decode(True, STEPS)
+    launches = counts()
+    expected = {k: TURBO_STEP0[k] + (STEPS - 1) * TURBO_STEP[k] for k in TURBO_STEP}
+    audio_s = batch.shape[0] * chunk / 48000
+    err = rel_rms(out_turbo.float(), out_bf16.float())
+    finite = bool(torch.isfinite(out_turbo).all() and torch.isfinite(out_bf16).all())
+    emit({"phase": "destructo_turbo", "batch": list(batch.shape), "steps": STEPS,
+          "dtype": "bfloat16", "out_shape": list(out_turbo.shape), "finite": finite,
+          "encode_s": enc_s,
+          "bf16": {"decode_s": bf16_s, "ms_per_step": bf16_s / STEPS * 1e3,
+                   "realtime_factor": audio_s / (enc_s + bf16_s),
+                   "decode_realtime_factor": audio_s / bf16_s, "peak_mem_gb": bf16_mem},
+          "turbo": {"decode_s": turbo_s, "ms_per_step": turbo_s / STEPS * 1e3,
+                    "realtime_factor": audio_s / (enc_s + turbo_s),
+                    "decode_realtime_factor": audio_s / turbo_s, "peak_mem_gb": turbo_mem},
+          "turbo_over_bf16_time": turbo_s / bf16_s,
+          "rel_rms_turbo_vs_bf16": err, "bound": TURBO_REL_RMS_BOUND,
+          "launches": launches, "launches_expected": expected})
+    if tuple(out_turbo.shape) != (2, TURBO_B * chunk) or batch.shape[0] != TURBO_B \
+            or not finite:
+        raise AssertionError(f"turbo output {tuple(out_turbo.shape)} finite={finite}")
+    if not err < TURBO_REL_RMS_BOUND:
+        raise AssertionError(f"turbo vs bf16 decode rel-RMS {err} >= {TURBO_REL_RMS_BOUND}")
+    if launches != expected:
+        raise AssertionError(f"turbo decode launches {launches}, expected {expected}")
+    return launches
+
+
 def phase_mirage_model() -> None:
     """One full-width MIRAGE UNetCFG1d forward (the songs config, CFG
     scale 4 over a doubled batch, T = 2048) through K3 and K5 and through
@@ -590,11 +812,14 @@ def main() -> int:
     k5 = phase_kernels_k5()
     phase_model()
     destructo_k1 = phase_destructo()
+    k2 = phase_kernels_k2()
+    turbo = phase_destructo_turbo()
     phase_mirage_model()
     model, counts = phase_mirage()
     phase_serve(model)
 
     def entry(name, source, replaces, launches, row, **extra):
+        """One kernel of the summary line; `row` from a kernels phase."""
         return {"name": name, "route": "cuda", "source": f"audio_algebra_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
@@ -604,7 +829,15 @@ def main() -> int:
     emit({"kernels": [
         entry("groupnorm1_gelu", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
-              launches_by_path={"destructo": destructo_k1, "mirage": counts["k1"]}),
+              launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
+                                "mirage": counts["k1"]}),
+        entry("groupnorm1_gelu_quant", "groupnorm.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
+        entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:298", turbo["k2b"], k2["res_amax"]),
+        entry("groupnorm1_gelu_res_amax_q", "groupnorm.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:321", turbo["k2c"],
+              k2["res_amax_q"]),
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
