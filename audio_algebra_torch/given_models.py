@@ -1,7 +1,18 @@
-"""given_models — the DVAE wrapper of the Destructo path and the MIRAGE
-generator CLAPDAE.
+"""given_models — the spectrogram autoencoders, the DVAE wrapper of the
+Destructo path and the MIRAGE model CLAPDAE.
 
-Port of audio_algebra_tpu/given_models.py:DVAEWrapper and CLAPDAE.
+Port of audio_algebra_tpu/given_models.py: GivenModelClass's helpers
+(zero_pad_po2, next_power_of_2, match_sizes, forward), SpectrogramAE,
+MagSpectrogramAE, MagDPhaseSpectrogramAE, MelSpectrogramAE, DVAEWrapper
+and CLAPDAE. Each takes an explicit `device` (default "cuda") and draws
+its random numbers from its own torch.Generator unless the caller hands
+them in.
+
+The spectrogram models run on the port's STFT front end (ops/stft.py,
+ops/mel.py, ops/phase.py), whose forward STFT is kernel K6 on the card:
+SpectrogramAE is the exact complex round trip, MagSpectrogramAE and
+MelSpectrogramAE decode with Griffin-Lim (`init_angle` optional),
+MagDPhaseSpectrogramAE codes magnitude and phase increments.
 
 DVAEWrapper. encode: encoder ->
 tanh, and a fresh decode noise is drawn (as the reference does); decode:
@@ -17,13 +28,13 @@ wrapper's `params_ema`). Without a checkpoint they are the seeded random
 weights of utils/params.random_init_; `load_flax_params(tree)` loads a
 flax params tree instead.
 
-CLAPDAE. `generate` runs the MIRAGE stack from (B, 1, 512) CLAP
-embeddings: a DPM++(2M) with classifier-free guidance over the
-CLAP-conditioned UNetCFG1d (kernels K3 and K5), a v-DDIM over the outer
-DiffusionAttnUnet1D (kernel K1), then the AudioAutoencoder decode. The CLAP
-embedder itself is not ported yet (ROADMAP.md section A, item 12): `embed`
-and `encode` raise, and callers hand in precomputed embeddings. The other
-given models come with later slices.
+CLAPDAE. `embed` turns a text prompt or a clip into a (1, 1, 512) CLAP
+embedding (models/clap.py: the HTSAT audio tower on the mel front end,
+the RoBERTa text tower), kept in f32 under `half()`. `generate` runs the
+MIRAGE stack from (B, 1, 512) embeddings: a DPM++(2M) with
+classifier-free guidance over the CLAP-conditioned UNetCFG1d (kernels K3
+and K5), a v-DDIM over the outer DiffusionAttnUnet1D (kernel K1), then
+the AudioAutoencoder decode.
 """
 from __future__ import annotations
 
@@ -36,19 +47,174 @@ import torch
 
 from .device import resolve_device
 from .models.blocks import TURBO_MIN_B
+from .models.clap import CLAPModule
 from .models.dvae import DiffusionDVAE
 from .models.stacked import LatentAudioDiffusionAutoencoder, StackedAELatentDiffusionCond
 from .models.unet_cfg1d import precompute_rel_biases
 from .samplers.kdiff import kdiff_sample
 from .samplers.vddim import resample_diffusion
 from .samplers.vddim import sample as vddim_sample
+from .ops.mel import inverse_mel_scale, melspectrogram
+from .ops.phase import mag_dphase_decode, mag_dphase_encode
+from .ops.stft import griffin_lim, inverse_spectrogram, spectrogram
 from .utils import params as params_mod
 
-__all__ = ["DVAEWrapper", "CLAPDAE", "CLAP_NOT_PORTED"]
+__all__ = ["GivenModelClass", "SpectrogramAE", "MagSpectrogramAE",
+           "MagDPhaseSpectrogramAE", "MelSpectrogramAE", "DVAEWrapper", "CLAPDAE"]
 
-CLAP_NOT_PORTED = ("CLAP (text and audio embeddings) is not ported to the PyTorch "
-                   "port yet: ROADMAP.md section A, item 12. Pass precomputed unit "
-                   "CLAP embeddings instead.")
+
+class GivenModelClass:
+    """The shared surface of the given models (JAX given_models.py:48-186):
+    waveform in, representation out, and back, with optional zero padding
+    to a power of two and the decode cropped or padded to the input's
+    length."""
+
+    def __init__(self, zero_pad: bool = True, make_sizes_match: bool = True,
+                 seed: int = 0, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.zero_pad, self.make_sizes_match = zero_pad, make_sizes_match
+        self.orig_shape = None
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _as_input(self, a) -> torch.Tensor:
+        """numpy or torch -> a tensor on the model's device (float32 unless
+        complex)."""
+        t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a)
+        return t.to(self.device, None if t.is_complex() else torch.float32)
+
+    def _waveform(self, waveform) -> torch.Tensor:
+        x = self._as_input(waveform)
+        self.orig_shape = tuple(x.shape)
+        return self.zero_pad_po2(x) if self.zero_pad else x
+
+    def forward(self, waveform):
+        """encode then decode; returns (reps, recons)."""
+        reps = self.encode(waveform)
+        return reps, self.decode(reps)
+
+    def __call__(self, *args, **kwargs):
+        return self.forward(*args, **kwargs)
+
+    def match_sizes(self, recon: torch.Tensor) -> torch.Tensor:
+        """Crop or zero-pad the decode's last axis to the input's length."""
+        if self.make_sizes_match and self.orig_shape is not None \
+                and tuple(recon.shape) != tuple(self.orig_shape):
+            target = self.orig_shape[-1]
+            if recon.shape[-1] > target:
+                recon = recon[..., :target]
+            else:
+                recon = torch.nn.functional.pad(recon, (0, target - recon.shape[-1]))
+        return recon
+
+    @staticmethod
+    def next_power_of_2(x: int) -> int:
+        return 1 if x == 0 else 2 ** (x - 1).bit_length()
+
+    def zero_pad_po2(self, x: torch.Tensor) -> torch.Tensor:
+        new_len = self.next_power_of_2(x.shape[-1])
+        return torch.nn.functional.pad(x, (0, new_len - x.shape[-1]))
+
+
+class SpectrogramAE(GivenModelClass):
+    """The complex spectrogram and its exact inverse."""
+
+    def __init__(self, n_fft: int = 1024, hop_length: int = 256, center: bool = True,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.n_fft, self.hop_length, self.center = n_fft, hop_length, center
+
+    @torch.inference_mode()
+    def encode(self, waveform, **kwargs) -> torch.Tensor:
+        return spectrogram(self._waveform(waveform), self.n_fft, self.hop_length,
+                           power=None, center=self.center)
+
+    @torch.inference_mode()
+    def decode(self, reps, **kwargs) -> torch.Tensor:
+        return self.match_sizes(inverse_spectrogram(
+            self._as_input(reps), self.n_fft, self.hop_length, center=self.center))
+
+
+class MagSpectrogramAE(GivenModelClass):
+    """The power spectrogram; Griffin-Lim decodes it."""
+
+    def __init__(self, n_fft: int = 1024, hop_length: int = 256, center: bool = True,
+                 n_iter: int = 32, **kwargs):
+        super().__init__(**kwargs)
+        self.n_fft, self.hop_length, self.center, self.n_iter = \
+            n_fft, hop_length, center, n_iter
+
+    @torch.inference_mode()
+    def encode(self, waveform, **kwargs) -> torch.Tensor:
+        return spectrogram(self._waveform(waveform), self.n_fft, self.hop_length,
+                           power=2, center=self.center)
+
+    @torch.inference_mode()
+    def decode(self, reps, init_angle=None, **kwargs) -> torch.Tensor:
+        """Griffin-Lim from `init_angle` (radians, reps' shape) or from
+        angles drawn from the model's generator."""
+        return self.match_sizes(griffin_lim(
+            self._as_input(reps), self.n_fft, self.hop_length, power=2.0,
+            n_iter=self.n_iter, init_angle=init_angle, generator=self.generator))
+
+
+class MagDPhaseSpectrogramAE(GivenModelClass):
+    """Magnitude + phase-increment coding with an exact decoder (init
+    'true'); init 'rand' starts the phase at explicit or drawn noise."""
+
+    def __init__(self, n_fft: int = 1024, hop_length: int = 256, center: bool = True,
+                 init: str = "true", use_cos: bool = False, debug: bool = False,
+                 cheat: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        self.n_fft, self.hop_length, self.center = n_fft, hop_length, center
+        self.init, self.use_cos, self.debug, self.cheat = init, use_cos, debug, cheat
+        self.theta = None
+
+    @torch.inference_mode()
+    def encode(self, waveform, **kwargs) -> torch.Tensor:
+        spec = spectrogram(self._waveform(waveform), self.n_fft, self.hop_length,
+                           power=None, center=self.center)
+        if self.cheat:
+            self.spec_orig, self.mag_orig = spec, torch.abs(spec)
+            self.theta = torch.angle(spec)
+        return mag_dphase_encode(spec, use_cos=self.use_cos)
+
+    @torch.inference_mode()
+    def decode(self, reps, noise=None, **kwargs) -> torch.Tensor:
+        """`noise`: uniform [0, 1) phase origins for init 'rand'."""
+        reps = self._as_input(reps)
+        if self.cheat and self.theta is not None:
+            mag = reps[..., :reps.shape[-3] // 2, :, :]
+            spec = torch.complex(mag * torch.cos(self.theta), mag * torch.sin(self.theta))
+        else:
+            spec = mag_dphase_decode(reps, self.init, noise, self.generator)
+        if self.debug:
+            self.spec_new, self.mag_new = spec, torch.abs(spec)
+        return self.match_sizes(inverse_spectrogram(spec, self.n_fft, self.hop_length,
+                                                    center=self.center))
+
+
+class MelSpectrogramAE(GivenModelClass):
+    """The mel power spectrogram; the regularised inverse mel scale and
+    Griffin-Lim decode it."""
+
+    def __init__(self, sample_rate: int = 48000, n_fft: int = 1024, hop_length: int = 256,
+                 center: bool = True, n_mels: int = 128, n_iter: int = 32, **kwargs):
+        super().__init__(**kwargs)
+        self.sample_rate, self.n_fft, self.hop_length = sample_rate, n_fft, hop_length
+        self.center, self.n_mels, self.n_iter = center, n_mels, n_iter
+
+    @torch.inference_mode()
+    def encode(self, waveform, **kwargs) -> torch.Tensor:
+        return melspectrogram(self._waveform(waveform), self.sample_rate, self.n_fft,
+                              self.hop_length, n_mels=self.n_mels, center=self.center)
+
+    @torch.inference_mode()
+    def decode(self, melspec, init_angle=None, **kwargs) -> torch.Tensor:
+        spec = inverse_mel_scale(self._as_input(melspec), self.n_fft // 2 + 1,
+                                 self.sample_rate, self.n_mels)
+        return self.match_sizes(griffin_lim(
+            spec, self.n_fft, self.hop_length, power=2.0, n_iter=self.n_iter,
+            init_angle=init_angle, generator=self.generator))
 
 
 class DVAEWrapper:
@@ -140,7 +306,10 @@ def _kwargs_of(cls, exclude=()) -> set:
 class CLAPDAE:
     """The MIRAGE model: CLAP-conditioned stacked latent diffusion.
 
-    `latent_diffae` (LatentAudioDiffusionAutoencoder) and
+    `clap_module` (models/clap.CLAPModule: HTSAT with fusion by default,
+    and RoBERTa; `clap_kwargs` passes its configs and asset directory)
+    embeds text and audio prompts, in f32, with seeded random weights
+    (seed + 2, + 3) unless a flax tree is poured in. `latent_diffae` (LatentAudioDiffusionAutoencoder) and
     `latent_diffusion_model` (StackedAELatentDiffusionCond) are built from
     `first_stage_config` and `model_kwargs` as in JAX (`factors2` names
     the inner UNet's factors). Without a checkpoint the weights are seeded
@@ -153,11 +322,16 @@ class CLAPDAE:
     SAMPLES_22S = 1048576
     DECODE_BATCH = 4         # outer stage + AE decode in micro-batches: memory
 
-    def __init__(self, first_stage_config: Optional[dict] = None,
+    def __init__(self, clap_fusion: bool = True, clap_amodel: str = "HTSAT-base",
+                 first_stage_config: Optional[dict] = None,
                  sample_size: int = SAMPLES_22S, model_kwargs: Optional[dict] = None,
+                 clap_kwargs: Optional[dict] = None,
                  seed: int = 0, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
+        self.clap_module = CLAPModule(enable_fusion=clap_fusion, amodel=clap_amodel,
+                                      seed=seed + 2, device=self.device,
+                                      **(clap_kwargs or {}))
         self.dtype = dtype
         self.seed = seed
         self.sample_size = self.demo_samples = sample_size
@@ -207,7 +381,7 @@ class CLAPDAE:
 
     def half(self, dtype: torch.dtype = torch.bfloat16) -> "CLAPDAE":
         """Cast both diffusion stages (and the AE) to bf16, the reference
-        app's default. Returns self."""
+        app's default; CLAP stays f32. Returns self."""
         self.ensure_params()
         self.dtype = dtype
         self._place()
@@ -225,11 +399,22 @@ class CLAPDAE:
         return self
 
     # -- CLAP --
-    def embed(self, x, *args, **kwargs):
-        raise NotImplementedError(CLAP_NOT_PORTED)
+    def embed(self, x, *args, **kwargs) -> torch.Tensor:
+        """A text prompt, or audio (T,), (C, T) or (B, C, T) at 48 kHz
+        (averaged to mono) -> (B, 1, 512) unit CLAP embeddings, f32. A text
+        is embedded beside the empty prompt and the first row kept."""
+        if isinstance(x, str):
+            emb = self.clap_module.get_text_embedding([x, ""])[:1]
+        else:
+            audio = torch.as_tensor(np.ascontiguousarray(x) if isinstance(x, np.ndarray)
+                                    else x).float()
+            while audio.dim() < 3:
+                audio = audio[None]
+            emb = self.clap_module.get_audio_embedding_from_data(audio.mean(dim=1))
+        return emb[:, None, :]
 
-    def encode(self, x, *args, **kwargs):
-        raise NotImplementedError(CLAP_NOT_PORTED)
+    def encode(self, x, *args, **kwargs) -> torch.Tensor:
+        return self.embed(x, *args, **kwargs)
 
     # -- generation --
     def _as_input(self, a) -> torch.Tensor:

@@ -1,19 +1,20 @@
 """MIRAGE serving: a dependency-free HTTP endpoint around the port's CLAPDAE.
 
     python -m audio_algebra_torch.serve [--host 127.0.0.1] [--port 8950]
-        [--model 22s|66s] [--no-half] [--max-batch 8]
+        [--model 22s|66s] [--no-half] [--max-batch 8] [--strict-text]
 
-Port of the embedding path of audio_algebra_tpu/serve.py: a stdlib
-ThreadingHTTPServer wrapping one warm CLAPDAE on the card, with requests
-serialised onto it by a lock.
+Port of audio_algebra_tpu/serve.py: a stdlib ThreadingHTTPServer wrapping
+one warm CLAPDAE on the card, with requests serialised onto it by a lock.
 
 Endpoints:
   GET  /health    -> {"ok": true, "model": "22s", "sample_size": N, ...}
   POST /generate  -> JSON spec -> 16-bit PCM WAV bytes (48 kHz stereo)
-  POST /embed     -> 501: CLAP is not ported yet
+  POST /embed     -> {"embedding": [[...512 floats]]} for a JSON
+                     {"text": "..."} or for posted WAV / MP3 bytes
 
-Generate spec (at least one embedding):
-  {"embeddings": [[...512 floats]],    # precomputed unit CLAP embeddings
+Generate spec (at least one prompt):
+  {"text": ["a prompt", ...],          # CLAP text prompts
+   "embeddings": [[...512 floats]],    # precomputed unit CLAP embeddings
    "weights": [1.0, -0.5],             # algebra weights (with "algebra")
    "algebra": false,                   # weighted sum vs slerp combine
    "interp": 0.5,                      # slerp t between prompts
@@ -22,10 +23,11 @@ Generate spec (at least one embedding):
    "init_audio_b64": "<base64 WAV/MP3>",   # img2img init (loop-repeated)
    "init_strength": 0.4}
 
-A `text` prompt, like POST /embed, is answered 501 with the message that
-CLAP is not ported yet (ROADMAP.md section A, item 12). The request
-micro-batcher, the HTML GUI, basic auth and the multi-chip mesh of the JAX
-service are not ported.
+Without RoBERTa's tokenizer files (models/clap.tokenize) text prompts use
+byte-level fallback ids: the answers then carry a `tokenizer_warning`,
+and with --strict-text text prompts are refused with 409 before any work
+on the card. The request micro-batcher, the HTML GUI, basic auth and the
+multi-chip mesh of the JAX service are not ported.
 """
 from __future__ import annotations
 
@@ -44,12 +46,17 @@ import numpy as np
 import torch
 
 from .embedding_math import interp_embeddings, weighted_algebra
-from .given_models import CLAP_NOT_PORTED, CLAPDAE
+from .given_models import CLAPDAE
 from .utils.audio_io import crossfade_flatten, load_audio
 
-__all__ = ["MirageService", "encode_wav", "make_server", "main"]
+__all__ = ["MirageService", "TokenizerUnavailable", "encode_wav", "make_server", "main"]
 
 SAMPLE_RATE = 48000
+
+
+class TokenizerUnavailable(RuntimeError):
+    """A text prompt refused in strict-text mode: no RoBERTa tokenizer, so
+    the embedding would come from byte-level fallback ids. HTTP 409."""
 
 
 def encode_wav(audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> bytes:
@@ -81,13 +88,15 @@ def _decode_audio_bytes(data: bytes) -> np.ndarray:
 
 class MirageService:
     """One warm model and a lock. `model` is injectable (any object with
-    .generate, .encode_audio_latents, .generator and .sample_size); by
-    default a CLAPDAE with seeded random weights, set up for
-    `model_choice` and cast to bf16 unless `half` is False."""
+    .generate, .embed, .encode_audio_latents, .clap_module, .generator and
+    .sample_size); by default a CLAPDAE with seeded random weights, set up
+    for `model_choice` and cast to bf16 unless `half` is False (CLAP stays
+    f32). `strict_text` refuses text prompts while the tokenizer falls
+    back to byte ids."""
 
     def __init__(self, model=None, model_choice: str = "22s", half: bool = True,
                  verbose: bool = True, max_batch: int = 8,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", strict_text: bool = False):
         if model is None:
             model = CLAPDAE(device=device).setup(model_choice)
             if half:
@@ -99,6 +108,34 @@ class MirageService:
         self.lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.requests_served = 0
+        self.strict_text = strict_text
+        self.tokenizer_backend, self._tok_reason = model.clap_module.tokenizer_backend()
+        if self.tokenizer_backend == "byte-fallback" and verbose:
+            print("serve: WARNING: no RoBERTa tokenizer files; text prompts use "
+                  "byte-level fallback ids (degraded embeddings)"
+                  + (" [strict: text prompts are refused with 409]" if strict_text else ""))
+
+    def text_tokenizer_warning(self) -> Optional[str]:
+        """None when text tokenization is exact; else the notice carried in
+        the answer. Raises TokenizerUnavailable in strict-text mode."""
+        if self.tokenizer_backend != "byte-fallback":
+            return None
+        msg = ("text tokenizer unavailable: byte-level fallback ids in use (text "
+               "embeddings are semantically degraded). Put RoBERTa's vocab.json and "
+               "merges.txt in the CLAP module's asset directory "
+               f"({self._tok_reason}).")
+        if self.strict_text:
+            raise TokenizerUnavailable(msg)
+        return msg
+
+    def embed_text(self, text: str) -> np.ndarray:
+        with self.lock:
+            return self.model.embed(text).float().cpu().numpy()
+
+    def embed_audio_bytes(self, data: bytes) -> np.ndarray:
+        audio = _decode_audio_bytes(data)
+        with self.lock:
+            return self.model.embed(audio).float().cpu().numpy()
 
     def _init_latents_from_bytes(self, data: bytes):
         """Decode audio bytes, loop-repeat to sample_size, encode to
@@ -112,18 +149,23 @@ class MirageService:
             return self.model.encode_audio_latents(looped[None])
 
     def generate_wav(self, spec: dict) -> tuple[bytes, dict]:
-        """Combine the embeddings, generate, crossfade; returns
-        (wav_bytes, info). Raises ValueError on a bad spec and
-        NotImplementedError on a text prompt."""
+        """Embed the text prompts, combine them with the given embeddings,
+        generate, crossfade; returns (wav_bytes, info). Raises ValueError on
+        a bad spec and TokenizerUnavailable on a text prompt in strict-text
+        mode."""
         texts = spec.get("text") or []
         if isinstance(texts, str):
             texts = [texts]
-        if any(texts):
-            raise NotImplementedError(CLAP_NOT_PORTED)
+        # strict mode refuses before any work on the card
+        tok_warning = self.text_tokenizer_warning() if any(texts) else None
         embeddings = [np.asarray(e, np.float32).reshape(1, 1, -1)
                       for e in spec.get("embeddings") or []]
+        with self.lock:
+            for t in texts:
+                if t:
+                    embeddings.append(self.model.embed(t).float().cpu().numpy())
         if not embeddings:
-            raise ValueError("no prompt: supply 'embeddings'")
+            raise ValueError("no prompt: supply 'text' and/or 'embeddings'")
         if len(embeddings) == 1:
             emb = torch.from_numpy(embeddings[0])
         elif spec.get("algebra"):
@@ -166,6 +208,8 @@ class MirageService:
         out = crossfade_flatten(fakes, sr=SAMPLE_RATE)
         info = {"batch_size": batch_size, "samples": int(out.shape[-1]),
                 "sample_rate": SAMPLE_RATE}
+        if tok_warning:
+            info["tokenizer_warning"] = tok_warning
         return encode_wav(out, SAMPLE_RATE), info
 
     def health(self) -> dict:
@@ -173,7 +217,8 @@ class MirageService:
                 "sample_size": int(getattr(self.model, "sample_size", 0)),
                 "requests_served": self.requests_served,
                 "device": str(getattr(self.model, "device", "")),
-                "text_prompts": CLAP_NOT_PORTED}
+                "text_tokenizer": self.tokenizer_backend,
+                "strict_text": self.strict_text}
 
 
 def _make_handler(service: MirageService):
@@ -202,17 +247,35 @@ def _make_handler(service: MirageService):
 
         def do_POST(self):
             data = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            ctype = (self.headers.get("Content-Type") or "").lower()
             try:
                 if self.path == "/embed":
-                    raise NotImplementedError(CLAP_NOT_PORTED)
+                    # audio/* or, unless declared JSON, WAV / ID3-tagged MP3 bytes
+                    is_audio = ctype.startswith("audio/") or (
+                        not ctype.startswith("application/json")
+                        and (data[:4] == b"RIFF" or data[:3] == b"ID3"))
+                    if is_audio:
+                        body = {"embedding": service.embed_audio_bytes(data).tolist()}
+                    else:
+                        spec = json.loads(data or b"{}")
+                        warn = service.text_tokenizer_warning()       # may 409
+                        body = {"embedding": service.embed_text(str(spec["text"])).tolist()}
+                        if warn:
+                            body["tokenizer_warning"] = warn
+                    self._send_json(200, body)
+                    return
                 if self.path != "/generate":
                     self._send_json(404, {"error": f"no route {self.path}"})
                     return
                 wav, info = service.generate_wav(json.loads(data or b"{}"))
                 self._send(200, wav, "audio/wav",
                            [("X-Generate-Info", json.dumps(info))])
-            except NotImplementedError as e:
-                self._send_json(501, {"error": "not_ported", "detail": str(e)})
+            except TokenizerUnavailable as e:
+                self._send_json(409, {
+                    "error": "text_tokenizer_unavailable", "detail": str(e),
+                    "fix": "put RoBERTa's vocab.json and merges.txt in the asset "
+                           "directory, or serve without --strict-text to accept "
+                           "degraded byte-fallback embeddings"})
             except (ValueError, KeyError) as e:
                 self._send_json(400, {"error": str(e)})
             except Exception as e:             # keep serving; report the fault
@@ -234,9 +297,12 @@ def main(argv: Optional[list] = None):
     p.add_argument("--model", choices=["22s", "66s"], default="22s")
     p.add_argument("--no-half", action="store_true", help="serve in f32 (default bf16)")
     p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--strict-text", action="store_true",
+                   help="refuse text prompts (409) while the tokenizer falls back to "
+                        "byte-level ids")
     args = p.parse_args(argv)
     service = MirageService(model_choice=args.model, half=not args.no_half,
-                            max_batch=args.max_batch)
+                            max_batch=args.max_batch, strict_text=args.strict_text)
     server = make_server(service, args.host, args.port)
     print(f"serve: MIRAGE ({args.model}) listening on "
           f"http://{args.host}:{server.server_address[1]}", flush=True)

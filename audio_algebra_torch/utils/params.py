@@ -6,12 +6,17 @@ nested dicts of numpy arrays maps onto the torch state by name:
 
   flax leaf                            torch parameter
   Conv1d    kernel (K, Cin, Cout)      Conv1d.weight (Cout, Cin, K)
+  Conv (2-D) kernel (kh, kw, in, out)  clap.Conv2d.weight (out, in, kh, kw)
   ConvTranspose kernel (K, Cout, Cin)  ConvTranspose1d.weight (Cin, Cout, K)
   Dense     kernel (in, out)           Dense / Linear.weight (out, in)
   GroupNorm scale (C,)                 GroupNorm1 / GroupNorm.weight
   LayerNorm scale (C,)                 LayerNorm.weight
   FourierFeatures weight (out/2, 1)    FourierFeatures.weight, as is
-  rel_pos_bias, fixed_embedding        the parameter of that name, as is
+  Embed     embedding (N, C)           clap.Embed.embedding, as is
+  CLAP _BN  scale, bias, mean, var     clap._BN's parameters of those names
+  rel_pos_bias, fixed_embedding,       the parameter of that name, as is
+  token_type_embeddings, bn_scale,
+  bn_bias, bn_mean, bn_var
   any       bias                       bias
 
 `load_flax_params` raises on any leaf left over or missing. It is the
@@ -33,34 +38,44 @@ from torch import nn
 
 from ..models.blocks import (Conv1d, ConvTranspose1d, Dense, FourierFeatures, GroupNorm,
                              GroupNorm1, LayerNorm, Linear)
+from ..models.clap import _BN, Conv2d
 
 # parameters that keep their flax name and layout
-_AS_IS = ("rel_pos_bias", "fixed_embedding")
+_AS_IS = ("rel_pos_bias", "fixed_embedding", "token_type_embeddings", "embedding",
+          "bn_scale", "bn_bias", "bn_mean", "bn_var")
 
 
-def _flax_leaf(owner: nn.Module, leaf: str) -> tuple[str, Any]:
-    """(flax leaf name, torch layout -> flax layout) for a torch parameter."""
-    if leaf == "bias" or leaf in _AS_IS:
-        return leaf, lambda a: a
+def _same(a):
+    return a
+
+
+def _flax_leaf(owner: nn.Module, leaf: str) -> tuple[str, Any, Any]:
+    """(flax leaf name, torch layout -> flax layout, flax layout -> torch
+    layout) for a torch parameter."""
+    if leaf == "bias" or leaf in _AS_IS or isinstance(owner, _BN):
+        return leaf, _same, _same
     if isinstance(owner, (Conv1d, ConvTranspose1d)):
-        return "kernel", lambda a: a.transpose(2, 1, 0)
+        return "kernel", lambda a: a.transpose(2, 1, 0), lambda a: a.transpose(2, 1, 0)
+    if isinstance(owner, Conv2d):
+        return "kernel", lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1)
     if isinstance(owner, (Dense, Linear)):
-        return "kernel", lambda a: a.T
+        return "kernel", lambda a: a.T, lambda a: a.T
     if isinstance(owner, (GroupNorm1, GroupNorm, LayerNorm)):
-        return "scale", lambda a: a
+        return "scale", _same, _same
     if isinstance(owner, FourierFeatures):
-        return "weight", lambda a: a
+        return "weight", _same, _same
     raise TypeError(f"no flax name for {type(owner).__name__}.{leaf}")
 
 
-def flax_paths(module: nn.Module) -> dict[tuple[str, ...], tuple[str, Any]]:
-    """{flax path: (torch parameter name, torch -> flax layout)}."""
+def flax_paths(module: nn.Module) -> dict[tuple[str, ...], tuple[str, Any, Any]]:
+    """{flax path: (torch parameter name, torch -> flax layout, flax ->
+    torch layout)}."""
     out = {}
     for name, _ in module.named_parameters():
         *owner_path, leaf = name.split(".")
         owner = module.get_submodule(".".join(owner_path))
-        flax_leaf, to_flax = _flax_leaf(owner, leaf)
-        out[(*owner_path, flax_leaf)] = (name, to_flax)
+        flax_leaf, to_flax, from_flax = _flax_leaf(owner, leaf)
+        out[(*owner_path, flax_leaf)] = (name, to_flax, from_flax)
     return out
 
 
@@ -78,9 +93,9 @@ def _unwrap(tree: dict) -> dict:
     return tree["params"] if set(tree.keys()) == {"params"} else tree
 
 
-def _inverse_layout(to_flax, arr: np.ndarray, shape) -> np.ndarray:
-    """torch layout of a flax array: every map above is its own inverse."""
-    out = to_flax(arr)
+def _inverse_layout(from_flax, arr: np.ndarray, shape) -> np.ndarray:
+    """torch layout of a flax array, checked against the parameter's shape."""
+    out = from_flax(arr)
     if tuple(out.shape) != tuple(shape):
         raise ValueError(f"shape {arr.shape} does not map onto {tuple(shape)}")
     return out
@@ -99,9 +114,9 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
         raise KeyError(f"flax tree does not match the module: missing {missing[:8]}"
                        f" ({len(missing)}), left over {extra[:8]} ({len(extra)})")
     state = dict(module.named_parameters())
-    for path, (name, to_flax) in paths.items():
+    for path, (name, _, from_flax) in paths.items():
         p = state[name]
-        arr = _inverse_layout(to_flax, np.asarray(leaves[path], np.float32), p.shape)
+        arr = _inverse_layout(from_flax, np.asarray(leaves[path], np.float32), p.shape)
         p.copy_(torch.from_numpy(np.array(arr, np.float32)).to(p.dtype))
     return module
 
@@ -110,7 +125,7 @@ def to_flax_params(module: nn.Module) -> dict:
     """The module's parameters as a flax params tree of numpy f32 arrays."""
     state = dict(module.named_parameters())
     tree: dict = {}
-    for path, (name, to_flax) in flax_paths(module).items():
+    for path, (name, to_flax, _) in flax_paths(module).items():
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -126,7 +141,7 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
     state = dict(module.named_parameters())
     paths = flax_paths(module)
     for path in sorted(paths):
-        name, to_flax = paths[path]
+        name, to_flax, from_flax = paths[path]
         p = state[name]
         flax_shape = to_flax(np.empty(p.shape, np.float32)).shape
         leaf = path[-1].lower()
@@ -137,5 +152,5 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
         std = 1.0 / max(np.sqrt(fan_in), 1.0)
         arr = (rng.standard_normal(flax_shape).astype(np.float32) * std
                ).astype(np.float32)
-        p.copy_(torch.from_numpy(np.ascontiguousarray(to_flax(arr))).to(p.dtype))
+        p.copy_(torch.from_numpy(np.ascontiguousarray(from_flax(arr))).to(p.dtype))
     return module

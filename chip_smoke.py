@@ -39,9 +39,30 @@ Phases, each printing one JSON line:
                 inner steps and 100 v-DDIM outer steps, from the weighted
                 algebra of two seeded unit embeddings, run twice; K3, K5 and
                 K1 must launch 150 x 4, 150 x 63 and 100 x 119 times
+  kernels (K6)  the fused STFT against its twin (atol 5e-4 + rtol 1e-4, the
+                JAX package's own tolerance) at the spectrogram models'
+                (32, 65536) 1024/256 and CLAP's (1, 1048576) 1024/480, timed
+                beside the twin, torch.stft (cuFFT) and its bound
+  spectrogram   the four spectrogram given models at (16, 2, 65536) f32
+                (1024/256, 32 Griffin-Lim rounds): the SpectrogramAE and
+                MagDPhase (init 'true') round trips under 1e-9 and 1e-8 rel
+                MSE (the CPU test's bound at this length); the
+                Mag and Mel decodes through K6 against the same decodes
+                through the twin from the same angles (rel-RMS under the
+                larger of 1e-3 and the twin's own spread under a 1e-6 input
+                change); spectral convergence, encode and decode times; K6
+                must launch 1 + 33 + 33 + 1 = 68 times
+  clap          the served model's CLAP module at full width in f32 with
+                seeded random weights (HTSAT-base with fusion, RoBERTa-base):
+                a 5 s clip (short path), a 22 s clip (fusion path) and two
+                texts embedded through CLAPDAE.embed: (1, 1, 512), unit norm,
+                finite; the audio embeddings through K6 against the same
+                through the twin (rel diff < 1e-4); one K6 launch per clip
   serve         the port's HTTP service in-process on localhost: /health,
-                two /generate requests with embeddings (slerp, algebra) at
-                full width and reduced steps, and a text prompt refused
+                two /generate requests with embeddings (slerp, algebra) and
+                one with a text prompt at full width and reduced steps,
+                /embed with a text (512 floats and the tokenizer warning)
+                and with WAV bytes, and a strict-text service answering 409
 
 The phases run in the order above, Destructo's first. Then the `kernels` summary line, the card's name and power limit from
 nvidia-smi, and last `{"ok": true, "device": {...}}`. Any failure exits
@@ -84,6 +105,18 @@ TURBO_STEP0 = {"k1": 49, "k2a": 83, "k2b": 59, "k2c": 0}
 TURBO_STEP = {"k1": 49, "k2a": 83, "k2b": 19, "k2c": 40}
 TURBO_REL_RMS_BOUND = 0.08     # turbo vs bf16 decode (the JAX package's band)
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
+# the spectrogram models (16, 2, 65536) at 1024 / 256: SpectrogramAE and
+# MagDPhase encode once, Mag and Mel encode once and take 32 Griffin-Lim rounds
+SPEC_SHAPE, SPEC_ITERS = (16, 2, 65536), 32
+K6_SPECTROGRAM = 1 + (1 + SPEC_ITERS) + (1 + SPEC_ITERS) + 1
+STFT_TOL = (5e-4, 1e-4)        # (atol, rtol): the JAX package's for its kernel
+GL_REL_RMS = 1e-3
+# the exact round trips, rel MSE: SpectrogramAE's; MagDPhase integrates f32
+# phase increments over 257 frames, where JAX's own round trip reaches 1.9e-9
+# (the bound of tests/test_torch_spectrogram_models.py at this length)
+ROUND_TRIP = {"SpectrogramAE": 1e-9, "MagDPhaseSpectrogramAE": 1e-8}
+CLAP_REL = 1e-4
+CLAP_SHORT, CLAP_LONG = 240000, MIRAGE_SAMPLES     # 5 s and 22 s at 48 kHz
 
 
 def emit(obj) -> None:
@@ -724,8 +757,201 @@ def phase_mirage():
     return model, counts
 
 
-def phase_serve(model) -> None:
-    """The HTTP service in-process on localhost, around the warm model."""
+def stft_bound(rows: int, t_len: int, n_fft: int, n_frames: int) -> tuple[float, str]:
+    """Least time for K6: read the signal once, write the complex64 output
+    once; or its 4 n_fft n_bins operations a frame (a multiply and an add
+    into re and im each) at the f32 peak, whichever is larger."""
+    n_bins = n_fft // 2 + 1
+    t_bytes = (rows * t_len * 4 + rows * n_bins * n_frames * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * n_fft * n_bins * rows * n_frames / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels_k6() -> dict:
+    """K6 at the spectrogram models' shape and at CLAP's 22 s clip, each
+    against its twin and timed beside the twin, torch.stft and the bound."""
+    import torch
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    dev = torch.device("cuda")
+    rows = []
+    for shape, n_fft, hop in [((32, 65536), 1024, 256), ((1, CLAP_LONG), 1024, 480)]:
+        g = torch.Generator(device=dev).manual_seed(400 + len(rows))
+        x = torch.randn(shape, generator=g, device=dev) * 0.5
+        got = stk.stft_fused(x, n_fft, hop)
+        torch.cuda.synchronize()
+        want = stk.stft_ref(x, n_fft, hop)
+        atol, rtol = STFT_TOL
+        err = (got - want).abs()
+        window = torch.hann_window(n_fft, device=dev)
+        # both against the same STFT in float64: how far each is from exact
+        exact = torch.stft(x.double(), n_fft, hop, window=window.double(), center=True,
+                           pad_mode="reflect", return_complex=True)
+        bound_ms, bound_by = stft_bound(shape[0], shape[1], n_fft, got.shape[-1])
+        rows.append({
+            "shape": list(shape), "n_fft": n_fft, "hop": hop, "dtype": "float32",
+            "out_shape": list(got.shape), "max_abs_err": float(err.max()), "atol": atol,
+            "rtol": rtol, "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
+            "kernel_max_abs_err_vs_f64": float((got - exact).abs().max()),
+            "plain_max_abs_err_vs_f64": float((want - exact).abs().max()),
+            "kernel_ms": cuda_ms(lambda: stk.stft_fused(x, n_fft, hop), 20),
+            "plain_ms": cuda_ms(lambda: stk.stft_ref(x, n_fft, hop), 20),
+            "library_ms": cuda_ms(lambda: torch.stft(
+                x, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                return_complex=True), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, got, want, err, exact
+    emit({"phase": "kernels", "kernel": "stft", "cases": rows})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K6 disagrees with its twin: {failed}")
+    return rows[0]
+
+
+def _synced_s(fn):
+    import torch
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def _with_twin_stft(fn):
+    """Run fn with the port's stft routed through K6's plain twin."""
+    from audio_algebra_torch.ops import stft_kernel as stk
+    kernel = stk.stft_fused
+    stk.stft_fused = stk.stft_ref
+    try:
+        return fn()
+    finally:
+        stk.stft_fused = kernel
+
+
+def phase_spectrogram() -> int:
+    """The four spectrogram given models at full size through their entry
+    points, K6's launches counted over the run; then, outside the count,
+    the Mag and Mel decodes again through the twin. Returns the count."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import given_models as gm
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    t = np.arange(SPEC_SHAPE[-1]) / 48000
+    tone = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 2000, (SPEC_SHAPE[0], 2, 1)) * t)
+    clip = (tone + 0.05 * rng.standard_normal(SPEC_SHAPE)).astype(np.float32)
+    models = {"SpectrogramAE": gm.SpectrogramAE(device="cuda"),
+              "MagSpectrogramAE": gm.MagSpectrogramAE(device="cuda", n_iter=SPEC_ITERS),
+              "MelSpectrogramAE": gm.MelSpectrogramAE(device="cuda", n_iter=SPEC_ITERS),
+              "MagDPhaseSpectrogramAE": gm.MagDPhaseSpectrogramAE(device="cuda")}
+    x = torch.from_numpy(clip).to(dev)
+    angles = torch.rand((*SPEC_SHAPE[:2], 513, SPEC_SHAPE[-1] // 256 + 1),
+                        generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev) * (2 * math.pi)
+    for name, m in models.items():                          # warm-up: first-use loads
+        kw = {"init_angle": angles[:1]} if name in ("MagSpectrogramAE",
+                                                    "MelSpectrogramAE") else {}
+        m.decode(m.encode(x[:1]), **kw)
+    rows, reps, outs = {}, {}, {}
+    stk.launches = 0
+    for name, m in models.items():
+        reps[name], enc_s = _synced_s(lambda: m.encode(x))
+        kw = {"init_angle": angles} if name in ("MagSpectrogramAE", "MelSpectrogramAE") else {}
+        outs[name], dec_s = _synced_s(lambda: m.decode(reps[name], **kw))
+        rows[name] = {"encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3,
+                      "reps_shape": list(reps[name].shape), "out_shape": list(outs[name].shape)}
+    launches = stk.launches
+
+    def rel_mse(a):
+        return float((a - x).square().mean() / x.square().mean())
+
+    ref_mag = stk.stft_ref(x, 1024, 256).abs()
+    for name, out in outs.items():
+        sc = (stk.stft_ref(out, 1024, 256).abs() - ref_mag).norm() / ref_mag.norm()
+        rows[name].update({"spectral_convergence": float(sc), "rel_mse": rel_mse(out),
+                           "finite": bool(torch.isfinite(out).all())})
+    for name in ("MagSpectrogramAE", "MelSpectrogramAE"):
+        m = models[name]
+        twin = _with_twin_stft(lambda: m.decode(reps[name], init_angle=angles))
+        nudge = 1 + 1e-6 * torch.randn(reps[name].shape, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(7))
+        spread = _with_twin_stft(lambda: m.decode(reps[name] * nudge, init_angle=angles))
+        rows[name].update({"rel_rms_kernel_vs_twin": rel_rms(outs[name], twin),
+                           "twin_spread_1e-6": rel_rms(spread, twin)})
+    emit({"phase": "spectrogram", "shape": list(SPEC_SHAPE), "n_fft": 1024, "hop": 256,
+          "n_iter": SPEC_ITERS, "models": rows, "round_trip_bounds": ROUND_TRIP,
+          "gl_rel_rms_bound": GL_REL_RMS, "k6_launches": launches,
+          "k6_expected": K6_SPECTROGRAM})
+    for name, r in rows.items():
+        if r["out_shape"] != list(SPEC_SHAPE) or not r["finite"]:
+            raise AssertionError(f"{name} decoded {r}")
+    for name, bound in ROUND_TRIP.items():
+        if not rows[name]["rel_mse"] < bound:
+            raise AssertionError(f"{name} round trip rel MSE {rows[name]['rel_mse']}")
+    for name in ("MagSpectrogramAE", "MelSpectrogramAE"):
+        r = rows[name]
+        if not r["rel_rms_kernel_vs_twin"] < max(GL_REL_RMS, r["twin_spread_1e-6"]):
+            raise AssertionError(f"{name} through K6 vs twin: {r}")
+    if launches != K6_SPECTROGRAM:
+        raise AssertionError(f"K6 launched {launches} times, expected {K6_SPECTROGRAM}")
+    return launches
+
+
+def phase_clap(model) -> int:
+    """CLAP at full width through CLAPDAE.embed: two clips and two texts;
+    the clips again through K6's twin, outside the count. Returns K6's
+    launches."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    clap = model.clap_module
+    t0 = time.perf_counter()
+    clap.ensure_params()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(8)
+    clips = {}
+    for name, n in (("short_5s", CLAP_SHORT), ("fusion_22s", CLAP_LONG)):
+        t = np.arange(n) / 48000
+        clips[name] = (np.stack([0.3 * np.sin(2 * np.pi * 220 * t),
+                                 0.3 * np.sin(2 * np.pi * 331 * t)])
+                       + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
+    texts = ["low brass ensemble", "a bright piano arpeggio"]
+    for prompt in [*clips.values(), texts[0]]:              # warm-up: cuDNN plans
+        model.embed(prompt)
+    embs, ms = {}, {}
+    stk.launches = 0
+    for name, prompt in [*clips.items(), *zip(("text_0", "text_1"), texts)]:
+        embs[name], sec = _synced_s(lambda: model.embed(prompt))
+        ms[name] = sec * 1e3
+    launches = stk.launches
+    twin = {name: _with_twin_stft(lambda: model.embed(clips[name])) for name in clips}
+    norms = {k: float(torch.linalg.vector_norm(e)) for k, e in embs.items()}
+    rel = {k: float((embs[k] - twin[k]).abs().max() / twin[k].abs().max()) for k in clips}
+    result = {"phase": "clap", "audio": "HTSAT-base fusion", "text": "RoBERTa-base",
+              "dtype": "float32", "init_s": init_s, "embed_ms": ms,
+              "shapes": {k: list(e.shape) for k, e in embs.items()}, "norms": norms,
+              "finite": all(bool(torch.isfinite(e).all()) for e in embs.values()),
+              "rel_diff_kernel_vs_twin": rel, "bound": CLAP_REL,
+              "text_tokenizer": clap.tokenizer_backend()[0],
+              "k6_launches": launches, "k6_expected": len(clips)}
+    emit(result)
+    if any(v != [1, 1, 512] for v in result["shapes"].values()) or not result["finite"] \
+            or any(abs(v - 1.0) > 1e-4 for v in norms.values()):
+        raise AssertionError(f"CLAP embeddings {result}")
+    if any(not v < CLAP_REL for v in rel.values()):
+        raise AssertionError(f"CLAP audio embeddings through K6 vs twin: {rel}")
+    if launches != len(clips):
+        raise AssertionError(f"K6 launched {launches} times over {len(clips)} clips")
+    return launches
+
+
+def phase_serve(model) -> int:
+    """The HTTP service in-process on localhost, around the warm model; a
+    second service over the same model in strict-text mode. Returns K6's
+    launches over the requests."""
     import io
     import threading
     import urllib.error
@@ -734,17 +960,18 @@ def phase_serve(model) -> None:
 
     import numpy as np
     from audio_algebra_torch import serve
-    from audio_algebra_torch.given_models import CLAP_NOT_PORTED
+    from audio_algebra_torch.ops import stft_kernel as stk
 
-    svc = serve.MirageService(model=model, verbose=False)
-    server = serve.make_server(svc, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
+    def start(svc):
+        server = serve.make_server(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
 
-    def post(path, obj, timeout=600):
-        req = urllib.request.Request(f"{base}{path}", data=json.dumps(obj).encode(),
-                                     headers={"Content-Type": "application/json"})
+    def post(base, path, body, ctype="application/json", timeout=600):
+        data = json.dumps(body).encode() if ctype == "application/json" else body
+        req = urllib.request.Request(f"{base}{path}", data=data,
+                                     headers={"Content-Type": ctype})
         return urllib.request.urlopen(req, timeout=timeout)
 
     rng = np.random.default_rng(1)
@@ -752,43 +979,87 @@ def phase_serve(model) -> None:
     specs = {"slerp": {"embeddings": embs, "interp": 0.3, "steps": 8, "outer_steps": 4,
                        "seed": 1},
              "algebra": {"embeddings": embs, "algebra": True, "weights": [1.0, -0.5],
-                         "steps": 8, "outer_steps": 4, "seed": 2}}
+                         "steps": 8, "outer_steps": 4, "seed": 2},
+             "text": {"text": ["low brass"], "steps": 8, "outer_steps": 4, "seed": 3}}
+    clip = io.BytesIO()
+    t = np.arange(3 * 48000) / 48000
+    with wave.open(clip, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(48000)
+        pcm = (np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 330 * t)]) * 9000)
+        w.writeframes(pcm.T.astype("<i2").tobytes())
     result = {"phase": "serve", "requests": {}}
+    servers = []
     try:
+        server, thread, base = start(serve.MirageService(model=model, verbose=False))
+        servers.append((server, thread))
         with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
             result["health"] = json.loads(r.read())
+        stk.launches = 0
         for name, spec in specs.items():
-            start = time.perf_counter()
-            with post("/generate", spec) as r:
+            start_s = time.perf_counter()
+            with post(base, "/generate", spec) as r:
                 status, ctype, body = r.status, r.headers["Content-Type"], r.read()
+                info = json.loads(r.headers["X-Generate-Info"])
             with wave.open(io.BytesIO(body)) as w:
                 fmt = [w.getnchannels(), w.getframerate(), w.getnframes()]
                 pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
             result["requests"][name] = {
                 "status": status, "content_type": ctype, "wav": fmt,
-                "seconds": time.perf_counter() - start, "rms": float(np.sqrt(
+                "tokenizer_warning": "tokenizer_warning" in info,
+                "seconds": time.perf_counter() - start_s, "rms": float(np.sqrt(
                     np.mean((pcm / 32767.0) ** 2)))}
+        for name, body, ctype in (("embed_text", {"text": "low brass"}, "application/json"),
+                                  ("embed_wav", clip.getvalue(), "audio/wav")):
+            start_s = time.perf_counter()
+            with post(base, "/embed", body, ctype) as r:
+                answer = json.loads(r.read())
+            emb = np.asarray(answer["embedding"], np.float64)
+            result["requests"][name] = {
+                "status": r.status, "floats": int(emb.size), "norm": float(np.linalg.norm(emb)),
+                "tokenizer_warning": "tokenizer_warning" in answer,
+                "seconds": time.perf_counter() - start_s}
+        launches = stk.launches
+        server, thread, base = start(serve.MirageService(model=model, verbose=False,
+                                                         strict_text=True))
+        servers.append((server, thread))
         try:
-            post("/generate", {"text": ["low brass"]}, 60)
-            refused = None
+            post(base, "/generate", specs["text"], timeout=60)
+            result["strict_text"] = None
         except urllib.error.HTTPError as e:
-            refused = {"code": e.code, "detail": json.loads(e.read())["detail"]}
-        result["text_prompt"] = refused
+            result["strict_text"] = {"code": e.code, "error": json.loads(e.read())["error"]}
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
+        for server, thread in servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    result["k6_launches"] = launches
     emit(result)
     if not result["health"].get("ok"):
         raise AssertionError(f"/health answered {result['health']}")
-    for name, r in result["requests"].items():
+    for name in specs:
+        r = result["requests"][name]
         if r["status"] != 200 or r["content_type"] != "audio/wav" \
                 or r["wav"] != [2, 48000, MIRAGE_SAMPLES]:
             raise AssertionError(f"/generate ({name}) answered {r}")
-    if refused is None or refused["code"] != 501 or refused["detail"] != CLAP_NOT_PORTED:
-        raise AssertionError(f"a text prompt was not refused with the CLAP message: {refused}")
-    if thread.is_alive():
-        raise AssertionError("the server thread did not stop")
+    fallback = result["health"]["text_tokenizer"] == "byte-fallback"
+    if result["requests"]["text"]["tokenizer_warning"] != fallback:
+        raise AssertionError(f"text prompt's tokenizer warning: {result['requests']['text']}")
+    for name, warned in (("embed_text", fallback), ("embed_wav", False)):
+        r = result["requests"][name]
+        if r["status"] != 200 or r["floats"] != 512 or abs(r["norm"] - 1) > 1e-4 \
+                or r["tokenizer_warning"] != warned:
+            raise AssertionError(f"/embed ({name}) answered {r}")
+    if fallback and result["strict_text"] != {"code": 409,
+                                              "error": "text_tokenizer_unavailable"}:
+        raise AssertionError(f"strict-text service answered {result['strict_text']}")
+    if launches != 1:
+        raise AssertionError(f"the requests launched K6 {launches} times, expected 1 "
+                             "(the WAV posted to /embed)")
+    if any(thread.is_alive() for _, thread in servers):
+        raise AssertionError("a server thread did not stop")
+    return launches
 
 
 def main() -> int:
@@ -816,7 +1087,10 @@ def main() -> int:
     turbo = phase_destructo_turbo()
     phase_mirage_model()
     model, counts = phase_mirage()
-    phase_serve(model)
+    k6 = phase_kernels_k6()
+    spectrogram_k6 = phase_spectrogram()
+    clap_k6 = phase_clap(model)
+    serve_k6 = phase_serve(model)
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -841,7 +1115,11 @@ def main() -> int:
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
-              "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5)]})
+              "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5),
+        entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
+              spectrogram_k6 + clap_k6 + serve_k6, k6,
+              launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
+                                "serve": serve_k6})]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)

@@ -2,8 +2,9 @@
 plain PyTorch twin: K1 (GroupNorm(1) + GELU + residual) and K2 (its turbo
 int8 modes) at the UNet's shapes and a ragged one, K3 (rel-pos flash
 attention) and K5 (grouped GroupNorm + FiLM + SiLU) at the MIRAGE UNet's
-shapes; and the turbo int8 conv (int8 tensor cores) against the same
-integer arithmetic on the CPU. These tests need a
+shapes; K6 (the fused STFT) at the spectrogram models' and CLAP's shapes
+and ragged ones; and the turbo int8 conv (int8 tensor cores) against the
+same integer arithmetic on the CPU. These tests need a
 CUDA device (marker `cuda`) and skip without one. The file imports no
 JAX, so it runs on a machine without it:
 
@@ -16,6 +17,8 @@ from audio_algebra_torch.models import blocks as tb
 from audio_algebra_torch.ops import flash_attention as fa
 from audio_algebra_torch.ops import groupnorm as gn
 from audio_algebra_torch.ops import groupnorm_grouped as ggn
+from audio_algebra_torch.ops import stft as st
+from audio_algebra_torch.ops import stft_kernel as stk
 
 F32_TOL = 1e-4          # f32: only the order of the statistics' sums differs
 BF16_TOL = 2e-2         # bf16: a one-ulp rounding flip at |y| < 4
@@ -152,3 +155,23 @@ def test_int8_conv_on_card_matches_the_integers(cuda_device, c_in, c_out, t):
                        bias.to(cuda_device), torch.bfloat16)
     ref = tb.conv1d_int8(x8, s, w, bias, torch.bfloat16)
     torch.testing.assert_close(y.cpu().float(), ref.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_fft,hop,center", [
+    ((32, 65536), 1024, 256, True), ((1, 1048576), 1024, 480, True),
+    ((2, 3, 4000), 512, 128, False), ((3, 5000), 256, 64, True), ((1, 9000), 1024, 1000, True)])
+def test_stft_kernel_matches_twin_on_card(cuda_device, shape, n_fft, hop, center):
+    """K6 against its twin at the JAX package's own kernel tolerance
+    (atol 5e-4, rtol 1e-4); `stft` takes K6 for the default window only."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
+    before = stk.launches
+    got = st.stft(x, n_fft, hop, center=center)
+    torch.cuda.synchronize()
+    assert stk.launches == before + 1 and got.dtype == torch.complex64
+    want = stk.stft_ref(x, n_fft, hop, center)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    st.stft(x, n_fft, hop, window=st.hann_window(n_fft, device=cuda_device), center=center)
+    assert stk.launches == before + 1

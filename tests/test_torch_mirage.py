@@ -3,7 +3,8 @@ CLAPDAE.generate (DPM++(2M) with CFG over the UNetCFG1d, whose attention
 level has T = 1024 so that the port takes kernel K3's route; the outer
 v-DDIM; the AE decode) on a tiny config with the same weights and the same
 noise on both sides, with and without init-audio latents; the embedding
-math; and the HTTP service on the CPU."""
+math; and the HTTP service on the CPU: embedding and text prompts, /embed
+for text and for WAV bytes, and the strict-text refusal (409)."""
 import base64
 import io
 import json
@@ -24,7 +25,8 @@ from audio_algebra_tpu.models.clap import TINY_AUDIO_CFG, TINY_TEXT_CFG
 from audio_algebra_tpu.utils.prng import host_split
 from audio_algebra_torch import embedding_math as tem
 from audio_algebra_torch import serve as tserve
-from audio_algebra_torch.given_models import CLAP_NOT_PORTED, CLAPDAE
+from audio_algebra_torch.given_models import CLAPDAE
+from audio_algebra_torch.models import clap as tclap
 from audio_algebra_torch.utils.audio_io import write_wav
 from test_torch_blocks import rand_tree
 
@@ -133,10 +135,12 @@ def test_embedding_math_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
-def _small_service():
+def _small_service(strict_text: bool = False):
     model = CLAPDAE(sample_size=4096, first_stage_config=FIRST_STAGE,
-                    model_kwargs=MODEL_KWARGS, device="cpu", seed=3)
-    return tserve.MirageService(model=model, verbose=False)
+                    model_kwargs=MODEL_KWARGS, device="cpu", seed=3,
+                    clap_kwargs=dict(audio_cfg=dict(tclap.TINY_AUDIO_CFG),
+                                     text_cfg=dict(tclap.TINY_TEXT_CFG)))
+    return tserve.MirageService(model=model, verbose=False, strict_text=strict_text)
 
 
 def _wav_info(data: bytes):
@@ -159,8 +163,11 @@ def test_service_generate_wav_and_checks(tmp_path):
         with pytest.raises(ValueError):
             svc.generate_wav({**({"embeddings": spec["embeddings"][:1]} if bad else {}),
                               **bad})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.generate_wav({"text": ["low brass"]})
+    with pytest.warns(UserWarning, match="byte-level"):
+        wav, info = svc.generate_wav({"text": ["low brass"], "steps": 2, "outer_steps": 1,
+                                      "seed": 1})
+    assert _wav_info(wav) == (2, 48000, 4096)
+    assert "byte-level fallback" in info["tokenizer_warning"]
     mono = (0.2 * rng.standard_normal((1, 3000))).astype(np.float32)   # looped, doubled
     write_wav(tmp_path / "init.wav", mono, 48000)
     init_b64 = base64.b64encode((tmp_path / "init.wav").read_bytes()).decode()
@@ -168,7 +175,7 @@ def test_service_generate_wav_and_checks(tmp_path):
                                   "outer_steps": 1, "init_strength": 0.5,
                                   "init_audio_b64": init_b64})
     assert info["samples"] == 4096 and _wav_info(wav)[2] == 4096
-    assert svc.requests_served == 3
+    assert svc.requests_served == 4
 
 
 def test_http_server_answers():
@@ -188,12 +195,30 @@ def test_http_server_answers():
         with urllib.request.urlopen(req, timeout=120) as r:
             assert r.status == 200 and r.headers["Content-Type"] == "audio/wav"
             assert _wav_info(r.read()) == (2, 48000, 4096)
-        for path, payload in (("/generate", {"text": "piano"}), ("/embed", {"text": "x"})):
-            req = urllib.request.Request(f"{base}{path}", data=json.dumps(payload).encode())
-            with pytest.raises(urllib.error.HTTPError) as err:
-                urllib.request.urlopen(req, timeout=30)
-            assert err.value.code == 501
-            assert json.loads(err.value.read())["detail"] == CLAP_NOT_PORTED
+        body = json.dumps({"text": "piano", "steps": 2, "outer_steps": 1}).encode()
+        with urllib.request.urlopen(urllib.request.Request(f"{base}/generate", data=body),
+                                    timeout=120) as r:
+            assert r.status == 200 and _wav_info(r.read()) == (2, 48000, 4096)
+            assert "tokenizer_warning" in json.loads(r.headers["X-Generate-Info"])
+        req = urllib.request.Request(f"{base}/embed", data=json.dumps({"text": "x"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            answer = json.loads(r.read())
+        assert np.asarray(answer["embedding"]).shape == (1, 1, 512)
+        assert "byte-level fallback" in answer["tokenizer_warning"]
+        clip = io.BytesIO()
+        with wave.open(clip, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(48000)
+            w.writeframes((np.sin(np.arange(6000) / 9.0) * 8000).astype("<i2").tobytes())
+        with urllib.request.urlopen(urllib.request.Request(f"{base}/embed",
+                                                           data=clip.getvalue()),
+                                    timeout=60) as r:
+            answer = json.loads(r.read())
+        emb = np.asarray(answer["embedding"])
+        assert emb.shape == (1, 1, 512) and "tokenizer_warning" not in answer
+        np.testing.assert_allclose(np.linalg.norm(emb), 1.0, atol=1e-5)
     finally:
         server.shutdown()
         server.server_close()
@@ -208,6 +233,30 @@ def test_entry_points_want_a_card_unless_asked_for_the_cpu():
         CLAPDAE(first_stage_config=FIRST_STAGE, model_kwargs=MODEL_KWARGS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.MirageService(verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLAPDAE(first_stage_config=FIRST_STAGE, model_kwargs=MODEL_KWARGS,
-                device="cpu").embed("a piano")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tclap.CLAPModule()
+
+
+def test_strict_text_refuses_text_prompts_with_409():
+    svc = _small_service(strict_text=True)
+    assert svc.health()["text_tokenizer"] == "byte-fallback" and svc.health()["strict_text"]
+    with pytest.raises(tserve.TokenizerUnavailable):
+        svc.generate_wav({"text": ["low brass"], "steps": 2, "outer_steps": 1})
+    assert svc.requests_served == 0
+    server = tserve.make_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        for path in ("/generate", "/embed"):
+            req = urllib.request.Request(f"{base}{path}", data=json.dumps(
+                {"text": "piano", "steps": 2, "outer_steps": 1}).encode())
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(req, timeout=30)
+            assert err.value.code == 409
+            assert json.loads(err.value.read())["error"] == "text_tokenizer_unavailable"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
