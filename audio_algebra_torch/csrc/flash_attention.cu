@@ -1,9 +1,10 @@
 // Blocked (flash) self-attention with an additive rel-pos bias, forward,
-// for Hopper (sm_90a): kernel K3 of the port.
+// for Hopper (sm_90a): kernels K3 (serving) and K4a (training, with the
+// softmax residuals) of the port, one kernel with optional outputs.
 //
 // Replaces: audio_algebra_tpu/ops/pallas/flash_attention.py:
-// flash_attention_relpos (its Pallas body _fwd_kernel_t, launched by
-// _fwd_impl).
+// flash_attention_relpos and the forward of flash_attention_relpos_train
+// (the Pallas body _fwd_kernel_t, launched by _fwd_impl).
 //
 // Computes, for q, k, v of shape (B, H, T, D) and the TRANSPOSED bias
 // biasT (H, S = T, T) (biasT[h, s, t] is the bias of query t and key s):
@@ -11,6 +12,9 @@
 // with the scores and the softmax statistics (running max m, normaliser l)
 // in f32, P cast to v's dtype before the P.V product (f32 accumulation),
 // and the output divided by l and cast to q's dtype, as the TPU kernel does.
+// When l_out and m_out are given (K4a), the final row max m and normaliser
+// l of every query are also written, as f32 (H, B, T): what the backward
+// kernels recompute the probabilities from.
 //
 // Design: one block per (batch*head, 64-query tile) with a loop over 64-key
 // tiles. The K, V and bias tiles are staged in shared memory; the online
@@ -36,65 +40,11 @@
 // kernel on the given stream, allocates nothing, does not synchronise, and
 // returns cudaGetLastError().
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows of a block
-constexpr int kBK = 64;              // keys of a tile
-constexpr int kBiasLD = kBQ + 4;     // f32 stride of the bias tile: the
-                                     // transposed reads hit 32 banks
-constexpr float kNegInf = -1e30f;    // the TPU kernel's initial max
-
-// One tile of the bias: rows s0..s0+63 (keys), columns t0..t0+63 (queries)
-// of biasT[h], into bs[key * kBiasLD + query] as f32.
-template <typename TB>
-__device__ __forceinline__ void load_bias_tile(const TB* __restrict__ bias_h, int t_len,
-                                               int s0, int t0, float* bs, int tid,
-                                               int n_threads) {
-  constexpr int V = aa::VecIO<TB>::V;
-  constexpr int kChunks = kBQ / V;
-  for (int i = tid; i < kBK * kChunks; i += n_threads) {
-    const int r = i / kChunks, c = (i % kChunks) * V;
-    float v[V];
-    aa::VecIO<TB>::load(bias_h + static_cast<size_t>(s0 + r) * t_len + t0 + c, v);
-#pragma unroll
-    for (int k = 0; k < V; k += 4)
-      *reinterpret_cast<float4*>(bs + r * kBiasLD + c + k) =
-          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-  }
-}
-
-// Copy rows [0, rows) of a (rows, D) tile of 16-bit or 32-bit elements from
-// global memory (contiguous) into shared memory with row stride ld.
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(const E* __restrict__ src, E* dst, int ld,
-                                          int rows, int tid, int n_threads) {
-  constexpr int V = 16 / sizeof(E);
-  constexpr int kChunks = D / V;
-  for (int i = tid; i < rows * kChunks; i += n_threads) {
-    const int r = i / kChunks, c = (i % kChunks) * V;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
+using namespace aa_flash;
 
 // ---------------------------------------------------------------- bf16 ---
 // 128 threads; warp w owns query rows 16w..16w+15 of the tile. In the
@@ -104,7 +54,8 @@ template <int D, typename TB>
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const TB* __restrict__ bias,
-               uint16_t* __restrict__ o, int heads, int t_len, float sm_scale) {
+               uint16_t* __restrict__ o, float* __restrict__ l_out,
+               float* __restrict__ m_out, int heads, int t_len, float sm_scale) {
   constexpr int LD = D + 8;          // bf16 stride: fragment reads hit 32 banks
   constexpr int KD = D / 16;         // k-steps of Q.K^T
   constexpr int ND = D / 8;          // 8-wide dim tiles of the output
@@ -222,6 +173,14 @@ flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     *reinterpret_cast<uint32_t*>(o0 + 8 * d) = aa::bf16_pack(acc[d][0] / l0, acc[d][1] / l0);
     *reinterpret_cast<uint32_t*>(o1 + 8 * d) = aa::bf16_pack(acc[d][2] / l1, acc[d][3] / l1);
   }
+  if (l_out != nullptr && tg == 0) {   // residuals, (H, B, T)
+    const int batch = gridDim.y / heads;
+    const size_t r = (static_cast<size_t>(h) * batch + bh / heads) * t_len + t0 + r0 + g;
+    l_out[r] = l0;
+    l_out[r + 8] = l1;
+    m_out[r] = m0;
+    m_out[r + 8] = m1;
+  }
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -230,7 +189,8 @@ template <int D, typename TB>
 __global__ void __launch_bounds__(256)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const TB* __restrict__ bias,
-              float* __restrict__ o, int heads, int t_len, float sm_scale) {
+              float* __restrict__ o, float* __restrict__ l_out,
+              float* __restrict__ m_out, int heads, int t_len, float sm_scale) {
   constexpr int DPT = D / 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
@@ -292,11 +252,18 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = o + head + static_cast<size_t>(t0 + row) * D + quarter;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) orow[4 * i] = acc[i] / l;
+  if (l_out != nullptr && quarter == 0) {   // residuals, (H, B, T)
+    const int batch = gridDim.y / heads;
+    const size_t r = (static_cast<size_t>(h) * batch + bh / heads) * t_len + t0 + row;
+    l_out[r] = l;
+    m_out[r] = m;
+  }
 }
 
 template <int D, typename TB>
 int launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
-                int b, int heads, int t_len, float sm_scale, cudaStream_t st) {
+                float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
+                cudaStream_t st) {
   constexpr int LD = D + 8;
   constexpr size_t kSmem = (kBQ + 2 * kBK) * LD * sizeof(uint16_t)
                            + kBK * kBiasLD * sizeof(float);
@@ -307,13 +274,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias, v
   kernel<<<dim3(t_len / kBQ, b * heads), 128, kSmem, st>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const TB*>(bias),
-      static_cast<uint16_t*>(o), heads, t_len, sm_scale);
+      static_cast<uint16_t*>(o), l_out, m_out, heads, t_len, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename TB>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
-               int b, int heads, int t_len, float sm_scale, cudaStream_t st) {
+               float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
+               cudaStream_t st) {
   constexpr size_t kSmem = (2 * kBK * D + kBK * kBiasLD) * sizeof(float);
   auto kernel = flash_fwd_f32<D, TB>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -322,20 +290,20 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias, vo
   kernel<<<dim3(t_len / kBQ, b * heads), 256, kSmem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const TB*>(bias),
-      static_cast<float*>(o), heads, t_len, sm_scale);
+      static_cast<float*>(o), l_out, m_out, heads, t_len, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB>
 int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
-             const void* bias, void* o, int b, int heads, int t_len, float sm_scale,
-             cudaStream_t st) {
+             const void* bias, void* o, float* l_out, float* m_out, int b, int heads,
+             int t_len, float sm_scale, cudaStream_t st) {
 #define AA_FLASH_D(DV)                                                              \
   case DV:                                                                          \
-    return dtype == 1 ? launch_bf16<DV, TB>(q, k, v, bias, o, b, heads, t_len,      \
-                                            sm_scale, st)                           \
-                      : launch_f32<DV, TB>(q, k, v, bias, o, b, heads, t_len,       \
-                                           sm_scale, st);
+    return dtype == 1 ? launch_bf16<DV, TB>(q, k, v, bias, o, l_out, m_out, b,      \
+                                            heads, t_len, sm_scale, st)             \
+                      : launch_f32<DV, TB>(q, k, v, bias, o, l_out, m_out, b,       \
+                                           heads, t_len, sm_scale, st);
   switch (d) {
     AA_FLASH_D(16)
     AA_FLASH_D(32)
@@ -352,19 +320,24 @@ int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
 // dtype (of q, k, v and o) and bias_dtype: 0 = float32, 1 = bfloat16.
 // q, k, v, o: contiguous (B, H, T, D), 16-byte aligned; bias: contiguous
 // (H, T, T) transposed bias. T must be a multiple of 64 and D one of 16,
-// 32, 64, 128. Returns cudaGetLastError().
+// 32, 64, 128. l_out and m_out: both null (K3), or contiguous f32 (H, B, T)
+// for the residuals (K4a). Returns cudaGetLastError().
 extern "C" int aa_flash_attention_relpos(int dtype, int bias_dtype, const void* q,
                                          const void* k, const void* v,
-                                         const void* bias, void* o, int b, int heads,
-                                         int t_len, int d, float sm_scale,
-                                         void* stream) {
+                                         const void* bias, void* o, void* l_out,
+                                         void* m_out, int b, int heads, int t_len,
+                                         int d, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || t_len % kBQ != 0)
+  if ((dtype != 0 && dtype != 1) || t_len % kBQ != 0 ||
+      (l_out == nullptr) != (m_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* lo = static_cast<float*>(l_out);
+  float* mo = static_cast<float*>(m_out);
   if (bias_dtype == 0)
-    return dispatch<float>(dtype, d, q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+    return dispatch<float>(dtype, d, q, k, v, bias, o, lo, mo, b, heads, t_len,
+                           sm_scale, st);
   if (bias_dtype == 1)
-    return dispatch<__nv_bfloat16>(dtype, d, q, k, v, bias, o, b, heads, t_len,
+    return dispatch<__nv_bfloat16>(dtype, d, q, k, v, bias, o, lo, mo, b, heads, t_len,
                                    sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,88 @@
+// Pieces shared by the rel-pos flash attention kernels (flash_attention.cu:
+// the forward, K3 and K4a; flash_attention_dkv.cu: K4b; flash_attention_dq.cu:
+// K4c): the 64 x 64 tiling, the tile loaders and the bf16 mma.sync wrapper.
+#pragma once
+
+#include "common.cuh"
+
+namespace aa_flash {
+
+constexpr int kBQ = 64;              // query rows of a tile
+constexpr int kBK = 64;              // keys of a tile
+constexpr int kBiasLD = kBQ + 4;     // f32 stride of the bias tile: the
+                                     // transposed reads hit 32 banks
+constexpr float kNegInf = -1e30f;    // the TPU kernel's initial max
+
+// One tile of the bias: rows s0..s0+63 (keys), columns t0..t0+63 (queries)
+// of biasT[h], into bs[key * kBiasLD + query] as f32.
+template <typename TB>
+__device__ __forceinline__ void load_bias_tile(const TB* __restrict__ bias_h, int t_len,
+                                               int s0, int t0, float* bs, int tid,
+                                               int n_threads) {
+  constexpr int V = aa::VecIO<TB>::V;
+  constexpr int kChunks = kBQ / V;
+  for (int i = tid; i < kBK * kChunks; i += n_threads) {
+    const int r = i / kChunks, c = (i % kChunks) * V;
+    float v[V];
+    aa::VecIO<TB>::load(bias_h + static_cast<size_t>(s0 + r) * t_len + t0 + c, v);
+#pragma unroll
+    for (int k = 0; k < V; k += 4)
+      *reinterpret_cast<float4*>(bs + r * kBiasLD + c + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  }
+}
+
+// Copy rows [0, rows) of a (rows, D) tile of 16-bit or 32-bit elements from
+// global memory (contiguous) into shared memory with row stride ld.
+template <typename E, int D>
+__device__ __forceinline__ void load_tile(const E* __restrict__ src, E* dst, int ld,
+                                          int rows, int tid, int n_threads) {
+  constexpr int V = 16 / sizeof(E);
+  constexpr int kChunks = D / V;
+  for (int i = tid; i < rows * kChunks; i += n_threads) {
+    const int r = i / kChunks, c = (i % kChunks) * V;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// The A fragment (16 rows x 16 columns) of an m16n8k16 product from a
+// row-major bf16 tile in shared memory: rows r0 + g and r0 + g + 8,
+// columns c0 + 2 tg (+1) and c0 + 8 + 2 tg (+1).
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const uint16_t* tile, int ld,
+                                            int r0, int c0, int g, int tg) {
+  const uint16_t* p = tile + (r0 + g) * ld + c0 + 2 * tg;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// The A fragment of k-step kk from two neighbouring f32 C fragments (the
+// 8-wide column tiles 2 kk and 2 kk + 1), rounded to bf16.
+__device__ __forceinline__ void c_to_a_frag(uint32_t (&a)[4], const float (&lo)[4],
+                                            const float (&hi)[4]) {
+  a[0] = aa::bf16_pack(lo[0], lo[1]);
+  a[1] = aa::bf16_pack(lo[2], lo[3]);
+  a[2] = aa::bf16_pack(hi[0], hi[1]);
+  a[3] = aa::bf16_pack(hi[2], hi[3]);
+}
+
+}  // namespace aa_flash

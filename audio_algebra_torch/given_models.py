@@ -379,6 +379,24 @@ class CLAPDAE:
             params_mod.random_init_(self.latent_diffusion_model, self.seed + 1)
             self._place()
 
+    def freeze_for_training(self) -> "CLAPDAE":
+        """What the trainer reads: the stage-1 stack and CLAP frozen
+        (requires_grad off, eval), the latent diffusion model in f32 with
+        requires_grad on. Returns self."""
+        self.ensure_params()
+        self.clap_module.ensure_params()
+        frozen = (self.latent_diffae, self.clap_module.audio_model,
+                  self.clap_module.text_model)
+        for m in frozen:
+            m.requires_grad_(False).eval()
+        self.latent_diffusion_model.to(self.device, torch.float32).requires_grad_(True)
+        return self
+
+    @property
+    def ldm_params(self) -> dict:
+        """The trainable parameters, name -> Parameter (JAX's `ldm_params`)."""
+        return dict(self.latent_diffusion_model.named_parameters())
+
     def half(self, dtype: torch.dtype = torch.bfloat16) -> "CLAPDAE":
         """Cast both diffusion stages (and the AE) to bf16, the reference
         app's default; CLAP stays f32. Returns self."""
@@ -402,7 +420,9 @@ class CLAPDAE:
     def embed(self, x, *args, **kwargs) -> torch.Tensor:
         """A text prompt, or audio (T,), (C, T) or (B, C, T) at 48 kHz
         (averaged to mono) -> (B, 1, 512) unit CLAP embeddings, f32. A text
-        is embedded beside the empty prompt and the first row kept."""
+        is embedded beside the empty prompt and the first row kept. The
+        result is an ordinary tensor without a graph (CLAP runs under
+        no_grad), so a trainer may feed it to a model."""
         if isinstance(x, str):
             emb = self.clap_module.get_text_embedding([x, ""])[:1]
         else:
@@ -428,9 +448,11 @@ class CLAPDAE:
         return torch.randn(shape, generator=self.generator, device=self.device,
                            dtype=torch.float32).to(self.dtype)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_audio_latents(self, audio) -> torch.Tensor:
-        """The init-audio path: (B, 2, T) audio -> stage-2 latents."""
+        """The init-audio path, and the trainer's frozen encoder: (B, 2, T)
+        audio -> stage-2 latents. Under no_grad, not inference_mode: the
+        trainer feeds the latents into a graph."""
         self.ensure_params()
         return self.latent_diffae.encode(self._as_input(audio))
 

@@ -696,10 +696,12 @@ class CLAPModule:
     def tokenizer_backend(self) -> tuple:
         return tokenizer_backend(self.text_cfg, self.asset_dir)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def get_audio_embedding_from_data(self, x) -> torch.Tensor:
         """(B, T) or (T,) mono audio at 48 kHz -> (B, 512). With fusion,
-        clips longer than clip_samples take the local-crop fusion path."""
+        clips longer than clip_samples take the local-crop fusion path.
+        Under no_grad (not inference_mode): the trainer feeds the result
+        into a graph."""
         self.ensure_params()
         x = torch.as_tensor(np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x)
         x = x.to(self.device, torch.float32)
@@ -712,7 +714,7 @@ class CLAPModule:
                 return self.audio_model(audio_to_fusion_features(x, cfg), is_longer=True)
             return self.audio_model(audio_to_input_features(x, cfg))
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def get_text_embedding(self, texts: Sequence[str]) -> torch.Tensor:
         """list[str] -> (N, 512)."""
         self.ensure_params()

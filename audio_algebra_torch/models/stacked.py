@@ -12,8 +12,8 @@ Port of audio_algebra_tpu/models/stacked.py:
   seeded random weights and the flax bridge see the same leaves.
 * StackedAELatentDiffusionCond: UNetCFG1d over the 32-d stage-2 latents
   with 512-d context embeddings (the songs configuration by default).
-
-Training (v_objective_loss) comes with a later slice.
+* v_objective_loss: the training objective of the latter (v prediction,
+  MSE, CFG dropout of the conditioning).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..samplers.vddim import get_alphas_sigmas
 from .audio_ae import AudioAutoencoder
 from .encoder1d import Encoder1d
 from .unet1d import DiffusionAttnUnet1D
@@ -87,9 +88,11 @@ class StackedAELatentDiffusionCond(nn.Module):
                  resnet_groups: int = 8, attention_heads: int = 16,
                  attention_features: int = 64, attention_multiplier: int = 4,
                  attention_rel_pos_max_distance: int = 2048,
-                 attention_rel_pos_num_buckets: int = 256):
+                 attention_rel_pos_num_buckets: int = 256,
+                 train_flash: bool = True, remat: bool = False):
         super().__init__()
         self.diffusion = UNetCFG1d(
+            train_flash=train_flash, remat=remat,
             in_channels=latent_dim, context_embedding_features=embedding_features,
             context_embedding_max_length=embedding_max_len, channels=channels,
             resnet_groups=resnet_groups, multipliers=multipliers, factors=factors,
@@ -101,6 +104,25 @@ class StackedAELatentDiffusionCond(nn.Module):
             use_skip_scale=True, use_context_time=True)
 
     def forward(self, x, t, embedding=None, embedding_scale: float = 1.0,
-                rel_biases=None):
+                rel_biases=None, embedding_mask_proba: float = 0.0, keep=None,
+                generator: torch.Generator | None = None):
         return self.diffusion(x, t, embedding=embedding, embedding_scale=embedding_scale,
-                              rel_biases=rel_biases)
+                              rel_biases=rel_biases,
+                              embedding_mask_proba=embedding_mask_proba, keep=keep,
+                              generator=generator)
+
+
+def v_objective_loss(model, latents, embeddings, t, noise,
+                     embedding_mask_proba: float = 0.1, keep=None,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """The training objective (JAX stacked.py:151-166): noised = z * alpha +
+    noise * sigma, target = noise * alpha - z * sigma, MSE on the predicted
+    v with CFG dropout of the embeddings (`keep` given, or drawn from
+    `generator` with probability `embedding_mask_proba` of a drop)."""
+    alphas, sigmas = get_alphas_sigmas(t)
+    alphas, sigmas = alphas[:, None, None], sigmas[:, None, None]
+    noised = latents * alphas + noise * sigmas
+    targets = noise * alphas - latents * sigmas
+    v = model(noised, t, embedding=embeddings, embedding_mask_proba=embedding_mask_proba,
+              keep=keep, generator=generator)
+    return (v - targets).square().mean()

@@ -9,9 +9,7 @@ Module and parameter names follow flax (`core/down_res0_0/GroupNorm_0`,
 `core/mid_attn5_0/RelPosSelfAttention_0/rel_pos_bias`, `time_mlp1`,
 `down_conv{i}`, `up_conv{i}`, `fixed_embedding`, ...) so that
 utils/params.load_flax_params maps a flax tree onto the module. The TPU
-sequence folds (pick_cfg_fold, _fold_halo, _fold_conv) and the training
-options (CFG dropout, the differentiable flash path, remat) are not
-ported.
+sequence folds (pick_cfg_fold, _fold_halo, _fold_conv) are not ported.
 
 Activations are (B, C, T) between convolutions; the transformer blocks
 work in (B, T, C) inside. Every GroupNorm (+ FiLM + SiLU) goes through
@@ -20,6 +18,14 @@ kernel K3, with the transposed bias; the other sites, the cross-attention,
 the feed-forward and the convolutions stay plain PyTorch, as they were
 XLA in JAX. Sampling with CFG runs cond and null in one doubled batch and
 returns null + s * (cond - null).
+
+Training. With grad enabled and no hoisted bias, a self-attention site
+with flash_train_ok(T) builds its transposed bias inside the graph and
+goes through the differentiable kernels K4 (`train_flash`, default on:
+JAX's AA_TRAIN_FLASH=1). `embedding_mask_proba` / `keep` is the CFG
+dropout of the conditioning, drawn from an explicit generator or given.
+`remat` recomputes each ResnetBlock and TransformerBlock in the backward
+(JAX's AA_LDM_REMAT=1), off by default.
 """
 from __future__ import annotations
 
@@ -31,7 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention_relpos, flash_ok
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.flash_attention import (flash_attention_relpos, flash_attention_relpos_train,
+                                   flash_ok, flash_train_ok)
 from ..ops.groupnorm import gelu_tanh
 from .blocks import Conv1d, ConvTranspose1d, Dense, GroupNorm, LayerNorm, Linear
 
@@ -103,14 +112,19 @@ def _plain_attention(q, k, v, bias=None):
 
 class RelPosSelfAttention(nn.Module):
     """Pre-LayerNorm self-attention with a T5 rel-pos bias, on (B, T, C).
-    Kernel K3 when flash_ok(T); else the plain route of unet_cfg1d.py:
-    240-256 (q scaled in x's dtype, f32 scores)."""
+    With grad enabled, no hoisted bias and flash_train_ok(T): the
+    differentiable kernels K4, the transposed bias built in the graph so
+    that its gradient reaches the bucket table (`train_flash`, JAX's
+    AA_TRAIN_FLASH). Else kernel K3 when flash_ok(T); else the plain route
+    of unet_cfg1d.py:240-256 (q scaled in x's dtype, f32 scores)."""
 
     def __init__(self, channels: int, heads: int, head_features: int,
-                 num_buckets: int = 256, max_distance: int = 2048):
+                 num_buckets: int = 256, max_distance: int = 2048,
+                 train_flash: bool = True):
         super().__init__()
         inner = heads * head_features
         self.heads, self.head_features = heads, head_features
+        self.train_flash = train_flash
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.LayerNorm_0 = LayerNorm(channels)
         self.Dense_0 = Linear(channels, inner, use_bias=False)
@@ -129,7 +143,11 @@ class RelPosSelfAttention(nn.Module):
         q, k, v = (_heads(d(h), self.heads) for d in (self.Dense_0, self.Dense_1,
                                                       self.Dense_2))
         scale = self.head_features ** -0.5
-        if flash_ok(t):
+        if self.train_flash and bias is None and torch.is_grad_enabled() \
+                and flash_train_ok(t):
+            bias_t = self._bias(t, transposed=True).to(x.dtype).contiguous()
+            y = flash_attention_relpos_train(q, k, v, bias_t, scale)
+        elif flash_ok(t):
             if isinstance(bias, TransposedBias):
                 bias_t = bias.arr
             elif bias is None:
@@ -189,10 +207,10 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, channels: int, context_features: int, heads: int,
                  head_features: int, multiplier: int, num_buckets: int,
-                 max_distance: int):
+                 max_distance: int, train_flash: bool = True):
         super().__init__()
         self.RelPosSelfAttention_0 = RelPosSelfAttention(
-            channels, heads, head_features, num_buckets, max_distance)
+            channels, heads, head_features, num_buckets, max_distance, train_flash)
         self.CrossAttention_0 = CrossAttention(channels, context_features, heads,
                                                head_features)
         self.FeedForward_0 = FeedForward(channels, multiplier)
@@ -229,11 +247,15 @@ class ResnetBlock(nn.Module):
 
 class _UNetCore(nn.Module):
     """The UNet body, called once per forward (with a doubled batch under
-    CFG)."""
+    CFG). With `remat`, and grad enabled, each ResnetBlock and
+    TransformerBlock keeps only its inputs and is recomputed in the
+    backward (torch.utils.checkpoint)."""
 
-    def __init__(self, cfg: "UNetCFG1dConfig"):
+    def __init__(self, cfg: "UNetCFG1dConfig", train_flash: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         ch, mults = cfg.channels, cfg.multipliers
         n_levels = len(mults)
         tf = 4 * ch
@@ -253,7 +275,7 @@ class _UNetCore(nn.Module):
                     feats, cfg.context_embedding_features, cfg.attention_heads,
                     cfg.attention_features, cfg.attention_multiplier,
                     cfg.attention_rel_pos_num_buckets,
-                    cfg.attention_rel_pos_max_distance))
+                    cfg.attention_rel_pos_max_distance, train_flash))
             return feats
 
         c = ch * mults[0]
@@ -279,12 +301,17 @@ class _UNetCore(nn.Module):
         nb = self.cfg.num_blocks
         return nb[i] if i < len(nb) else 1
 
+    def _run(self, block, *args, **kwargs):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
     def _level(self, h, i, stage, time_emb, context, rel_biases):
         for j in range(self._n_blocks(i)):
-            h = getattr(self, f"{stage}_res{i}_{j}")(h, time_emb)
+            h = self._run(getattr(self, f"{stage}_res{i}_{j}"), h, time_emb)
         for j in range(self.cfg.attentions[i]):
             name = f"{stage}_attn{i}_{j}"
-            h = getattr(self, name)(h, context, rel_bias=rel_biases.get(name))
+            h = self._run(getattr(self, name), h, context, rel_bias=rel_biases.get(name))
         return h
 
     def forward(self, x, t, context, rel_biases=None):
@@ -337,20 +364,27 @@ class UNetCFG1dConfig:
 
 
 class UNetCFG1d(nn.Module):
-    """Keyword arguments: the fields of UNetCFG1dConfig."""
+    """Keyword arguments: the fields of UNetCFG1dConfig, and the training
+    options `train_flash` (kernels K4 under grad, default on) and `remat`
+    (per-block recomputation, default off)."""
 
-    def __init__(self, **kwargs):
+    def __init__(self, train_flash: bool = True, remat: bool = False, **kwargs):
         super().__init__()
         self.cfg = cfg = UNetCFG1dConfig(**kwargs)
         self.fixed_embedding = nn.Parameter(
             torch.zeros(cfg.context_embedding_max_length, cfg.context_embedding_features))
-        self.core = _UNetCore(cfg)
+        self.core = _UNetCore(cfg, train_flash, remat)
 
     def forward(self, x, t, embedding=None, embedding_scale: float = 1.0,
-                rel_biases=None):
+                rel_biases=None, embedding_mask_proba: float = 0.0, keep=None,
+                generator: torch.Generator | None = None):
         """x (B, in_channels, T), t (B,), embedding (B or 1, L, E) -> v
         (B, in_channels, T). With an embedding and embedding_scale != 1,
-        classifier-free guidance over one doubled batch."""
+        classifier-free guidance over one doubled batch. CFG dropout
+        (training): rows of the embedding where `keep` (B, 1, 1) bool is
+        False are replaced by the learned null embedding; without `keep`
+        and with embedding_mask_proba > 0 it is drawn Bernoulli(1 - p)
+        from `generator`."""
         b = x.shape[0]
         null_ctx = self.fixed_embedding[None].expand(b, *self.fixed_embedding.shape).to(x.dtype)
         if embedding is None:
@@ -361,6 +395,15 @@ class UNetCFG1d(nn.Module):
         elif context.shape[0] != b:
             raise ValueError(f"embedding batch {context.shape[0]} must be 1 or match "
                              f"x batch {b}")
+        if keep is None and embedding_mask_proba > 0.0:
+            if generator is None:
+                raise ValueError("CFG dropout draws from an explicit torch.Generator: "
+                                 "pass `generator` or a `keep` mask")
+            keep = torch.rand((b, 1, 1), generator=generator, device=generator.device) \
+                < 1.0 - embedding_mask_proba
+        if keep is not None:
+            keep = torch.as_tensor(keep, dtype=torch.bool).to(x.device).reshape(b, 1, 1)
+            context = torch.where(keep, context, null_ctx)
         if embedding_scale == 1.0:
             return self.core(x, t, context, rel_biases)
         v2 = self.core(torch.cat([x, x]), torch.cat([t, t]),

@@ -13,6 +13,14 @@ On a CUDA tensor each launches the hand-written CUDA kernel of
 tensor it takes its plain PyTorch twin (`*_ref`), which computes the same
 function. There is no fallback from the card to a twin.
 
+K1 is differentiable, as JAX's `groupnorm1_gelu_btc` is: with grad enabled
+and an input that requires grad, the CUDA launch runs inside a
+`torch.autograd.Function` whose backward recomputes the f32 twin from the
+saved (x, scale, bias) and takes its gradients (JAX's `_gn_bwd_core`, which
+is plain jnp under a `custom_vjp`, no TPU kernel); the residual's cotangent
+is the output's. The turbo modes (K2) are inference-only, as in JAX: on the
+card they refuse inputs that require grad.
+
 `launches` (K1), `quant_launches` (K2a), `amax_launches` (K2b) and
 `amax_q_launches` (K2c) count the kernels' launches, so a run can show
 that its main path went through them.
@@ -35,6 +43,23 @@ launches = 0
 quant_launches = 0
 amax_launches = 0
 amax_q_launches = 0
+
+
+def wants_grad(*tensors) -> bool:
+    """True when grad is enabled and one of the tensors (None allowed)
+    requires grad: a kernel's raw-pointer launch must then run inside an
+    autograd.Function, or be refused."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when `wants_grad`: `what` is an inference-only kernel, and
+    writing its result through a raw pointer would return a tensor cut off
+    from the graph."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{what} has no backward: call it under torch.no_grad() or "
+                           "on tensors that do not require grad")
 
 
 def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
@@ -141,19 +166,53 @@ def _launch_shape(b: int, n: int, vec: int) -> tuple[int, int]:
     return n_split, apply_blocks
 
 
+def gn1_backward(x, scale, bias, dout, gelu: bool, eps: float = 1e-6):
+    """(dx, dscale, dbias) of [gelu](GroupNorm1(x) * scale + bias): the f32
+    twin recomputed from (x, scale, bias) and differentiated, the gradients
+    cast back to each input's dtype (JAX's `_gn_bwd_core`)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+        y = _gn_f32(*leaves, gelu, eps)
+        grads = torch.autograd.grad(y, leaves, dout.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (x, scale, bias)))
+
+
+class _GroupNorm1Gelu(torch.autograd.Function):
+    """K1's launch with the plain backward of JAX's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, gelu, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.gelu, ctx.eps, ctx.has_residual = gelu, eps, residual is not None
+        return _launch_k1(x, scale, bias, gelu, residual, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias = gn1_backward(x, scale, bias, dout, ctx.gelu, ctx.eps)
+        return dx, dscale, dbias, (dout if ctx.has_residual else None), None, None
+
+
 def groupnorm1_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     gelu: bool, residual: torch.Tensor | None = None,
                     eps: float = 1e-6) -> torch.Tensor:
     """y = [residual +] [gelu](GroupNorm1(x) * scale + bias) on (B, C, T).
 
     scale and bias are (C,) in x's dtype. CPU tensors take the plain twin;
-    CUDA tensors launch the CUDA kernel."""
-    global launches
+    CUDA tensors launch the CUDA kernel, inside an autograd.Function when
+    an input requires grad."""
     _check(x, scale, bias, residual)
     if x.device.type == "cpu":
         return groupnorm1_gelu_ref(x, scale, bias, gelu, residual, eps)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm1_gelu: unsupported device {x.device}")
+    if wants_grad(x, scale, bias, residual):
+        return _GroupNorm1Gelu.apply(x, scale, bias, residual, gelu, eps)
+    return _launch_k1(x, scale, bias, gelu, residual, eps)
+
+
+def _launch_k1(x, scale, bias, gelu: bool, residual, eps: float) -> torch.Tensor:
+    global launches
     b, c, t_len = x.shape
     n = c * t_len
     if n > _MAX_ROW:
@@ -192,6 +251,7 @@ def _turbo_launch(mode: int, x, scale, bias, residual, q_scale, gelu: bool,
     None where the mode has no such output."""
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm1 turbo: unsupported device {x.device}")
+    refuse_grad("the turbo GroupNorm (K2, inference only)", x, scale, bias, residual)
     b, c, t_len = x.shape
     n = c * t_len
     if n > _MAX_ROW:

@@ -12,6 +12,13 @@ AA_LDM_GN=1). On a CUDA tensor it launches the hand-written CUDA kernel of
 `csrc/grouped_gn.cu` (built for sm_90a at first use) or raises; on a CPU
 tensor it takes the plain PyTorch twin `grouped_gn_film_silu_ref`, which
 computes the same function. `launches` counts the kernel's launches.
+
+It is differentiable: with grad enabled and an input that requires grad,
+the CUDA launch runs inside a `torch.autograd.Function` whose backward
+recomputes the twin from the saved inputs and takes its gradients, the
+path through the statistics and the FiLM planes included. (In JAX the
+Pallas apply has no VJP and training runs flax's GroupNorm, which XLA
+differentiates; no TPU backward kernel exists to port.)
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import ctypes
 
 import torch
 
-from .groupnorm import _DTYPES, _MAX_ROW, _launch_shape
+from .groupnorm import _DTYPES, _MAX_ROW, _launch_shape, wants_grad
 
 SOURCE = "grouped_gn.cu"
 
@@ -28,10 +35,10 @@ launches = 0
 
 def grouped_gn_film_silu_ref(x, scale, bias, groups: int, film_scale=None,
                              film_shift=None, silu: bool = True,
-                             eps: float = 1e-6):
+                             eps: float = 1e-6, out_dtype=None):
     """Plain PyTorch twin on (B, C, T): per-(B, G) f32 statistics, the
     variance clamped at 0, folded into per-(B, C) planes S and T as in
-    groupnorm_grouped.py:161-181, output in x's dtype."""
+    groupnorm_grouped.py:161-181, output in x's dtype (or `out_dtype`)."""
     b, c, t_len = x.shape
     x32 = x.float()
     xg = x32.reshape(b, groups, -1)
@@ -52,7 +59,7 @@ def grouped_gn_film_silu_ref(x, scale, bias, groups: int, film_scale=None,
     y = x32 * s_planes[:, :, None] + t_planes[:, :, None]
     if silu:
         y = y * torch.sigmoid(y)
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def _check(x, scale, bias, groups, film_scale, film_shift):
@@ -101,13 +108,43 @@ def grouped_gn_film_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     x's dtype (rows may be strided, as chunks of one (B, 2C) tensor are)
     or None. CPU tensors take the plain twin; CUDA tensors launch the
     CUDA kernel."""
-    global launches
     _check(x, scale, bias, groups, film_scale, film_shift)
     if x.device.type == "cpu":
         return grouped_gn_film_silu_ref(x, scale, bias, groups, film_scale,
                                         film_shift, silu, eps)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gn_film_silu: unsupported device {x.device}")
+    if wants_grad(x, scale, bias, film_scale, film_shift):
+        return _GroupedGN.apply(x, scale, bias, film_scale, film_shift, groups, silu, eps)
+    return _launch(x, scale, bias, groups, film_scale, film_shift, silu, eps)
+
+
+class _GroupedGN(torch.autograd.Function):
+    """K5's launch with the twin's gradients as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, film_scale, film_shift, groups, silu, eps):
+        ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
+        ctx.groups, ctx.silu, ctx.eps = groups, silu, eps
+        return _launch(x, scale, bias, groups, film_scale, film_shift, silu, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_() for t in saved]
+            x, scale, bias, fs, sh = leaves
+            y = grouped_gn_film_silu_ref(x, scale, bias, ctx.groups, fs, sh, ctx.silu,
+                                         ctx.eps, out_dtype=torch.float32)
+            given = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad(y, given, dout.float()))
+        out = [None if t is None else next(grads).to(t.dtype) for t in leaves]
+        return (*out, None, None, None)
+
+
+def _launch(x, scale, bias, groups: int, film_scale, film_shift, silu: bool,
+            eps: float) -> torch.Tensor:
+    global launches
     b, c, t_len = x.shape
     n = (c // groups) * t_len
     if n > _MAX_ROW or x.numel() >= 1 << 31:

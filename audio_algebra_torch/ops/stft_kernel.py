@@ -10,6 +10,8 @@ fits the block's shared memory; on a CPU tensor it takes the plain twin
 `stft_ref`, the matmul formulation of ops/stft.py. The JAX package takes
 its kernel only at n_fft and hop that are multiples of the TPU's 128
 lanes; the port has no such gate. `launches` counts the kernel's launches.
+The kernel has no backward (`pallas_stft` has none either): on the card it
+refuses an input that requires grad.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .groupnorm import refuse_grad
 from .stft import _dft_bases, device_table, hann_window, stft_plain
 
 SOURCE = "stft.cu"
@@ -79,6 +82,7 @@ def stft_fused(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
         return stft_ref(x, n_fft, hop_length, center)
     if x.device.type != "cuda":
         raise ValueError(f"stft_fused: unsupported device {x.device}")
+    refuse_grad("stft_fused (K6, forward only)", x)
     rows = math.prod(batch)
     lib = _lib()
     if rows > MAX_ROWS:

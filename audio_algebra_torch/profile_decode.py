@@ -1,7 +1,9 @@
-"""Where the time of one sampler step goes on the card.
+"""Where the time of one sampler step, or one training step, goes on the
+card.
 
     python -m audio_algebra_torch.profile_decode [--model destructo]
         [--batch 4] [--sample-size 65536] [--iters 3] [--out PATH] [--turbo]
+        [--tf32]
 
 `--model` picks the UNet forward that one step runs, in bf16 with seeded
 random weights:
@@ -13,6 +15,11 @@ random weights:
   mirage_outer  the MIRAGE outer DiffusionAttnUnet1D (depth 10, 512 ch, no
                 attention) at --sample-size / 32 first-stage latents (a
                 v-DDIM step)
+  mirage_train  one optimiser step of the MIRAGE trainer
+                (train_clapdae.train_step: v_objective_loss forward and
+                backward of the songs UNetCFG1d through K4 and K5, Adam, EMA)
+                in f32 on --batch x (32, --sample-size / 512) latents, the
+                frozen encoders left out; TF32 off unless --tf32
 `--turbo` (destructo only) runs the UNet's int8 route as a decode step
 after the first does: with the amax carry of one earlier forward (K2a,
 K2b, K2c and the int8 convs); it engages at --batch 16 or more.
@@ -32,13 +39,16 @@ from pathlib import Path
 import torch
 
 KINDS = [("k2_turbo_gn_apply", ("gn_turbo_kernel",)),
-         ("k3_flash_attention", ("flash_fwd",)),
+         ("k3_k4a_flash_attention_forward", ("flash_fwd",)),
+         ("k4b_flash_attention_dkv", ("flash_dkv",)),
+         ("k4c_flash_attention_dq", ("flash_dq",)),
          ("k5_grouped_gn_apply", ("ggn_apply_kernel",)),
          ("k1_groupnorm_apply", ("gn_apply_kernel",)),
          ("gn_stats_k1_k5", ("gn_stats_kernel",)),
          ("convolution", ("conv", "cudnn", "implicit", "fprop", "winograd")),
          ("int8_matmul", ("gemm_s8", "i16832", "imma", "s8s8")),
          ("matmul", ("gemm", "cutlass", "gemv", "xmma", "nvjet")),
+         ("optimizer", ("multi_tensor", "foreach", "adam")),
          ("elementwise_and_glue", ("elementwise", "vectorized", "reduce", "cat",
                                    "copy", "fill", "index", "softmax"))]
 
@@ -74,6 +84,18 @@ def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False)
         return lambda: dvae.decode_v(x, t, cond)
     if turbo:
         raise SystemExit("--turbo profiles the destructo model only")
+    if model == "mirage_train":
+        from .models.stacked import StackedAELatentDiffusionCond
+        from .train_clapdae import make_state, train_step
+        state = make_state(random_init_(StackedAELatentDiffusionCond(), 0).to(dev))
+        shape = (b, 32, n // 512)
+        latents = torch.tanh(torch.randn(shape, generator=g, device=dev))
+        noise = torch.randn(shape, generator=g, device=dev)
+        emb = torch.nn.functional.normalize(
+            torch.randn((b, 1, 512), generator=g, device=dev), dim=-1)
+        steps = torch.rand((b,), generator=g, device=dev)
+        keep = torch.arange(b, device=dev) != 1            # one row's embedding dropped
+        return lambda: train_step(state, latents, emb, steps, noise, keep)
     if model == "mirage_inner":
         from .models.unet_cfg1d import UNetCFG1d, precompute_rel_biases
         unet = random_init_(UNetCFG1d(), 0).to(dev, bf16).eval()
@@ -89,14 +111,16 @@ def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False)
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model", choices=["destructo", "mirage_inner", "mirage_outer"],
-                   default="destructo")
+    p.add_argument("--model", default="destructo",
+                   choices=["destructo", "mirage_inner", "mirage_outer", "mirage_train"])
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--sample-size", type=int, default=65536)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--out", default="chiprun_out/profile_decode.json")
     p.add_argument("--turbo", action="store_true",
                    help="destructo: profile an int8 turbo step (amax carry)")
+    p.add_argument("--tf32", action="store_true",
+                   help="mirage_train: allow TF32 in cuDNN and cuBLAS (off: strict f32)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -104,9 +128,13 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
+    training = args.model == "mirage_train"
+    if training:
+        torch.backends.cuda.matmul.allow_tf32 = args.tf32
+        torch.backends.cudnn.allow_tf32 = args.tf32
     forward = _forward(args.model, args.batch, args.sample_size, dev, args.turbo)
     b, n = args.batch, args.sample_size
-    with torch.inference_mode():
+    with torch.enable_grad() if training else torch.inference_mode():
         for _ in range(2):
             forward()
         torch.cuda.synchronize()
@@ -124,8 +152,10 @@ def main(argv=None) -> None:
 
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith(("Optimizer.", "ProfilerStep")):
+            continue                     # kernels only: no host rows, no annotated spans
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -139,7 +169,10 @@ def main(argv=None) -> None:
     device_ms = sum(by_kind.values())
     result = {"device": torch.cuda.get_device_name(0), "model": args.model,
               "batch": b, "sample_size": n,
-              "dtype": "bfloat16", "turbo": args.turbo, "wall_ms_per_forward": wall_ms,
+              "dtype": "float32" if training else "bfloat16", "turbo": args.turbo,
+              "allow_tf32": args.tf32 if training else None,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "wall_ms_per_forward": wall_ms,
               "device_kernel_ms_per_forward": device_ms,
               "busy_share": device_ms / wall_ms if wall_ms else None,
               "ms_by_kind": by_kind}

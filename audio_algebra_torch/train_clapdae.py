@@ -1,0 +1,252 @@
+#!/usr/bin/env python
+"""Train the MIRAGE generator (StackedAELatentDiffusionCond) on one card.
+
+    python -m audio_algebra_torch.train_clapdae --training_dir DIR \\
+        --batch_size 8 --sample_size 1048576 --num_gpus 1 [--ckpt_path RUN/ckpt]
+
+Port of the repository's train_clapdae.py (same flags, through
+config.get_all_args; `--device cpu` runs it off the card):
+
+  * the frozen stage-1 stack encodes reals to 32-d latents
+  * the frozen CLAP embeds the mono mix to (B, 1, 512) conditioning
+  * scrambled-Sobol timestep draws
+  * v-objective MSE with 0.1 CFG dropout through the UNetCFG1d (kernels K5
+    and, under grad, the differentiable flash attention K4)
+  * Adam (lr 4e-5, betas 0.9 / 0.999, eps 1e-8) with optax's cosine decay to
+    1e-6 over 500 steps, flat afterwards
+  * EMA of the diffusion parameters, beta 0.9999, power 3/4
+  * a JSONL run log and checkpoints {params, ema_params, opt_state, step};
+    `--ckpt_path` resumes from the newest one there
+
+f32 parameters and activations, no autocast, as in JAX. The step's noise
+and CFG-dropout mask come from a torch.Generator seeded per step from
+(seed, step) on the host; `train_step` takes them as arguments. Data
+parallelism (`--num_gpus` > 1) and state sharding (`--fsdp 1`) are not
+ported: ROADMAP item 15.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pickle
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .config import get_all_args
+from .datasets import AudioDataset, DataLoader
+from .device import resolve_device
+from .given_models import CLAPDAE
+from .models.ema import EMASchedule
+from .models.stacked import v_objective_loss
+from .utils.logging import RunLogger
+from .utils.qmc import SobolSampler
+
+LR_MIN = 1e-6
+LOG_EVERY = 25
+
+
+def cosine_lr(step: int, lr: float, t_max: int, lr_min: float = LR_MIN) -> float:
+    """optax.cosine_decay_schedule(lr, t_max, alpha=lr_min / lr): a half
+    cosine from lr to lr_min over t_max steps, then flat at lr_min (torch's
+    CosineAnnealingLR swings back up)."""
+    alpha = lr_min / lr
+    s = min(step, t_max)
+    return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * s / t_max)) + alpha)
+
+
+@dataclass
+class TrainState:
+    """What a step updates: the model's parameters (in place), their EMA
+    copies (name -> tensor), Adam's state and the step count."""
+    model: torch.nn.Module
+    ema_params: dict
+    opt: torch.optim.Optimizer
+    step: int = 0
+    lr: float = 4e-5
+    t_max: int = 500
+    ema_sched: EMASchedule = field(default_factory=lambda: EMASchedule(0.9999, 0.75))
+
+    def current_lr(self) -> float:
+        return cosine_lr(self.step, self.lr, self.t_max)
+
+    def tree(self) -> dict:
+        """The checkpoint's state tree."""
+        return {"params": {k: v.detach() for k, v in self.model.named_parameters()},
+                "ema_params": dict(self.ema_params),
+                "opt_state": self.opt.state_dict(), "step": self.step}
+
+    def load_tree(self, tree: dict) -> None:
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(tree["params"][name])
+            for name, e in self.ema_params.items():
+                e.copy_(tree["ema_params"][name])
+        self.opt.load_state_dict(tree["opt_state"])
+        self.step = int(tree["step"])
+
+    def digest(self) -> dict:
+        """Exact integer checksums of the parameters' and the EMA copies'
+        bits: two states with the same digests hold the same weights."""
+        def bits(tensors):
+            return int(sum(int(t.detach().contiguous().view(torch.int32).to(torch.int64).sum())
+                           for t in tensors))
+        return {"params": bits(self.model.parameters()),
+                "ema": bits(self.ema_params.values())}
+
+
+def make_state(model: torch.nn.Module, lr: float = 4e-5, t_max: int = 500) -> TrainState:
+    """A fresh train state around `model` (its parameters f32, requires_grad
+    on): EMA copies of the parameters and optax-like Adam."""
+    params = dict(model.named_parameters())
+    ema = {k: v.detach().clone() for k, v in params.items()}
+    opt = torch.optim.Adam(params.values(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=0.0, amsgrad=False)
+    return TrainState(model=model, ema_params=ema, opt=opt, lr=lr, t_max=t_max)
+
+
+def build_state(args, device, clap_module=None):
+    """(CLAPDAE with its encoders frozen, TrainState) for `args`
+    (config.get_all_args) on `device`. `clap_module`: a CLAP module to use
+    instead of building one (its weights are frozen either way)."""
+    cfg = {}
+    if args.model_config:
+        with open(args.model_config) as f:
+            cfg = json.load(f)
+    clapdae = CLAPDAE(sample_size=args.sample_size, seed=args.seed,
+                      first_stage_config=cfg.get("first_stage_config"),
+                      model_kwargs=cfg.get("model_kwargs"),
+                      clap_kwargs=cfg.get("clap_kwargs"), device=device)
+    if clap_module is not None:
+        clapdae.clap_module = clap_module
+    clapdae.freeze_for_training()
+    state = make_state(clapdae.latent_diffusion_model, lr=getattr(args, "lr", 4e-5),
+                       t_max=getattr(args, "lr_t_max", 500))
+    return clapdae, state
+
+
+def train_step(state: TrainState, latents, emb, t, noise, keep=None) -> torch.Tensor:
+    """One optimiser step on (latents (B, 32, n), emb (B, 1, 512), t (B,),
+    noise like latents, keep (B, 1, 1) bool or None: no CFG dropout).
+    Updates the parameters, Adam's state and the EMA in place, advances
+    `state.step`, and returns the loss (before the update)."""
+    for group in state.opt.param_groups:
+        group["lr"] = state.current_lr()
+    state.opt.zero_grad(set_to_none=True)
+    loss = v_objective_loss(state.model, latents, emb, t, noise,
+                            embedding_mask_proba=0.0, keep=keep)
+    loss.backward()
+    state.opt.step()
+    state.ema_sched.update(dict(state.model.named_parameters()), state.ema_params,
+                           state.step)
+    state.step += 1
+    return loss.detach()
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The step's generator: seeded on the host from (seed, step), so that a
+    resumed run draws what an uninterrupted one would."""
+    s = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s % (1 << 63))
+
+
+def _refuse_parallel(args, device: torch.device) -> None:
+    available = torch.cuda.device_count() if device.type == "cuda" else 1
+    asked = args.num_gpus if args.num_gpus > 0 else 1
+    fsdp = int(getattr(args, "fsdp", 0) or 0)
+    if fsdp:
+        print(f"train_clapdae: --fsdp {fsdp} asks for a sharded train state, which is "
+              "not ported (ROADMAP item 15)")
+        raise NotImplementedError("--fsdp is not ported yet: ROADMAP item 15 "
+                                  "(DDP / FSDP mapping of the JAX package's parallel/)")
+    if min(asked, available) > 1:
+        print(f"train_clapdae: --num_gpus {asked} with {available} devices asks for data "
+              "parallelism, which is not ported (ROADMAP item 15); pass --num_gpus 1")
+        raise NotImplementedError("--num_gpus > 1 is not ported yet: ROADMAP item 15 "
+                                  "(DDP / FSDP mapping of the JAX package's parallel/)")
+    if asked > available:
+        print(f"train_clapdae: --num_gpus {asked}, {available} device available: "
+              "training on one")
+
+
+def main(argv=None, clap_module=None) -> dict:
+    """Train as the flags say. Returns the run's record: its per-step
+    losses, learning rates, EMA decays and times, the checkpoint written at
+    the end, and the state's digests at the start and the end."""
+    args = get_all_args(argv=argv)
+    print(f"args = {args}")
+    device = resolve_device(args.device)
+    _refuse_parallel(args, device)
+    seed = args.seed
+
+    train_set = AudioDataset([args.training_dir], sample_rate=args.sample_rate,
+                             sample_size=args.sample_size, random_crop=args.random_crop,
+                             load_frac=args.load_frac,
+                             cache_training_data=args.cache_training_data)
+    train_dl = DataLoader(train_set, batch_size=args.batch_size, shuffle=True,
+                          num_workers=args.num_workers, seed=seed)
+    clapdae, state = build_state(args, device, clap_module)
+    cfg_dropout = getattr(args, "cfg_dropout", 0.1)
+
+    if args.ckpt_path:
+        ck = latest_checkpoint(args.ckpt_path) or args.ckpt_path
+        try:
+            state.load_tree(load_checkpoint(ck))
+            print(f"Resumed from {ck} at step {state.step}")
+        except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) as e:
+            print(f"Resume failed ({e}); starting fresh")
+    start_step, start_digest = state.step, state.digest()
+
+    logger = RunLogger(project="clapdae", name=args.name, config=args.to_dict())
+    sobol = SobolSampler(dim=1, scramble=True, seed=seed)
+    records = []
+
+    def synced() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    def save() -> str:
+        return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+
+    for epoch in range(getattr(args, "max_epochs", 40)):
+        for batch in train_dl:
+            t0 = synced()
+            reals = torch.from_numpy(np.asarray(batch, np.float32)).to(device)
+            latents = clapdae.encode_audio_latents(reals).float()
+            t1 = synced()
+            emb = clapdae.clap_module.get_audio_embedding_from_data(reals.mean(dim=1))
+            emb = emb[:, None, :]
+            t2 = synced()
+            t = torch.from_numpy(sobol.draw(reals.shape[0])).to(device)
+            gen = step_generator(seed, state.step, device)
+            noise = torch.randn(latents.shape, generator=gen, device=device,
+                                dtype=latents.dtype)
+            keep = torch.rand((reals.shape[0], 1, 1), generator=gen, device=device) \
+                < 1.0 - cfg_dropout
+            step, lr = state.step, state.current_lr()
+            loss = float(train_step(state, latents, emb, t, noise, keep))
+            t3 = synced()
+            rec = {"step": step, "epoch": epoch, "train_loss": loss, "train_lr": lr,
+                   "train_ema_decay": state.ema_sched.decay(step),
+                   "encode_ms": (t1 - t0) * 1e3, "embed_ms": (t2 - t1) * 1e3,
+                   "step_ms": (t3 - t2) * 1e3}
+            records.append(rec)
+            if step % LOG_EVERY == 0:
+                logger.log({k: rec[k] for k in ("train_loss", "train_lr", "train_ema_decay",
+                                                "epoch")}, step=step)
+            if args.checkpoint_every and step and step % args.checkpoint_every == 0:
+                save()
+    ckpt = save()
+    logger.finish()
+    print("training done.")
+    return {"records": records, "start_step": start_step, "end_step": state.step,
+            "ckpt": ckpt, "run_dir": str(logger.dir), "start_digest": start_digest,
+            "end_digest": state.digest(), "state": state}
+
+
+if __name__ == "__main__":
+    main()

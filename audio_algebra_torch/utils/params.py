@@ -20,7 +20,9 @@ nested dicts of numpy arrays maps onto the torch state by name:
   any       bias                       bias
 
 `load_flax_params` raises on any leaf left over or missing. It is the
-inverse of audio_algebra_tpu.checkpoint.torch_to_flax_array.
+inverse of audio_algebra_tpu.checkpoint.torch_to_flax_array. `to_flax_tree`
+goes the other way, for parameters (`to_flax_params`), gradients
+(`to_flax_grads`) or any name -> tensor dict in the parameters' layout.
 
 `random_init_(module, seed)` fills the module as
 audio_algebra_tpu.utils.params.fast_random_params fills a flax tree with
@@ -121,17 +123,31 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
     return module
 
 
-def to_flax_params(module: nn.Module) -> dict:
-    """The module's parameters as a flax params tree of numpy f32 arrays."""
-    state = dict(module.named_parameters())
+def to_flax_tree(module: nn.Module, tensors: dict) -> dict:
+    """{torch parameter name: tensor in that parameter's layout} as a flax
+    params tree of numpy f32 arrays, the layout transposes undone: the
+    inverse of load_flax_params, for parameters, gradients or EMA copies."""
     tree: dict = {}
     for path, (name, to_flax, _) in flax_paths(module).items():
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = np.ascontiguousarray(
-            to_flax(state[name].detach().float().cpu().numpy()))
+            to_flax(tensors[name].detach().float().cpu().numpy()))
     return tree
+
+
+def to_flax_params(module: nn.Module) -> dict:
+    """The module's parameters as a flax params tree of numpy f32 arrays."""
+    return to_flax_tree(module, dict(module.named_parameters()))
+
+
+def to_flax_grads(module: nn.Module) -> dict:
+    """The parameters' gradients (`.grad`, after a backward) as a flax tree
+    of numpy f32 arrays. A parameter the loss did not reach (`.grad` None)
+    has a zero gradient, as jax.grad gives it."""
+    return to_flax_tree(module, {name: torch.zeros_like(p) if p.grad is None else p.grad
+                                 for name, p in module.named_parameters()})
 
 
 @torch.no_grad()

@@ -63,16 +63,41 @@ Phases, each printing one JSON line:
                 one with a text prompt at full width and reduced steps,
                 /embed with a text (512 floats and the tokenizer warning)
                 and with WAV bytes, and a strict-text service answering 409
+  kernels (K4)  the differentiable flash attention: K4a's (o, l, m), K4b's
+                (dk, dv) and K4c's (dq, dbT) against the twins at the
+                trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
+                2e-4, the JAX package's) and bf16, at (16, 16, 1024, 64) bf16
+                and at B = 1, each timed beside the twin, SDPA forward /
+                backward and its bound; and the autograd Functions around K1
+                and K5: forward through the kernel, backward() against
+                autograd of the twin
+  train_model   one v_objective_loss forward + backward of the full-width
+                songs UNetCFG1d at (8, 32, 2048) f32 through K4 and K5 and
+                through their twins, from the same weights, noise, t,
+                embeddings and keep mask: the loss and every parameter's
+                gradient under a bound, all finite, none zero that the
+                twin's is not; 8 / 8 / 8 K4, 63 K5 and 0 K3 launches
+  train         audio_algebra_torch.train_clapdae.main on 16 seeded synthetic
+                48 kHz stereo WAVs of 1,048,576 samples: CLAPDAE() defaults at
+                full width in f32, batch 8, 2 epochs (4 steps), a checkpoint;
+                then a second main that resumes at step 4 and takes one more
+                step; lr and EMA decay against their closed forms, launch
+                counts (8 / 8 / 8 K4, 63 + 65 K5 and 1 K6 a step), stage
+                times, peak memory
 
-The phases run in the order above, Destructo's first. Then the `kernels` summary line, the card's name and power limit from
-nvidia-smi, and last `{"ok": true, "device": {...}}`. Any failure exits
-non-zero. Without a CUDA device, or without the package beside it, it
-exits non-zero and prints no result.
+The phases run in the order above, Destructo's first. Then the `kernels`
+summary line, the card's name and power limit from nvidia-smi, and last
+`{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
+device, or without the package beside it, it exits non-zero and prints no
+result. `--only build,kernels_k4,...` (phase function names without
+`phase_`) runs those phases alone and prints no result line: for work on
+one phase.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -117,6 +142,15 @@ GL_REL_RMS = 1e-3
 ROUND_TRIP = {"SpectrogramAE": 1e-9, "MagDPhaseSpectrogramAE": 1e-8}
 CLAP_REL = 1e-4
 CLAP_SHORT, CLAP_LONG = 240000, MIRAGE_SAMPLES     # 5 s and 22 s at 48 kHz
+# the trainer: batch 8 x 1,048,576 samples -> (8, 32, 2048) latents; per
+# forward + backward of the songs UNetCFG1d 4 flash sites at T = 1024 and 4 at
+# T = 512 (one launch of K4a, K4b and K4c each) and 63 grouped GroupNorms;
+# the frozen stage-1 encode of a batch runs 65 more (Encoder1d: 32
+# ResnetBlocks x 2 + its out norm), under no_grad
+TRAIN_BATCH, TRAIN_FILES, TRAIN_EPOCHS = 8, 16, 2
+K4_PER_STEP, K5_PER_STEP, K5_PER_ENCODE = 8, 63, 65
+K4_TOL = {"float32": (2e-4, 2e-4), "bfloat16": TOL["bfloat16"]}      # (atol, rtol)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL_RMS = 1e-4, 1e-3
 
 
 def emit(obj) -> None:
@@ -1062,6 +1096,360 @@ def phase_serve(model) -> int:
     return launches
 
 
+def k4_bounds(shape, dtype, bias_dtype) -> dict:
+    """Least times for K4a, K4b and K4c: each input read once and each
+    output written once, or the products' operations (2, 4 and 3 products
+    of 2 B H T^2 D operations) at the peak of q's type, whichever is
+    larger. Inputs of the backward kernels: q, k, v, do, biasT and the
+    three (H, B, T) f32 rows; K4c returns dq and dbT, which is like biasT."""
+    import torch
+    b, h, t, d = shape
+    e = torch.empty((), dtype=dtype).element_size()
+    eb = torch.empty((), dtype=bias_dtype).element_size()
+    qkv, bias, row = b * h * t * d * e, h * t * t * eb, h * b * t * 4
+    peak = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    product = 2 * b * h * t * t * d
+    out = {}
+    for name, nbytes, n_products in (("k4a", 4 * qkv + bias + 2 * row, 2),
+                                     ("k4b", 6 * qkv + bias + 3 * row, 4),
+                                     ("k4c", 5 * qkv + 2 * bias + 3 * row, 3)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_products * product / peak * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def phase_kernels_k4() -> dict:
+    """K4a, K4b and K4c at the trainer's flash sites and beside them, each
+    against its twin and timed beside the twin, SDPA and its bound; then the
+    autograd Functions around K1 and K5. Returns the rows of the
+    (8, 16, 1024, 64) f32 case, one per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((8, 16, 1024, 64), f32), ((8, 16, 512, 64), f32), ((8, 16, 1024, 64), bf16),
+             ((8, 16, 512, 64), bf16), ((16, 16, 1024, 64), bf16), ((1, 16, 1024, 64), f32)]
+    rows = []
+    for shape, dt in cases:
+        g = torch.Generator(device=dev).manual_seed(500 + len(rows))
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(4))
+        h, t = shape[1], shape[2]
+        bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).to(dt)
+        scale = shape[3] ** -0.5
+        name = str(dt).removeprefix("torch.")
+        atol, rtol = K4_TOL[name]
+
+        def compare(got, want):
+            err = (got.float() - want.float()).abs()
+            return float(err.max()), int((err > atol + rtol * want.float().abs()).sum())
+
+        o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+        delta = fa.flash_delta(o, do)
+        dk, dv = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, scale)
+        dq, db = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, scale)
+        torch.cuda.synchronize()
+        o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, scale)
+        # the twin of the backward from the kernel's own residuals
+        dq_ref, dk_ref, dv_ref, db_ref = fa.flash_attention_relpos_bwd_ref(
+            q, k, v, bias_t, o, l, m, do, scale)
+        # l is a sum of T f32 terms of exp: relative; m a max of scores: absolute
+        resid = {"l_max_rel_err": float(((l - l_ref).abs() / l_ref).max()),
+                 "m_max_abs_err": float((m - m_ref).abs().max())}
+        def both(a, b):
+            return max(a[0], b[0]), a[1] + b[1]
+
+        errs = {"k4a": compare(o, o_ref),
+                "k4b": both(compare(dk, dk_ref), compare(dv, dv_ref)),
+                "k4c": both(compare(dq, dq_ref), compare(db, db_ref))}
+        bad_resid = int(resid["l_max_rel_err"] > 1e-3) + int(resid["m_max_abs_err"] > 1e-3)
+        del o_ref, l_ref, m_ref, dq_ref, dk_ref, dv_ref, db_ref, dk, dv, dq, db
+        torch.cuda.empty_cache()
+
+        mask = bias_t.transpose(1, 2)[None].to(dt)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, mask)]
+        o_lib = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale)
+
+        def sdpa_backward():
+            return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+        big = shape[0] * t >= 8192
+        times = {
+            "k4a": (cuda_ms(lambda: fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale), 10),
+                    cuda_ms(lambda: fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, scale),
+                            3 if big else 10, warmup=1),
+                    cuda_ms(sdpa, 10)),
+            "k4b": (cuda_ms(lambda: fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m,
+                                                                  delta, scale), 10),),
+            "k4c": (cuda_ms(lambda: fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m,
+                                                                 delta, scale), 10),)}
+        # the twin and SDPA compute dq, dk, dv and the bias gradient in one
+        # backward: their time stands beside K4b and K4c together
+        bwd_plain = cuda_ms(lambda: fa.flash_attention_relpos_bwd_ref(
+            q, k, v, bias_t, o, l, m, do, scale), 3 if big else 10, warmup=1)
+        bwd_library = cuda_ms(sdpa_backward, 10)
+        bounds = k4_bounds(shape, dt, dt)
+        for kern in ("k4a", "k4b", "k4c"):
+            rows.append({
+                "kernel": kern, "shape": list(shape), "dtype": name, "atol": atol, "rtol": rtol,
+                "max_abs_err": errs[kern][0],
+                "n_outside_tol": errs[kern][1] + (bad_resid if kern == "k4a" else 0),
+                **(resid if kern == "k4a" else {}),
+                "kernel_ms": times[kern][0],
+                "plain_ms": times[kern][1] if kern == "k4a" else bwd_plain,
+                "library_ms": times[kern][2] if kern == "k4a" else bwd_library,
+                "plain_and_library_cover": "K4a" if kern == "k4a" else "K4b + K4c",
+                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]})
+        del q, k, v, do, bias_t, mask, o, l, m, delta, leaves, o_lib
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train", "cases": rows})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K4 disagrees with its twin: {failed}")
+
+    # the Functions around K1 and K5: forward through the kernel, backward()
+    # against autograd of the twin, relative to each gradient's peak
+    grads = []
+    g = torch.Generator(device=dev).manual_seed(520)
+    x = (torch.randn((2, 256, 16384), generator=g, device=dev) * 1.5 + 0.2).requires_grad_()
+    res = torch.randn((2, 256, 16384), generator=g, device=dev).requires_grad_()
+    scale_p = (torch.rand(256, generator=g, device=dev) + 0.5).requires_grad_()
+    bias_p = (torch.rand(256, generator=g, device=dev) - 0.5).requires_grad_()
+    dout = torch.randn((2, 256, 16384), generator=g, device=dev)
+    before = gn.launches
+    y = gn.groupnorm1_gelu(x, scale_p, bias_p, True, res)
+    got = torch.autograd.grad(y, (x, scale_p, bias_p, res), dout)
+    want = torch.autograd.grad(gn.groupnorm1_gelu_ref(x, scale_p, bias_p, True, res),
+                               (x, scale_p, bias_p, res), dout)
+    grads.append({"kernel": "groupnorm1_gelu", "shape": [2, 256, 16384], "dtype": "float32",
+                  "has_grad_fn": y.grad_fn is not None, "launches": gn.launches - before,
+                  "rel_err": {n: float((a - b).abs().max() / b.abs().max())
+                              for n, a, b in zip(("dx", "dscale", "dbias", "dres"), got, want)}})
+    b, c, t = TRAIN_BATCH, 512, 2048
+    x = (torch.randn((b, c, t), generator=g, device=dev) * 1.5 + 0.2).requires_grad_()
+    scale_p = (torch.rand(c, generator=g, device=dev) + 0.5).requires_grad_()
+    bias_p = (torch.rand(c, generator=g, device=dev) - 0.5).requires_grad_()
+    ts = (torch.randn((b, 2 * c), generator=g, device=dev) * 0.3).requires_grad_()
+    dout = torch.randn((b, c, t), generator=g, device=dev)
+    fs, sh = ts.chunk(2, dim=1)
+    before = ggn.launches
+    y = ggn.grouped_gn_film_silu(x, scale_p, bias_p, 8, fs, sh)
+    got = torch.autograd.grad(y, (x, scale_p, bias_p, ts), dout)
+    want = torch.autograd.grad(ggn.grouped_gn_film_silu_ref(x, scale_p, bias_p, 8, fs, sh),
+                               (x, scale_p, bias_p, ts), dout)
+    grads.append({"kernel": "grouped_gn_film_silu", "shape": [b, c, t], "dtype": "float32",
+                  "has_grad_fn": y.grad_fn is not None, "launches": ggn.launches - before,
+                  "rel_err": {n: float((a - b).abs().max() / b.abs().max())
+                              for n, a, b in zip(("dx", "dscale", "dbias", "dfilm"), got, want)}})
+    emit({"phase": "kernels", "kernel": "autograd functions (K1, K5)", "bound": 1e-4,
+          "cases": grads})
+    for r in grads:
+        if not r["has_grad_fn"] or r["launches"] != 1 \
+                or any(not e < 1e-4 for e in r["rel_err"].values()):
+            raise AssertionError(f"autograd through the kernel wrapper: {r}")
+    main_rows = {r["kernel"]: r for r in rows
+                 if r["shape"] == [8, 16, 1024, 64] and r["dtype"] == "float32"}
+    return main_rows
+
+
+def _k4_k5_counts():
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.ops import stft_kernel as stk
+    return {"k3": fa.launches, "k4a": fa.train_fwd_launches, "k4b": fa.dkv_launches,
+            "k4c": fa.dq_launches, "k5": ggn.launches, "k6": stk.launches}
+
+
+def _zero_train_counts():
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.ops import stft_kernel as stk
+    fa.launches = fa.train_fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    ggn.launches = stk.launches = 0
+
+
+def phase_train_model() -> None:
+    """One training forward + backward of the full-width songs UNetCFG1d
+    through the kernels and through their twins: the check that no kernel
+    wrapper cuts the graph."""
+    import torch
+    from audio_algebra_torch.models import blocks, unet_cfg1d
+    from audio_algebra_torch.models.stacked import v_objective_loss
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.utils.params import random_init_
+
+    dev = torch.device("cuda")
+    t_len = MIRAGE_SAMPLES // 512
+    unet = random_init_(unet_cfg1d.UNetCFG1d(), 0).to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    latents = torch.tanh(torch.randn((TRAIN_BATCH, 32, t_len), generator=g, device=dev))
+    noise = torch.randn((TRAIN_BATCH, 32, t_len), generator=g, device=dev)
+    t = torch.rand((TRAIN_BATCH,), generator=g, device=dev)
+    emb = torch.randn((TRAIN_BATCH, 1, 512), generator=g, device=dev)
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    keep = torch.tensor([True, False, True, True, True, False, True, True], device=dev)
+
+    def run():
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        loss = v_objective_loss(unet, latents, emb, t, noise, keep=keep)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() if p.grad is not None else None
+                 for n, p in unet.named_parameters()}
+        return float(loss.detach()), grads, time.perf_counter() - start, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    run()                                               # warm-up: cuDNN plans
+    _zero_train_counts()
+    loss_k, grads_k, secs_k, mem_k = run()
+    counts = _k4_k5_counts()
+    unet_cfg1d.flash_attention_relpos_train = fa.flash_attention_relpos_train_ref
+    blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu_ref
+    try:
+        loss_p, grads_p, secs_p, mem_p = run()
+    finally:
+        unet_cfg1d.flash_attention_relpos_train = fa.flash_attention_relpos_train
+        blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu
+    missing = [n for n, gk in grads_k.items() if gk is None]
+    not_finite = [n for n, gk in grads_k.items() if gk is not None
+                  and not bool(torch.isfinite(gk).all())]
+    zero = [n for n, gk in grads_k.items() if gk is not None and not bool(gk.any())
+            and bool(grads_p[n].any())]
+    errs = {n: rel_rms(gk, grads_p[n]) for n, gk in grads_k.items() if gk is not None}
+    worst = sorted(errs, key=errs.get, reverse=True)[:5]
+    named = [n for n in errs if n.endswith("rel_pos_bias") or n == "fixed_embedding"]
+    flash_tables = [n for n in named if re.search(r"attn[23]_", n)]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "train_model", "shape": [TRAIN_BATCH, 32, t_len], "dtype": "float32",
+          "parameters": len(grads_k), "loss_kernels": loss_k, "loss_twins": loss_p,
+          "loss_rel_diff": loss_rel, "loss_bound": TRAIN_LOSS_REL,
+          "grad_rel_rms_max": max(errs.values()), "grad_rel_rms_bound": TRAIN_GRAD_REL_RMS,
+          "grad_rel_rms_worst": {n: errs[n] for n in worst},
+          "grad_rel_rms_named": {n: errs[n] for n in named},
+          "grad_abs_max_named": {n: float(grads_k[n].abs().max()) for n in named},
+          "missing": missing, "not_finite": not_finite, "zero_where_twin_is_not": zero,
+          "launches": counts, "forward_backward_ms": {"kernels": secs_k * 1e3,
+                                                      "twins": secs_p * 1e3},
+          "peak_mem_gb": {"kernels": mem_k, "twins": mem_p}})
+    if missing or not_finite or zero:
+        raise AssertionError(f"gradients missing {missing}, not finite {not_finite}, "
+                             f"zero where the twin's is not {zero}")
+    if len(flash_tables) != K4_PER_STEP or "fixed_embedding" not in named \
+            or any(not float(grads_k[n].abs().max()) > 0 for n in flash_tables +
+                   ["fixed_embedding"]):
+        raise AssertionError(f"the flash sites' bucket tables or the null embedding got no "
+                             f"gradient: {named}")
+    if not loss_rel < TRAIN_LOSS_REL or not max(errs.values()) < TRAIN_GRAD_REL_RMS:
+        raise AssertionError(f"kernels vs twins: loss rel {loss_rel}, worst gradients "
+                             f"{ {n: errs[n] for n in worst} }")
+    want = {"k3": 0, "k4a": K4_PER_STEP, "k4b": K4_PER_STEP, "k4c": K4_PER_STEP,
+            "k5": K5_PER_STEP, "k6": 0}
+    if counts != want:
+        raise AssertionError(f"training forward + backward launched {counts}, expected {want}")
+
+
+def phase_train(clap_module) -> dict:
+    """The trainer's entry point at full width: 4 steps and a checkpoint,
+    then a resumed run of one more step. Returns the launch counts of the
+    first run."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import train_clapdae
+    from audio_algebra_torch.models.ema import EMASchedule
+    from audio_algebra_torch.utils.audio_io import write_wav
+
+    steps = TRAIN_EPOCHS * TRAIN_FILES // TRAIN_BATCH
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(11)
+        tt = np.arange(MIRAGE_SAMPLES, dtype=np.float32) / 48000
+        (Path(tmp) / "wavs").mkdir()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_FILES):
+            f0, f1 = rng.uniform(80, 1200, 2)
+            clip = np.stack([0.3 * np.sin(2 * np.pi * f0 * tt), 0.3 * np.sin(2 * np.pi * f1 * tt)])
+            clip += 0.05 * rng.standard_normal(clip.shape).astype(np.float32)
+            write_wav(Path(tmp) / "wavs" / f"clip{i:02d}.wav", clip.astype(np.float32), 48000)
+        corpus_s = time.perf_counter() - t0
+        argv = ["--training_dir", str(Path(tmp) / "wavs"), "--batch_size", str(TRAIN_BATCH),
+                "--sample_size", str(MIRAGE_SAMPLES), "--num_workers", "4", "--num_gpus", "1",
+                "--name", "smoke", "--seed", "0"]
+        os.chdir(tmp)                    # the run directory (runs/) is made beside the cwd
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_train_counts()
+            t0 = time.perf_counter()
+            run = train_clapdae.main([*argv, "--load_frac", "1.0", "--max_epochs",
+                                      str(TRAIN_EPOCHS)], clap_module=clap_module)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = _k4_k5_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            digests = (run["start_digest"], run["end_digest"])
+            del run["state"]
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            again = train_clapdae.main([*argv, "--load_frac", "0.5", "--max_epochs", "1",
+                                        "--ckpt_path", f"{run['run_dir']}/ckpt"],
+                                       clap_module=clap_module)
+            torch.cuda.synchronize()
+            again_s = time.perf_counter() - t0
+            del again["state"]
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(home)
+    records = run["records"] + again["records"]
+    ema = EMASchedule(0.9999, 0.75)
+    closed_forms = all(
+        abs(r["train_lr"] - train_clapdae.cosine_lr(r["step"], 4e-5, 500)) < 1e-12
+        and r["train_ema_decay"] == ema.decay(r["step"]) for r in records)
+    steady = run["records"][1:]
+    expected = {"k3": 0, "k4a": steps * K4_PER_STEP, "k4b": steps * K4_PER_STEP,
+                "k4c": steps * K4_PER_STEP, "k5": steps * (K5_PER_STEP + K5_PER_ENCODE),
+                "k6": steps}
+    emit({"phase": "train", "batch": [TRAIN_BATCH, 2, MIRAGE_SAMPLES], "dtype": "float32",
+          "allow_tf32": False, "files": TRAIN_FILES, "corpus_s": corpus_s,
+          "steps": [{k: r[k] for k in ("step", "train_loss", "train_lr", "train_ema_decay",
+                                       "encode_ms", "embed_ms", "step_ms")} for r in records],
+          "ms_per_step": float(np.mean([r["step_ms"] for r in steady])),
+          "encode_ms": float(np.mean([r["encode_ms"] for r in steady])),
+          "embed_ms": float(np.mean([r["embed_ms"] for r in steady])),
+          "run_s": run_s, "resumed_run_s": again_s, "peak_mem_gb": peak,
+          "launches": counts, "launches_expected": expected,
+          "start_step": [run["start_step"], again["start_step"]],
+          "end_step": [run["end_step"], again["end_step"]],
+          "params_moved": digests[0]["params"] != digests[1]["params"],
+          "ema_differs_from_params": digests[1]["ema"] != digests[1]["params"],
+          "resume_reproduces_saved_state": again["start_digest"] == digests[1],
+          "closed_forms": closed_forms})
+    if not all(math.isfinite(r["train_loss"]) for r in records) or not closed_forms:
+        raise AssertionError(f"losses or schedules: {records}")
+    if [run["start_step"], run["end_step"], again["start_step"], again["end_step"]] != \
+            [0, steps, steps, steps + 1]:
+        raise AssertionError(f"steps: first run {run['start_step']}..{run['end_step']}, "
+                             f"resumed {again['start_step']}..{again['end_step']}")
+    if digests[0]["params"] == digests[1]["params"] or digests[1]["ema"] == digests[1]["params"]:
+        raise AssertionError("the parameters did not move, or the EMA equals them")
+    if again["start_digest"] != digests[1]:
+        raise AssertionError("the resumed run did not reproduce the saved parameters and EMA")
+    if counts != expected:
+        raise AssertionError(f"training launches {counts}, expected {expected}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1077,6 +1465,15 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": {"matmul": False, "cudnn": False}})
+    only = None
+    if "--only" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        for name in only:
+            if name in ("clap", "serve"):
+                raise SystemExit(f"--only: phase {name} needs the served model")
+            globals()[f"phase_{name}"](*([None] if name == "train" else []))
+        emit({"partial": True, "phases": only})
+        return 0
     phase_build()
     k1 = phase_kernels()
     k3 = phase_kernels_k3()
@@ -1091,6 +1488,12 @@ def main() -> int:
     spectrogram_k6 = phase_spectrogram()
     clap_k6 = phase_clap(model)
     serve_k6 = phase_serve(model)
+    clap_module = model.clap_module
+    del model
+    torch.cuda.empty_cache()
+    k4 = phase_kernels_k4()
+    phase_train_model()
+    train = phase_train(clap_module)
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -1114,12 +1517,21 @@ def main() -> int:
               k2["res_amax_q"]),
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3),
+        entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"]),
+        entry("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu",
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:170", train["k4b"], k4["k4b"],
+              plain_and_library_cover="K4b + K4c"),
+        entry("flash_attention_relpos_train_dq", "flash_attention_dq.cu",
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:211", train["k4c"], k4["k4c"],
+              plain_and_library_cover="K4b + K4c"),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
-              "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5),
+              "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
+              launches_by_path={"mirage": counts["k5"], "train": train["k5"]}),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
-              spectrogram_k6 + clap_k6 + serve_k6, k6,
+              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"], k6,
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
-                                "serve": serve_k6})]})
+                                "serve": serve_k6, "train": train["k6"]})]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)

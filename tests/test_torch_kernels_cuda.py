@@ -2,7 +2,11 @@
 plain PyTorch twin: K1 (GroupNorm(1) + GELU + residual) and K2 (its turbo
 int8 modes) at the UNet's shapes and a ragged one, K3 (rel-pos flash
 attention) and K5 (grouped GroupNorm + FiLM + SiLU) at the MIRAGE UNet's
-shapes; K6 (the fused STFT) at the spectrogram models' and CLAP's shapes
+shapes; K4 (the differentiable flash attention: forward with residuals,
+dK/dV, dQ and d-bias) at the trainer's shapes and batch sizes 1 to 16; the
+autograd Functions around K1 and K5 against autograd of their twins, and
+the refusal of K2, K3 and K6 to take inputs that require grad; K6 (the
+fused STFT) at the spectrogram models' and CLAP's shapes
 and ragged ones; and the turbo int8 conv (int8 tensor cores) against the
 same integer arithmetic on the CPU. These tests need a
 CUDA device (marker `cuda`) and skip without one. The file imports no
@@ -14,11 +18,14 @@ import pytest
 import torch
 
 from audio_algebra_torch.models import blocks as tb
+from audio_algebra_torch.models import unet_cfg1d as tunet
+from audio_algebra_torch.models.stacked import v_objective_loss
 from audio_algebra_torch.ops import flash_attention as fa
 from audio_algebra_torch.ops import groupnorm as gn
 from audio_algebra_torch.ops import groupnorm_grouped as ggn
 from audio_algebra_torch.ops import stft as st
 from audio_algebra_torch.ops import stft_kernel as stk
+from audio_algebra_torch.utils.params import random_init_
 
 F32_TOL = 1e-4          # f32: only the order of the statistics' sums differs
 BF16_TOL = 2e-2         # bf16: a one-ulp rounding flip at |y| < 4
@@ -175,3 +182,197 @@ def test_stft_kernel_matches_twin_on_card(cuda_device, shape, n_fft, hop, center
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
     st.stft(x, n_fft, hop, window=st.hann_window(n_fft, device=cuda_device), center=center)
     assert stk.launches == before + 1
+
+
+def _flash_inputs(device, shape, dtype, bias_dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype)
+                   for _ in range(4))
+    h, t = shape[1], shape[2]
+    bias_t = (torch.randn((h, t, t), generator=g, device=device) * 0.5).to(bias_dtype)
+    return q, k, v, do, bias_t
+
+
+# f32: JAX's own tolerance for its training kernels (tests/test_flash_attention.py);
+# bf16: a rounding flip of p or ds before a product, summed over T terms
+K4_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4), torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 512, 64), (2, 16, 1024, 64), (3, 2, 512, 32),
+                                   (8, 4, 512, 64), (16, 2, 512, 16), (2, 2, 512, 128)])
+@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+def test_flash_train_kernels_match_twins_on_card(cuda_device, shape, dtype, bias_dtype):
+    """K4a's (o, l, m), K4b's (dk, dv) and K4c's (dq, dbT) against the twins;
+    the batch sum of dbT at B = 1, 2, 3, 8, 16."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, bias_dtype, 6)
+    scale = shape[3] ** -0.5
+    before = (fa.launches, fa.train_fwd_launches, fa.dkv_launches, fa.dq_launches)
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+    grads = fa.flash_attention_relpos_bwd(q, k, v, bias_t, o, l, m, do, scale)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.train_fwd_launches, fa.dkv_launches, fa.dq_launches) == \
+        (before[0], before[1] + 1, before[2] + 1, before[3] + 1)
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, scale)
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-3 if dtype == torch.bfloat16 else 1e-4)
+    # the twin from the kernel's own residuals: what the kernels were given
+    want = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv", "dbT"), grads, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        btol = tol if name != "dbT" or bias_dtype == torch.float32 else K4_TOL[torch.bfloat16]
+        torch.testing.assert_close(a.float(), b.float(), msg=lambda s: f"{name}: {s}", **btol)
+
+
+@pytest.mark.cuda
+def test_flash_train_residuals_survive_a_late_row_max(cuda_device):
+    """The row max sits in the last key tile: the running max is rescaled
+    on the way and the saved (l, m) are the final ones."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, (1, 2, 512, 64), torch.float32,
+                                        torch.float32, 7)
+    k[:, :, -3:] *= 30.0
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, 0.125)
+    assert bool(torch.isfinite(o).all())
+    torch.testing.assert_close(o, o_ref, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(m, m_ref, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-3)
+    got = fa.flash_attention_relpos_bwd(q, k, v, bias_t, o, l, m, do, 0.125)
+    want = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do, 0.125)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_train_function_has_a_graph_on_card(cuda_device):
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, (2, 2, 512, 64), torch.float32,
+                                        torch.float32, 8)
+    leaves = [t.requires_grad_() for t in (q, k, v, bias_t)]
+    o = fa.flash_attention_relpos_train(*leaves, 0.125)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, leaves, do)
+    o_plain = torch.matmul(torch.softmax(
+        torch.matmul(q, k.transpose(-1, -2)) * 0.125 + bias_t.transpose(-1, -2)[None], -1), v)
+    want = torch.autograd.grad(o_plain, leaves, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    assert torch.equal(fa.flash_attention_relpos_bwd(q, k, v, bias_t, *fa.flash_attention_relpos_fwd(
+        q.detach(), k.detach(), v.detach(), bias_t.detach(), 0.125), do, 0.125)[3], got[3]), \
+        "dbT is summed in a fixed order: the same bits every run"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu,residual", [(True, True), (True, False), (False, False)])
+def test_groupnorm1_function_grads_on_card(cuda_device, dtype, gelu, residual):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    shape = (2, 128, 1000)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    res = torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_() \
+        if residual else None
+    scale = (torch.rand(128, generator=g, device=cuda_device) + 0.5).to(dtype).requires_grad_()
+    bias = (torch.rand(128, generator=g, device=cuda_device) - 0.5).to(dtype).requires_grad_()
+    dout = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    leaves = [x, scale, bias] + ([res] if residual else [])
+    before = gn.launches
+    y = gn.groupnorm1_gelu(x, scale, bias, gelu, res)
+    assert y.grad_fn is not None and gn.launches == before + 1
+    got = torch.autograd.grad(y, leaves, dout)
+    want = torch.autograd.grad(gn.groupnorm1_gelu_ref(x, scale, bias, gelu, res), leaves, dout)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for a, b in zip(got, want):
+        scale_ = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=tol * scale_, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film", [True, False])
+def test_grouped_gn_function_grads_on_card(cuda_device, dtype, film):
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    b, c, t = 2, 128, 1000
+    x = (torch.randn((b, c, t), generator=g, device=cuda_device) * 1.5).to(dtype).requires_grad_()
+    scale = (torch.rand(c, generator=g, device=cuda_device) + 0.5).to(dtype).requires_grad_()
+    bias = (torch.rand(c, generator=g, device=cuda_device) - 0.5).to(dtype).requires_grad_()
+    ts = (torch.randn((b, 2 * c), generator=g, device=cuda_device) * 0.3).to(dtype).requires_grad_()
+    fs, sh = ts.chunk(2, dim=1) if film else (None, None)
+    dout = torch.randn((b, c, t), generator=g, device=cuda_device).to(dtype)
+    leaves = [x, scale, bias] + ([ts] if film else [])
+    before = ggn.launches
+    y = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+    assert y.grad_fn is not None and ggn.launches == before + 1
+    got = torch.autograd.grad(y, leaves, dout)
+    want = torch.autograd.grad(ggn.grouped_gn_film_silu_ref(x, scale, bias, 8, fs, sh),
+                               leaves, dout)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for a, b_ in zip(got, want):
+        scale_ = float(b_.float().abs().max())
+        torch.testing.assert_close(a.float(), b_.float(), atol=tol * scale_, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_inference_only_kernels_refuse_grad_on_card(cuda_device):
+    """K2, K3 and K6 have no backward: with an input that requires grad
+    they raise rather than return a tensor cut off from the graph."""
+    x = torch.randn((2, 128, 256), device=cuda_device).requires_grad_()
+    scale, bias = torch.ones(128, device=cuda_device), torch.zeros(128, device=cuda_device)
+    grid = torch.full((128,), 0.05, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gn.groupnorm1_gelu_quant(x, scale, bias, grid)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gn.groupnorm1_gelu_res_amax(x, scale, bias, x.detach())
+    q = torch.randn((1, 2, 128, 16), device=cuda_device).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_relpos(q, q, q, torch.zeros((2, 128, 128), device=cuda_device))
+    sig = torch.randn((2, 4096), device=cuda_device).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        stk.stft_fused(sig, 256, 64)
+    with torch.no_grad():
+        assert stk.stft_fused(sig, 256, 64).shape[-2] == 129
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_small_unet_trains_through_the_kernels_on_card(cuda_device, remat):
+    """A small UNetCFG1d with one attention level at T = 512: loss and every
+    parameter gradient through K4 and K5 against the same through their
+    twins; with remat each block's kernels launch twice."""
+    cfg = dict(in_channels=4, channels=32, multipliers=(1, 2), factors=(2,), num_blocks=(1,),
+               attentions=(0, 1), attention_heads=2, attention_features=32, resnet_groups=4)
+    model = random_init_(tunet.UNetCFG1d(remat=remat, **cfg), 0).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    latents = torch.tanh(torch.randn((3, 4, 1024), generator=g, device=cuda_device))
+    noise = torch.randn((3, 4, 1024), generator=g, device=cuda_device)
+    emb = torch.randn((3, 1, 512), generator=g, device=cuda_device)
+    t = torch.rand((3,), generator=g, device=cuda_device)
+    keep = torch.tensor([True, False, True], device=cuda_device)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = v_objective_loss(model, latents, emb, t, noise, keep=keep)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = (fa.launches, fa.train_fwd_launches, fa.dkv_launches, fa.dq_launches, ggn.launches)
+    loss, grads = run()
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip((fa.launches, fa.train_fwd_launches, fa.dkv_launches,
+                                          fa.dq_launches, ggn.launches), before))
+    n_gn = 3 * 2 + 1                           # three ResnetBlocks x 2 norms, and out_norm
+    assert counts == (0, 2 if remat else 1, 1, 1, 2 * n_gn - 1 if remat else n_gn)
+    tunet.flash_attention_relpos_train = fa.flash_attention_relpos_train_ref
+    tb.grouped_gn_film_silu = ggn.grouped_gn_film_silu_ref
+    try:
+        want_loss, want = run()
+    finally:
+        tunet.flash_attention_relpos_train = fa.flash_attention_relpos_train
+        tb.grouped_gn_film_silu = ggn.grouped_gn_film_silu
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for name, w in want.items():
+        err = float((grads[name] - w).abs().max() / w.abs().max().clamp_min(1e-12))
+        assert err < 1e-3, f"{name}: {err}"
+        assert bool(grads[name].any()) == bool(w.any()), name
