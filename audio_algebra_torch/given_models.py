@@ -1,12 +1,13 @@
 """given_models — the spectrogram autoencoders, the DVAE wrapper of the
 Destructo path and the MIRAGE model CLAPDAE.
 
-Port of audio_algebra_tpu/given_models.py: GivenModelClass's helpers
-(zero_pad_po2, next_power_of_2, match_sizes, forward), SpectrogramAE,
-MagSpectrogramAE, MagDPhaseSpectrogramAE, MelSpectrogramAE, DVAEWrapper
-and CLAPDAE. Each takes an explicit `device` (default "cuda") and draws
-its random numbers from its own torch.Generator unless the caller hands
-them in.
+Port of audio_algebra_tpu/given_models.py: GivenModelClass (forward and
+`model(x)`, setup, match_sizes, zero_pad_po2, next_power_of_2) and its
+subclasses SpectrogramAE, MagSpectrogramAE, MagDPhaseSpectrogramAE,
+MelSpectrogramAE, DVAEWrapper and CLAPDAE, with JAX's `setup` signatures;
+`setup` reads no checkpoint yet and keeps the seeded weights. Each takes
+an explicit `device` (default "cuda") and draws its random numbers from
+its own torch.Generator unless the caller hands them in.
 
 The spectrogram models run on the port's STFT front end (ops/stft.py,
 ops/mel.py, ops/phase.py), whose forward STFT is kernel K6 on the card:
@@ -86,6 +87,11 @@ class GivenModelClass:
         x = self._as_input(waveform)
         self.orig_shape = tuple(x.shape)
         return self.zero_pad_po2(x) if self.zero_pad else x
+
+    def setup(self, gdrive: bool = True):
+        """JAX's hook for fetching and loading checkpoints. The port reads
+        no checkpoint yet: the weights stay the seeded random ones."""
+        return self
 
     def forward(self, waveform):
         """encode then decode; returns (reps, recons)."""
@@ -217,7 +223,7 @@ class MelSpectrogramAE(GivenModelClass):
             init_angle=init_angle, generator=self.generator))
 
 
-class DVAEWrapper:
+class DVAEWrapper(GivenModelClass):
     DEFAULT_ARGS = {"num_quantizers": 0, "sample_size": 65536, "demo_steps": 50,
                     "sample_rate": 48000, "latent_dim": 64, "pqmf_bands": 1}
 
@@ -225,8 +231,8 @@ class DVAEWrapper:
                  model_kwargs: Optional[dict] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, turbo: bool = False,
-                 turbo_min_b: int = TURBO_MIN_B):
-        self.device = resolve_device(device)
+                 turbo_min_b: int = TURBO_MIN_B, **kwargs):
+        super().__init__(seed=seed, device=device, **kwargs)
         self.dtype = dtype
         self.turbo, self.turbo_min_b = turbo, turbo_min_b
         args = dict(self.DEFAULT_ARGS)
@@ -237,7 +243,6 @@ class DVAEWrapper:
             num_quantizers=args["num_quantizers"], **(model_kwargs or {}))
         self.model.eval()
         self._loaded = False
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.noise: Optional[torch.Tensor] = None
         self.demo_steps = args["demo_steps"]
         self.demo_samples = args["sample_size"]
@@ -255,6 +260,14 @@ class DVAEWrapper:
             self.model.to(self.device, self.dtype)
             self._loaded = True
 
+    def setup(self, gdrive: bool = True) -> "DVAEWrapper":
+        """JAX's checkpoint hook. The port reads no checkpoint yet: it says
+        so and keeps the seeded random weights, as JAX does without a
+        file."""
+        print("DVAEWrapper: no checkpoint is read; going with random weights")
+        self.ensure_params()
+        return self
+
     def _as_input(self, a) -> torch.Tensor:
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(np.ascontiguousarray(a))
@@ -268,6 +281,7 @@ class DVAEWrapper:
     def encode(self, waveform) -> torch.Tensor:
         """(B, 2, T) audio -> (B, latent_dim, T/128) tanh latents."""
         waveform = self._as_input(waveform)
+        self.orig_shape = tuple(waveform.shape)
         self.demo_samples = waveform.shape[-1]
         self.ensure_params()
         reps = self.model.encode_it(waveform)
@@ -303,7 +317,7 @@ def _kwargs_of(cls, exclude=()) -> set:
             if n not in ("self", *exclude)}
 
 
-class CLAPDAE:
+class CLAPDAE(GivenModelClass):
     """The MIRAGE model: CLAP-conditioned stacked latent diffusion.
 
     `clap_module` (models/clap.CLAPModule: HTSAT with fusion by default,
@@ -327,8 +341,8 @@ class CLAPDAE:
                  sample_size: int = SAMPLES_22S, model_kwargs: Optional[dict] = None,
                  clap_kwargs: Optional[dict] = None,
                  seed: int = 0, device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32):
-        self.device = resolve_device(device)
+                 dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(seed=seed, device=device, **kwargs)
         self.clap_module = CLAPModule(enable_fusion=clap_fusion, amodel=clap_amodel,
                                       seed=seed + 2, device=self.device,
                                       **(clap_kwargs or {}))
@@ -355,7 +369,6 @@ class CLAPDAE:
         self.downsampling_ratio = self.latent_diffae.downsampling_ratio
         for m in (self.latent_diffae, self.latent_diffusion_model):
             m.eval()
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.last_stage_times: dict = {}
         self._loaded = False
 
@@ -405,15 +418,17 @@ class CLAPDAE:
         self._place()
         return self
 
-    def setup(self, model_len: str = "22s") -> "CLAPDAE":
+    def setup(self, gdrive: bool = True, model_len: str = "22s") -> "CLAPDAE":
         """Set the sample size of a model length: 22 s = 1,048,576 samples,
         66 s = 3x (unless an explicit sample_size was given). Checkpoints
-        are not read; the weights stay the seeded random ones."""
+        are not read yet (JAX reads them from environment variables): the
+        weights stay the seeded random ones."""
         if model_len not in ("22s", "66s"):
             raise ValueError(f"model_len must be '22s' or '66s', got {model_len!r}")
         if not self._explicit_sample_size:
             self.sample_size = self.SAMPLES_22S * (3 if model_len == "66s" else 1)
         self.demo_samples = self.sample_size
+        print("CLAPDAE: no checkpoint is read; going with random weights")
         return self
 
     # -- CLAP --
@@ -528,3 +543,12 @@ class CLAPDAE:
             bb, d, n = fakes.shape
             fakes = fakes.transpose(0, 1).reshape(d, bb * n)
         return fakes, fake_latents
+
+    def decode(self, *args, **kwargs):
+        """`generate` (JAX's alias)."""
+        return self.generate(*args, **kwargs)
+
+    def forward(self, waveform_in, *args, **kwargs):
+        """Embed a prompt and generate from it, as JAX's CLAPDAE.forward:
+        returns `generate`'s (audio, stage-2 latents)."""
+        return self.decode(self.encode(waveform_in, *args), **kwargs)

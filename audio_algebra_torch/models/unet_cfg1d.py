@@ -115,8 +115,11 @@ class RelPosSelfAttention(nn.Module):
     With grad enabled, no hoisted bias and flash_train_ok(T): the
     differentiable kernels K4, the transposed bias built in the graph so
     that its gradient reaches the bucket table (`train_flash`, JAX's
-    AA_TRAIN_FLASH). Else kernel K3 when flash_ok(T); else the plain route
-    of unet_cfg1d.py:240-256 (q scaled in x's dtype, f32 scores)."""
+    AA_TRAIN_FLASH). Else kernel K3 when flash_ok(T) and nothing needs a
+    gradient: grad off, or a hoisted TransposedBias and no input that
+    requires grad (JAX's "auto" gate). Else the plain route of
+    unet_cfg1d.py:240-256 (q scaled in x's dtype, f32 scores), which is
+    also JAX's training route under AA_TRAIN_FLASH=0."""
 
     def __init__(self, channels: int, heads: int, head_features: int,
                  num_buckets: int = 256, max_distance: int = 2048,
@@ -143,11 +146,12 @@ class RelPosSelfAttention(nn.Module):
         q, k, v = (_heads(d(h), self.heads) for d in (self.Dense_0, self.Dense_1,
                                                       self.Dense_2))
         scale = self.head_features ** -0.5
-        if self.train_flash and bias is None and torch.is_grad_enabled() \
-                and flash_train_ok(t):
+        grad = torch.is_grad_enabled()
+        if self.train_flash and bias is None and grad and flash_train_ok(t):
             bias_t = self._bias(t, transposed=True).to(x.dtype).contiguous()
             y = flash_attention_relpos_train(q, k, v, bias_t, scale)
-        elif flash_ok(t):
+        elif flash_ok(t) and (not grad or (isinstance(bias, TransposedBias) and not any(
+                a.requires_grad for a in (q, k, v, bias.arr)))):
             if isinstance(bias, TransposedBias):
                 bias_t = bias.arr
             elif bias is None:

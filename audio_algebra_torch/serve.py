@@ -98,7 +98,7 @@ class MirageService:
                  verbose: bool = True, max_batch: int = 8,
                  device: str | torch.device = "cuda", strict_text: bool = False):
         if model is None:
-            model = CLAPDAE(device=device).setup(model_choice)
+            model = CLAPDAE(device=device).setup(model_len=model_choice)
             if half:
                 model.half()
         self.model = model

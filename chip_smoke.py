@@ -39,10 +39,14 @@ Phases, each printing one JSON line:
                 inner steps and 100 v-DDIM outer steps, from the weighted
                 algebra of two seeded unit embeddings, run twice; K3, K5 and
                 K1 must launch 150 x 4, 150 x 63 and 100 x 119 times
-  kernels (K6)  the fused STFT against its twin (atol 5e-4 + rtol 1e-4, the
-                JAX package's own tolerance) at the spectrogram models'
-                (32, 65536) 1024/256 and CLAP's (1, 1048576) 1024/480, timed
-                beside the twin, torch.stft (cuFFT) and its bound
+  kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
+                rtol 1e-4, the JAX package's own tolerance) and float64: the
+                shared-memory FFT at the spectrogram models' (32, 65536)
+                1024/256 and CLAP's (1, 1048576) 1024/480 (no further from
+                float64 than the twin), the DFT product at (32, 65536)
+                1000/250; each timed beside the twin, torch.stft (cuFFT),
+                its byte bound and the DFT's operations bound, per call and
+                on the device alone (the card kept busy while the host queues)
   spectrogram   the four spectrogram given models at (16, 2, 65536) f32
                 (1024/256, 32 Griffin-Lim rounds): the SpectrogramAE and
                 MagDPhase (init 'true') round trips under 1e-9 and 1e-8 rel
@@ -51,7 +55,7 @@ Phases, each printing one JSON line:
                 through the twin from the same angles (rel-RMS under the
                 larger of 1e-3 and the twin's own spread under a 1e-6 input
                 change); spectral convergence, encode and decode times; K6
-                must launch 1 + 33 + 33 + 1 = 68 times
+                must launch 1 + 33 + 33 + 1 = 68 times, all on the FFT route
   clap          the served model's CLAP module at full width in f32 with
                 seeded random weights (HTSAT-base with fusion, RoBERTa-base):
                 a 5 s clip (short path), a 22 s clip (fusion path) and two
@@ -68,9 +72,11 @@ Phases, each printing one JSON line:
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
                 2e-4, the JAX package's) and bf16, at (16, 16, 1024, 64) bf16
                 and at B = 1, each timed beside the twin, SDPA forward /
-                backward and its bound; and the autograd Functions around K1
-                and K5: forward through the kernel, backward() against
-                autograd of the twin
+                backward and its bound (K4c in f32: 3xTF32 on the tensor
+                cores, and the f32 CUDA-core bound beside it); two K4c
+                launches at (8, 16, 1024, 64) f32 and bf16 give the same
+                bits; and the autograd Functions around K1 and K5: forward
+                through the kernel, backward() against autograd of the twin
   train_model   one v_objective_loss forward + backward of the full-width
                 songs UNetCFG1d at (8, 32, 2048) f32 through K4 and K5 and
                 through their twins, from the same weights, noise, t,
@@ -109,6 +115,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_TC_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 GN_CALLS_PER_FORWARD = 191     # 14 levels x 6 blocks x 2 - 1 + 24 attention pre-norms
 STEPS = 35
 CHUNK = 65536                  # samples per Destructo chunk
@@ -164,6 +171,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call: the card is kept busy (torch.cuda._sleep, ~0.1
+    s) while the host queues the calls, so the events time the card alone
+    and not the host's launch path."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -749,7 +775,7 @@ def phase_mirage():
     from audio_algebra_torch.ops import groupnorm_grouped as ggn
 
     t0 = time.time()
-    model = CLAPDAE(device="cuda", seed=0).setup("22s").half()
+    model = CLAPDAE(device="cuda", seed=0).setup(model_len="22s").half()
     init_s = time.time() - t0
     rng = np.random.default_rng(0)
     a, b = (v / np.linalg.norm(v) for v in rng.standard_normal((2, 1, 1, 512)).astype("f4"))
@@ -791,29 +817,40 @@ def phase_mirage():
     return model, counts
 
 
-def stft_bound(rows: int, t_len: int, n_fft: int, n_frames: int) -> tuple[float, str]:
-    """Least time for K6: read the signal once, write the complex64 output
-    once; or its 4 n_fft n_bins operations a frame (a multiply and an add
-    into re and im each) at the f32 peak, whichever is larger."""
+def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
+    """Least time for the STFT: read the signal once and write the complex64
+    output once, or an FFT's ~5 (n_fft / 2) log2(n_fft / 2) f32 operations a
+    frame at the f32 peak, whichever is larger; and beside it, under its own
+    name, the DFT product's 4 n_fft n_bins operations a frame at that peak
+    (what the DFT route does)."""
     n_bins = n_fft // 2 + 1
     t_bytes = (rows * t_len * 4 + rows * n_bins * n_frames * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * n_fft * n_bins * rows * n_frames / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    half = n_fft // 2
+    t_fft = 5 * half * math.log2(half) * rows * n_frames / F32_OPS_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_fft else (t_fft, "operations")
+    return {"bound_ms": bound[0], "bound_by": bound[1],
+            "dft_operations_ms": 4 * n_fft * n_bins * rows * n_frames / F32_OPS_PER_S * 1e3}
 
 
 def phase_kernels_k6() -> dict:
-    """K6 at the spectrogram models' shape and at CLAP's 22 s clip, each
-    against its twin and timed beside the twin, torch.stft and the bound."""
+    """K6 on both routes, each against its twin and float64 and timed beside
+    the twin, torch.stft and the bounds: the FFT at the spectrogram models'
+    shape and at CLAP's 22 s clip, the DFT product at a non-power-of-two
+    n_fft. Returns the rows by route, the first of each."""
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
 
     dev = torch.device("cuda")
     rows = []
-    for shape, n_fft, hop in [((32, 65536), 1024, 256), ((1, CLAP_LONG), 1024, 480)]:
+    for shape, n_fft, hop in [((32, 65536), 1024, 256), ((1, CLAP_LONG), 1024, 480),
+                              ((32, 65536), 1000, 250)]:
         g = torch.Generator(device=dev).manual_seed(400 + len(rows))
         x = torch.randn(shape, generator=g, device=dev) * 0.5
+        route = "fft" if stk.uses_fft(n_fft) else "dft"
+        before = (stk.fft_launches, stk.dft_launches)
         got = stk.stft_fused(x, n_fft, hop)
         torch.cuda.synchronize()
+        took = {"fft": stk.fft_launches - before[0], "dft": stk.dft_launches - before[1]}
         want = stk.stft_ref(x, n_fft, hop)
         atol, rtol = STFT_TOL
         err = (got - want).abs()
@@ -821,8 +858,8 @@ def phase_kernels_k6() -> dict:
         # both against the same STFT in float64: how far each is from exact
         exact = torch.stft(x.double(), n_fft, hop, window=window.double(), center=True,
                            pad_mode="reflect", return_complex=True)
-        bound_ms, bound_by = stft_bound(shape[0], shape[1], n_fft, got.shape[-1])
         rows.append({
+            "route": route, "route_launches": took,
             "shape": list(shape), "n_fft": n_fft, "hop": hop, "dtype": "float32",
             "out_shape": list(got.shape), "max_abs_err": float(err.max()), "atol": atol,
             "rtol": rtol, "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
@@ -833,13 +870,23 @@ def phase_kernels_k6() -> dict:
             "library_ms": cuda_ms(lambda: torch.stft(
                 x, n_fft, hop, window=window, center=True, pad_mode="reflect",
                 return_complex=True), 20),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            "kernel_device_ms": device_ms(lambda: stk.stft_fused(x, n_fft, hop), 20),
+            "library_device_ms": device_ms(lambda: torch.stft(
+                x, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                return_complex=True), 20),
+            **stft_bounds(shape[0], shape[1], n_fft, got.shape[-1])})
         del x, got, want, err, exact
     emit({"phase": "kernels", "kernel": "stft", "cases": rows})
-    failed = [r for r in rows if r["n_outside_tol"]]
+    failed = [r for r in rows if r["n_outside_tol"] or r["route_launches"] != {
+        k: int(k == r["route"]) for k in ("fft", "dft")}]
     if failed:
-        raise AssertionError(f"K6 disagrees with its twin: {failed}")
-    return rows[0]
+        raise AssertionError(f"K6 disagrees with its twin or took the wrong route: {failed}")
+    # the FFT rounds like log n_fft, the DFT product like sqrt(n_fft)
+    farther = [r for r in rows if r["route"] == "fft"
+               and r["kernel_max_abs_err_vs_f64"] > r["plain_max_abs_err_vs_f64"]]
+    if farther:
+        raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
+    return {route: next(r for r in rows if r["route"] == route) for route in ("fft", "dft")}
 
 
 def _synced_s(fn):
@@ -889,14 +936,14 @@ def phase_spectrogram() -> int:
                                                     "MelSpectrogramAE") else {}
         m.decode(m.encode(x[:1]), **kw)
     rows, reps, outs = {}, {}, {}
-    stk.launches = 0
+    stk.launches = stk.fft_launches = 0
     for name, m in models.items():
         reps[name], enc_s = _synced_s(lambda: m.encode(x))
         kw = {"init_angle": angles} if name in ("MagSpectrogramAE", "MelSpectrogramAE") else {}
         outs[name], dec_s = _synced_s(lambda: m.decode(reps[name], **kw))
         rows[name] = {"encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3,
                       "reps_shape": list(reps[name].shape), "out_shape": list(outs[name].shape)}
-    launches = stk.launches
+    launches, fft_launches = stk.launches, stk.fft_launches
 
     def rel_mse(a):
         return float((a - x).square().mean() / x.square().mean())
@@ -928,8 +975,9 @@ def phase_spectrogram() -> int:
         r = rows[name]
         if not r["rel_rms_kernel_vs_twin"] < max(GL_REL_RMS, r["twin_spread_1e-6"]):
             raise AssertionError(f"{name} through K6 vs twin: {r}")
-    if launches != K6_SPECTROGRAM:
-        raise AssertionError(f"K6 launched {launches} times, expected {K6_SPECTROGRAM}")
+    if launches != K6_SPECTROGRAM or fft_launches != launches:
+        raise AssertionError(f"K6 launched {launches} times ({fft_launches} on the FFT "
+                             f"route), expected {K6_SPECTROGRAM}, all FFT")
     return launches
 
 
@@ -1101,7 +1149,10 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
     output written once, or the products' operations (2, 4 and 3 products
     of 2 B H T^2 D operations) at the peak of q's type, whichever is
     larger. Inputs of the backward kernels: q, k, v, do, biasT and the
-    three (H, B, T) f32 rows; K4c returns dq and dbT, which is like biasT."""
+    three (H, B, T) f32 rows; K4c returns dq and dbT, which is like biasT.
+    In f32, K4c runs its 3 products as 3xTF32 on the tensor cores: its bound
+    is those 9 TF32 products at the dense TF32 peak ("k4c"), and the f32
+    CUDA-core bound stands beside it as "k4c_f32_cuda_cores"."""
     import torch
     b, h, t, d = shape
     e = torch.empty((), dtype=dtype).element_size()
@@ -1116,6 +1167,11 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_products * product / peak * 1e3
         out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if dtype == torch.float32:
+        out["k4c_f32_cuda_cores"] = out["k4c"]
+        t_tf32 = 9 * product / TF32_TC_OPS_PER_S * 1e3
+        t_bytes = (5 * qkv + 2 * bias + 3 * row) / HBM_BYTES_PER_S * 1e3
+        out["k4c"] = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
     return out
 
 
@@ -1207,13 +1263,34 @@ def phase_kernels_k4() -> dict:
                 "plain_ms": times[kern][1] if kern == "k4a" else bwd_plain,
                 "library_ms": times[kern][2] if kern == "k4a" else bwd_library,
                 "plain_and_library_cover": "K4a" if kern == "k4a" else "K4b + K4c",
-                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]})
+                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
+                **({"bound_f32_cuda_cores_ms": bounds["k4c_f32_cuda_cores"][0]}
+                   if kern == "k4c" and "k4c_f32_cuda_cores" in bounds else {})})
         del q, k, v, do, bias_t, mask, o, l, m, delta, leaves, o_lib
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_attention_relpos_train", "cases": rows})
     failed = [r for r in rows if r["n_outside_tol"]]
     if failed:
         raise AssertionError(f"K4 disagrees with its twin: {failed}")
+
+    # K4c sums dq and d(biasT) in a fixed order: two launches, the same bits
+    same = {}
+    for dt in (f32, bf16):
+        g = torch.Generator(device=dev).manual_seed(530)
+        q, k, v, do = (torch.randn((TRAIN_BATCH, 16, 1024, 64), generator=g,
+                                   device=dev).to(dt) for _ in range(4))
+        bias_t = (torch.randn((16, 1024, 1024), generator=g, device=dev) * 0.5).to(dt)
+        o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+        delta = fa.flash_delta(o, do)
+        first = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+        second = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+        same[str(dt).removeprefix("torch.")] = all(torch.equal(a, b)
+                                                   for a, b in zip(first, second))
+        del q, k, v, do, bias_t, o, l, m, delta, first, second
+    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train_dq",
+          "shape": [TRAIN_BATCH, 16, 1024, 64], "bitwise_equal_across_two_runs": same})
+    if not all(same.values()):
+        raise AssertionError(f"K4c gave other bits on a second run: {same}")
 
     # the Functions around K1 and K5: forward through the kernel, backward()
     # against autograd of the twin, relative to each gradient's peak
@@ -1524,14 +1601,24 @@ def main() -> int:
               plain_and_library_cover="K4b + K4c"),
         entry("flash_attention_relpos_train_dq", "flash_attention_dq.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:211", train["k4c"], k4["k4c"],
-              plain_and_library_cover="K4b + K4c"),
+              plain_and_library_cover="K4b + K4c",
+              bound_f32_cuda_cores_ms=k4["k4c"]["bound_f32_cuda_cores_ms"]),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
               launches_by_path={"mirage": counts["k5"], "train": train["k5"]}),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
-              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"], k6,
+              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"], k6["fft"],
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
-                                "serve": serve_k6, "train": train["k6"]})]})
+                                "serve": serve_k6, "train": train["k6"]},
+              dft_operations_ms=k6["fft"]["dft_operations_ms"],
+              routes={route: {key: row[key] for key in (
+                  "shape", "n_fft", "hop", "max_abs_err", "kernel_ms", "plain_ms",
+                  "library_ms", "kernel_device_ms", "library_device_ms", "bound_ms",
+                  "bound_by", "dft_operations_ms", "kernel_max_abs_err_vs_f64",
+                  "plain_max_abs_err_vs_f64")}
+                  for route, row in k6.items()},
+              route_rule="fft: power-of-two n_fft from 16 to 4096 (every caller on "
+                         "the main paths); dft: any other n_fft")]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)

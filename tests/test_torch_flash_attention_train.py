@@ -204,3 +204,42 @@ def test_module_routes_by_grad_mode_and_hoisted_bias():
         tunet.flash_attention_relpos_train = real
     for other in (served, hoisted, plain):
         torch.testing.assert_close(other, trained, rtol=1e-4, atol=1e-4)
+
+
+def test_untrained_flash_site_under_grad_takes_the_plain_route(monkeypatch):
+    """T = 1024 passes the serving gate, but under grad with train_flash off
+    the module must not take the forward-only K3 (its wrapper refuses such
+    inputs on the card): it takes the plain route, JAX's AA_TRAIN_FLASH=0
+    training route, and matches jax.value_and_grad of it."""
+    rng = np.random.default_rng(37)
+    x = (rng.standard_normal((1, 1024, 32)) * 0.5).astype(np.float32)
+    jmod = junet.RelPosSelfAttention(heads=2, head_features=16)
+    tree = rand_tree(jmod, 37, jnp.asarray(x))
+    tree["rel_pos_bias"] = (rng.standard_normal((256, 2)) * 0.5).astype(np.float32)
+    monkeypatch.setenv("AA_TRAIN_FLASH", "0")
+
+    def loss(p):
+        return jnp.sum(jnp.square(jmod.apply({"params": p}, jnp.asarray(x))))
+
+    want_l, want_g = jax.value_and_grad(loss)(tree)
+    tmod = tunet.RelPosSelfAttention(32, 2, 16, train_flash=False)
+    load_flax_params(tmod, tree)
+    assert tflash.flash_ok(1024)
+    calls = []
+    real = tunet.flash_attention_relpos
+
+    def spy(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tunet, "flash_attention_relpos", spy)
+    y = tmod(torch.from_numpy(x))
+    got_l = y.square().sum()
+    got_l.backward()
+    assert calls == [] and y.grad_fn is not None
+    np.testing.assert_allclose(float(got_l.detach()), float(want_l), rtol=1e-5)
+    got_g, want_g = (jax.tree_util.tree_flatten_with_path(g) for g in (to_flax_grads(tmod),
+                                                                     want_g))
+    assert [p for p, _ in got_g[0]] == [p for p, _ in want_g[0]]
+    for (path, a), (_, b) in zip(got_g[0], want_g[0]):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=str(path))

@@ -1,0 +1,89 @@
+"""The call surface of the port's DVAEWrapper and CLAPDAE against the JAX
+package's: both are GivenModelClasses with JAX's public method names and
+`setup` signatures, `setup(gdrive=False)` runs (the root trainer's call),
+and `DVAEWrapper()(x)` returns (reps, recons) with recons matched to the
+input's length. Tiny configs on the CPU."""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from audio_algebra_tpu import given_models as jgm
+from audio_algebra_torch import given_models as tgm
+
+DVAE_KWARGS = dict(args_dict={"sample_size": 1024, "latent_dim": 8, "demo_steps": 2},
+                   model_kwargs=dict(capacity=4, c_mults=(2, 4), strides=(4, 2),
+                                     n_attn_layers=1, diffusion_c_mults=(128, 128, 256)))
+FIRST_STAGE = {"capacity": 4, "c_mults": [2, 4], "strides": [2, 2], "latent_dim": 8}
+CLAPDAE_KWARGS = dict(sample_size=4096, first_stage_config=FIRST_STAGE,
+                      model_kwargs=dict(second_stage_latent_dim=4, factors=(2, 2),
+                                        latent_channels=8, latent_multipliers=(1, 2, 2),
+                                        latent_num_blocks=(1, 1), diffusion_c_mults=(8, 16),
+                                        diffusion_depth=2, channels=8, multipliers=(1, 2),
+                                        factors2=(2,), num_blocks=(1,), attentions=(0, 1),
+                                        attention_heads=2, attention_features=16))
+# JAX-only names, each for a reason the port states: `next_key` splits
+# JAX's PRNG key (the port draws from the torch.Generator `generator`);
+# `decode_seqpar` / `generate_seqpar` are the multi-chip sequence-parallel
+# decodes, not ported; `get_checkpoint` downloads a checkpoint, and the port
+# reads none yet.
+JAX_ONLY = {"next_key", "decode_seqpar", "generate_seqpar", "get_checkpoint"}
+
+
+def _public(cls) -> set:
+    return {n for n, _ in inspect.getmembers(cls, callable) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("name", ["DVAEWrapper", "CLAPDAE"])
+def test_port_class_has_jax_surface(name):
+    jcls, tcls = getattr(jgm, name), getattr(tgm, name)
+    assert issubclass(tcls, tgm.GivenModelClass)
+    missing = _public(jcls) - _public(tcls)
+    assert missing <= JAX_ONLY, sorted(missing - JAX_ONLY)
+    for method in ("forward", "__call__", "match_sizes", "setup", "encode", "decode",
+                   "zero_pad_po2", "next_power_of_2"):
+        assert callable(getattr(tcls, method)), method
+    assert inspect.signature(tcls.setup).parameters.keys() == \
+        inspect.signature(jcls.setup).parameters.keys()
+    for p, q in zip(inspect.signature(tcls.setup).parameters.values(),
+                    inspect.signature(jcls.setup).parameters.values()):
+        assert p.default == q.default, p.name
+
+
+def test_setup_without_gdrive_runs():
+    w = tgm.DVAEWrapper(device="cpu", **DVAE_KWARGS)
+    assert w.setup(gdrive=False) is w and w._loaded
+    m = tgm.CLAPDAE(device="cpu", **CLAPDAE_KWARGS)
+    assert m.setup(gdrive=False) is m and m.demo_samples == 4096
+    assert m.setup(False, "66s").sample_size == 4096           # explicit sample_size kept
+    big = tgm.CLAPDAE(device="cpu", sample_size=tgm.CLAPDAE.SAMPLES_22S, **{
+        k: v for k, v in CLAPDAE_KWARGS.items() if k != "sample_size"})
+    assert big.setup(gdrive=False, model_len="66s").sample_size == 3 * tgm.CLAPDAE.SAMPLES_22S
+    with pytest.raises(ValueError):
+        m.setup(model_len="5s")
+
+
+def test_dvae_wrapper_call_returns_reps_and_matched_recons():
+    w = tgm.DVAEWrapper(device="cpu", **DVAE_KWARGS).setup(gdrive=False)
+    x = np.random.default_rng(0).standard_normal((1, 2, 1024)).astype(np.float32) * 0.1
+    reps, recons = w(x)
+    assert w.orig_shape == (1, 2, 1024)
+    assert reps.shape[:2] == (1, 8) and recons.shape == (2, 1024)
+    assert bool(torch.isfinite(recons).all())
+    torch.testing.assert_close(w.match_sizes(torch.ones(2, 1500)), torch.ones(2, 1024))
+    torch.testing.assert_close(w.match_sizes(torch.ones(2, 1000))[:, 1000:],
+                               torch.zeros(2, 24))
+
+
+def test_clapdae_decode_is_generate():
+    m = tgm.CLAPDAE(device="cpu", **CLAPDAE_KWARGS).setup(gdrive=False)
+    emb = np.random.default_rng(1).standard_normal((1, 1, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb)
+    m.generator.manual_seed(5)
+    fakes, lat = m.decode(emb, demo_steps=2, outer_steps=2)
+    m.generator.manual_seed(5)
+    want, want_lat = m.generate(emb, demo_steps=2, outer_steps=2)
+    assert fakes.shape == (2, 4096)
+    torch.testing.assert_close(fakes, want)
+    torch.testing.assert_close(lat, want_lat)

@@ -4,10 +4,11 @@ int8 modes) at the UNet's shapes and a ragged one, K3 (rel-pos flash
 attention) and K5 (grouped GroupNorm + FiLM + SiLU) at the MIRAGE UNet's
 shapes; K4 (the differentiable flash attention: forward with residuals,
 dK/dV, dQ and d-bias) at the trainer's shapes and batch sizes 1 to 16; the
-autograd Functions around K1 and K5 against autograd of their twins, and
-the refusal of K2, K3 and K6 to take inputs that require grad; K6 (the
-fused STFT) at the spectrogram models' and CLAP's shapes
-and ragged ones; and the turbo int8 conv (int8 tensor cores) against the
+autograd Functions around K1, K5 and K6 against autograd of their twins,
+and the refusal of K2 and K3 to take inputs that require grad; K6 (the
+fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
+at other n_fft, against its twin and float64; the attention site of a
+training UNet at T = 1024 without the training kernels; and the turbo int8 conv (int8 tensor cores) against the
 same integer arithmetic on the CPU. These tests need a
 CUDA device (marker `cuda`) and skip without one. The file imports no
 JAX, so it runs on a machine without it:
@@ -184,6 +185,76 @@ def test_stft_kernel_matches_twin_on_card(cuda_device, shape, n_fft, hop, center
     assert stk.launches == before + 1
 
 
+def _stft_vs_exact(x, n_fft, hop, center):
+    """(kernel, twin, max |kernel - f64|, max |twin - f64|)."""
+    got = stk.stft_fused(x, n_fft, hop, center)
+    torch.cuda.synchronize()
+    want = stk.stft_ref(x, n_fft, hop, center)
+    win = torch.hann_window(n_fft, dtype=torch.float64, device=x.device)
+    exact = torch.stft(x.double().reshape(-1, x.shape[-1]), n_fft, hop, window=win,
+                       center=center, pad_mode="reflect", return_complex=True)
+    exact = exact.reshape(want.shape)
+    return got, want, float((got - exact).abs().max()), float((want - exact).abs().max())
+
+
+# rows by hop: hop 1 gives a frame per sample, so one row
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [16, 64, 256, 1024, 4096])
+@pytest.mark.parametrize("hop", [1, 480, "quarter"])
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_fft_route_matches_twin_and_f64_on_card(cuda_device, n_fft, hop, center):
+    """The FFT route at every power-of-two n_fft the port takes it for:
+    within the JAX kernel's tolerance of the twin, and no further from an
+    exact (float64) STFT than the twin; a length that leaves the last
+    frame tile partial."""
+    hop = n_fft // 4 if hop == "quarter" else hop
+    rows = {1: (1,), 480: (40,)}.get(hop, (3,))
+    t_len = 3 * n_fft + 333 + (480 * 7 if hop == 480 else 0)
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft + hop)
+    x = torch.randn((*rows, t_len), generator=g, device=cuda_device) * 0.5
+    before = (stk.launches, stk.fft_launches, stk.dft_launches)
+    got, want, k_err, t_err = _stft_vs_exact(x, n_fft, hop, center)
+    assert (stk.launches, stk.fft_launches, stk.dft_launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    # at 16 and 64 points both are a few f32 ulps of the peak, and the real
+    # FFT's split adds a rounding that a 16-term dot product does not have
+    assert k_err <= (t_err if n_fft >= 256 else 2 * t_err), (k_err, t_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_fft,hop,center", [
+    ((32, 65536), 1000, 250, True), ((3, 5000), 400, 160, False), ((1, 9000), 1536, 480, True)])
+def test_stft_dft_route_matches_twin_on_card(cuda_device, shape, n_fft, hop, center):
+    """Any n_fft that is not a power of two takes the DFT product."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft)
+    x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
+    assert not stk.uses_fft(n_fft)
+    before = (stk.launches, stk.fft_launches, stk.dft_launches)
+    got, want, _, _ = _stft_vs_exact(x, n_fft, hop, center)
+    assert (stk.launches, stk.fft_launches, stk.dft_launches) == \
+        (before[0] + 1, before[1], before[2] + 1)
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (1024, 480), (1000, 250)])
+def test_stft_gradient_through_the_kernel_on_card(cuda_device, n_fft, hop):
+    """K6 under grad launches inside its autograd.Function; the gradient of
+    sum(|X|^2 w) equals the one through the twin."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = (torch.randn((2, 16384), generator=g, device=cuda_device) * 0.5).requires_grad_()
+    before = stk.launches
+    spec = stk.stft_fused(x, n_fft, hop)
+    assert spec.grad_fn is not None and stk.launches == before + 1
+    w = torch.rand(spec.shape, generator=g, device=cuda_device)
+    got, = torch.autograd.grad((spec.abs().square() * w).sum(), x)
+    want, = torch.autograd.grad((stk.stft_ref(x, n_fft, hop).abs().square() * w).sum(), x)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
+
+
 def _flash_inputs(device, shape, dtype, bias_dtype, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype)
@@ -226,6 +297,45 @@ def test_flash_train_kernels_match_twins_on_card(cuda_device, shape, dtype, bias
         assert a.dtype == b.dtype and a.shape == b.shape, name
         btol = tol if name != "dbT" or bias_dtype == torch.float32 else K4_TOL[torch.bfloat16]
         torch.testing.assert_close(a.float(), b.float(), msg=lambda s: f"{name}: {s}", **btol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 8, 17])
+@pytest.mark.parametrize("t", [512, 1024, 2048])
+@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+def test_flash_dq_kernel_matches_twin_on_card(cuda_device, batch, t, dtype, bias_dtype):
+    """K4c alone, (dq, dbT) against the twin from the same residuals: B = 17
+    is above one batch chunk of the kernel (8 in bf16, 4 in f32 at D = 64),
+    so the d(biasT) strip's read-add-write across chunks is exercised."""
+    shape = (batch, 2, t, 64)
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, bias_dtype, batch + t)
+    scale = shape[3] ** -0.5
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+    delta = fa.flash_delta(o, do)
+    before = fa.dq_launches
+    dq, dbt = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, scale)
+    torch.cuda.synchronize()
+    assert fa.dq_launches == before + 1
+    want_dq, _, _, want_dbt = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do,
+                                                                scale)
+    assert dq.dtype == want_dq.dtype and dbt.dtype == want_dbt.dtype
+    torch.testing.assert_close(dq.float(), want_dq.float(), **K4_TOL[dtype])
+    torch.testing.assert_close(dbt.float(), want_dbt.float(), **K4_TOL[bias_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dq_kernel_gives_the_same_bits_every_run(cuda_device, dtype):
+    """K4c sums in a fixed order (no atomics): two launches, equal bits."""
+    shape = (17, 2, 1024, 64)
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, dtype, 14)
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    delta = fa.flash_delta(o, do)
+    first = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+    second = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -316,8 +426,8 @@ def test_grouped_gn_function_grads_on_card(cuda_device, dtype, film):
 
 @pytest.mark.cuda
 def test_inference_only_kernels_refuse_grad_on_card(cuda_device):
-    """K2, K3 and K6 have no backward: with an input that requires grad
-    they raise rather than return a tensor cut off from the graph."""
+    """K2 and K3 have no backward: with an input that requires grad they
+    raise rather than return a tensor cut off from the graph."""
     x = torch.randn((2, 128, 256), device=cuda_device).requires_grad_()
     scale, bias = torch.ones(128, device=cuda_device), torch.zeros(128, device=cuda_device)
     grid = torch.full((128,), 0.05, device=cuda_device)
@@ -328,11 +438,6 @@ def test_inference_only_kernels_refuse_grad_on_card(cuda_device):
     q = torch.randn((1, 2, 128, 16), device=cuda_device).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         fa.flash_attention_relpos(q, q, q, torch.zeros((2, 128, 128), device=cuda_device))
-    sig = torch.randn((2, 4096), device=cuda_device).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        stk.stft_fused(sig, 256, 64)
-    with torch.no_grad():
-        assert stk.stft_fused(sig, 256, 64).shape[-2] == 129
 
 
 @pytest.mark.cuda
@@ -376,3 +481,21 @@ def test_small_unet_trains_through_the_kernels_on_card(cuda_device, remat):
         err = float((grads[name] - w).abs().max() / w.abs().max().clamp_min(1e-12))
         assert err < 1e-3, f"{name}: {err}"
         assert bool(grads[name].any()) == bool(w.any()), name
+
+
+@pytest.mark.cuda
+def test_untrained_attention_site_backward_at_t1024_on_card(cuda_device):
+    """The training UNet's attention at T = 1024 with train_flash off: under
+    grad it takes the plain route (K3 would refuse), and a backward step
+    gives finite gradients."""
+    mod = random_init_(tunet.RelPosSelfAttention(128, 4, 32, train_flash=False), 0).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn((2, 1024, 128), generator=g, device=cuda_device).requires_grad_()
+    before = (fa.launches, fa.train_fwd_launches)
+    y = mod(x)
+    y.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.train_fwd_launches) == before
+    grads = [x.grad] + [p.grad for p in mod.parameters()]
+    assert all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads)
+    assert bool(mod.rel_pos_bias.grad.any())

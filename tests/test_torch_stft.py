@@ -124,3 +124,22 @@ def test_stft_fused_rejects_signals_without_a_frame():
         tk.stft_fused(torch.zeros(1, 100), 1024, 256)
     with pytest.raises(ValueError, match="no frame"):
         tk.stft_fused(torch.zeros(1, 100), 1024, 256, center=False)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (256, 64)])
+def test_stft_gradient_matches_jax_grad(n_fft, hop):
+    """The STFT is linear, so K6's backward is the twin's VJP: the gradient
+    of sum(|stft(x)|^2 w) through the port equals jax.grad of JAX's XLA
+    stft, in f32."""
+    x = _signal((2, 4096), 3)
+    spec_shape = tstft.stft(torch.from_numpy(x), n_fft, hop).shape
+    w = np.random.default_rng(4).random(spec_shape).astype(np.float32)
+
+    def loss(a):
+        return jnp.sum(jnp.square(jnp.abs(jstft.stft(a, n_fft, hop))) * w)
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    leaf = torch.from_numpy(x).requires_grad_()
+    (tstft.stft(leaf, n_fft, hop).abs().square() * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), want, atol=1e-4 * np.abs(want).max(),
+                               rtol=1e-4)
