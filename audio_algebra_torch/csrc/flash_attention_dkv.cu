@@ -18,21 +18,42 @@
 //
 // Design: one block per (batch * head, 64-key tile) with a loop over the
 // 64-query tiles; the block owns its rows of dk and dv, so nothing is
-// summed across blocks and there are no atomics. The score tile is kept in
-// the (key, query) orientation of biasT, whose tile is then read as it
-// lies. The Q, dO and bias tiles and the queries' m, 1 / l and delta are
-// staged in shared memory; dk and dv accumulate in registers.
-//   bf16: four warps, 16 key rows each; the four products run on the
-//         tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate);
-//         the pT and dsT fragments are re-packed in registers as the A
-//         operands of the dv and dk products.
-//   f32:  CUDA-core FMA, four threads per key row, each holding D / 4 of
-//         its dims in 16-byte pieces, so that f32 results agree with the
-//         plain version to 2e-4.
+// summed across blocks and there are no atomics: the same bits every run.
+// The score tile is kept in the (key, query) orientation of biasT, whose
+// tile is then read as it lies. All four products (sT = K.Q^T, dpT =
+// V.dO^T, dv += pT.dO, dk += dsT.Q) run on the tensor cores through
+// mma.sync, and the pT and dsT accumulator fragments become the A operands
+// of the dv and dk products in registers, never passing through shared
+// memory.
+//   bf16: four warps, 16 key rows each, m16n8k16 (bf16 in, f32
+//         accumulate); Q, dO and the bias tile staged synchronously.
+//   f32:  3xTF32 m16n8k8: each operand is split into its TF32 rounding hi
+//         and the TF32 rounding of the remainder lo, and alo.bhi + ahi.blo
+//         + ahi.bhi are accumulated in f32, which keeps f32's tolerance
+//         where plain TF32 does not. Eight warps: warp w owns key rows
+//         16 (w mod 4) .. + 15 and queries 32 (w / 4) .. + 31 of each query
+//         tile. The block's k and v are split into hi and lo ONCE, into
+//         shared memory, since the block keeps its keys for the whole
+//         query loop; q and dO (B operands) are split as they are read. For
+//         the dv and dk products TF32's k index is permuted (query 2 tg for
+//         column tg, 2 tg + 1 for tg + 4), so that a C fragment is an A
+//         fragment as it lies, and dO and Q are read with the same
+//         permutation. The Q, dO and bias tiles and the queries' m, l and
+//         delta arrive by cp.async into two stages (one at D = 128, where
+//         two do not fit beside k and v), the next tile loading while this
+//         one computes. Tile rows have a stride of D + 4 floats, so the
+//         scalar fragment reads hit 32 banks both along a row (sT, dpT)
+//         and down a column (dv, dk). At the end the two query halves add
+//         their dk, dv partials in a fixed order through shared memory.
 //
-// Bound: operations in f32 (8 B H T^2 D at the f32 peak: 1.03 ms at
-// (8, 16, 1024, 64) on an H100 SXM, against 0.08 ms for its bytes); bytes
-// in bf16 on the tensor cores. Not pipelined (no cp.async or TMA, no wgmma).
+// Bound: operations. f32: the 4 products of 2 B H T^2 D at the dense TF32
+// peak, three passes each (0.42 ms at (8, 16, 1024, 64) from an H100 SXM's
+// published peaks at 700 W; 1.03 ms for the f32 CUDA-core peak; 0.08 ms for
+// its bytes); bf16: the 4 products at the bf16 peak, or its bytes,
+// whichever is larger. One block of 8 warps per SM (shared memory: 174 KB
+// at D = 64). Measured by chip_smoke.py at (8, 16, 1024, 64) f32 on an
+// NVIDIA H100 80GB HBM3 at 700 W: 1.68-1.70 ms, where the CUDA-core design
+// it replaced took 3.41-3.44 ms.
 //
 // C interface (bound with ctypes): aa_flash_attention_dkv launches one
 // kernel on the given stream, allocates nothing, does not synchronise, and
@@ -170,91 +191,227 @@ flash_dkv_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------------- f32 ---
-// 256 threads: key row tid / 4 of the tile; the thread holds the dims
-// 16 i + 4 quarter + {0..3} of it, so that the four threads of a row read
-// 64 contiguous bytes of a staged row at a time.
-template <int D, typename TB>
-__global__ void __launch_bounds__(256)
-flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const TB* __restrict__ bias,
-              const float* __restrict__ dout, const float* __restrict__ l,
-              const float* __restrict__ m, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int heads, int t_len,
-              float sm_scale) {
-  constexpr int NV = D / 16;         // 16-byte pieces per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* dos = qs + kBQ * D;
-  float* bs = dos + kBQ * D;
-  float* ms = bs + kBK * kBiasLD;
-  float* ils = ms + kBQ;
-  float* des = ils + kBQ;
+// ------------------------------------------------------------ f32: 3xTF32 ---
+constexpr int kThreadsTc = 256;
+constexpr int kMaxSmem = 232448;
+constexpr int kBiasLDS = kBQ + 8;    // staged bias row stride: the (row g, column
+                                     // 2 tg) pair reads hit 32 banks, f32 or bf16
 
-  const int tid = threadIdx.x, row = tid >> 2, quarter = tid & 3;
+// Shared memory plan at head dim D: k and v split into hi and lo (uint32, 4
+// tiles), then one or two stages of q, dO (f32), the bias tile (its own
+// dtype) and the queries' m, l and delta.
+template <int D, typename TB>
+struct PlanDkv {
+  static constexpr int LD = D + 4;
+  static constexpr int kKV = 4 * kBK * LD * 4;
+  static constexpr int kQD = 2 * kBQ * LD * 4;
+  static constexpr int kBias = kBK * kBiasLDS * static_cast<int>(sizeof(TB));
+  static constexpr int kStage = kQD + kBias + 3 * kBQ * 4;
+  static constexpr int kStages = kKV + 2 * kStage <= kMaxSmem ? 2 : 1;
+  static constexpr int kSmem = kKV + kStages * kStage;
+  static constexpr int kRedLD = D + 8;   // the end's dk, dv partials (in the stage area)
+  static_assert(kSmem <= kMaxSmem, "K4b's tiles do not fit");
+  static_assert(2 * kBK * kRedLD * 4 <= kStages * kStage, "K4b's partials do not fit");
+};
+
+__device__ __forceinline__ float2 bias_pair(const float* bs, int r, int c) {
+  return *reinterpret_cast<const float2*>(bs + r * kBiasLDS + c);
+}
+
+__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* bs, int r, int c) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(bs + r * kBiasLDS + c);
+  return make_float2(aa::bf16_lo(w), aa::bf16_hi(w));
+}
+
+template <int D, typename TB>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const TB* __restrict__ bias,
+               const float* __restrict__ dout, const float* __restrict__ l,
+               const float* __restrict__ m, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int heads, int t_len,
+               float sm_scale) {
+  using P = PlanDkv<D, TB>;
+  constexpr int LD = P::LD, S = P::kStages, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* khi = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* klo = khi + kBK * LD;
+  uint32_t* vhi = klo + kBK * LD;
+  uint32_t* vlo = vhi + kBK * LD;
+  unsigned char* stages = smem + P::kKV;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = (warp & 3) * 16, qb = (warp >> 2) * 32;
   const int bh = blockIdx.y, h = bh % heads;
   const int batch = gridDim.y / heads;
   const int s0 = blockIdx.x * kBK;
+  const int n_tiles = t_len / kBQ;
   const size_t head = static_cast<size_t>(bh) * t_len * D;
   const size_t rows = (static_cast<size_t>(h) * batch + bh / heads) * t_len;
   const TB* bias_h = bias + static_cast<size_t>(h) * t_len * t_len;
-  const size_t mine = head + static_cast<size_t>(s0 + row) * D + 4 * quarter;
 
-  float4 kr[NV], vr[NV], dka[NV], dva[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    kr[i] = *reinterpret_cast<const float4*>(k + mine + 16 * i);
-    vr[i] = *reinterpret_cast<const float4*>(v + mine + 16 * i);
-    dka[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dva[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int t0 = 0; t0 < t_len; t0 += kBQ) {
-    __syncthreads();
-    load_tile<float, D>(q + head + static_cast<size_t>(t0) * D, qs, D, kBQ, tid, 256);
-    load_tile<float, D>(dout + head + static_cast<size_t>(t0) * D, dos, D, kBQ, tid, 256);
-    load_bias_tile<TB>(bias_h, t_len, s0, t0, bs, tid, 256);
-    if (tid < kBQ) {
-      ms[tid] = m[rows + t0 + tid];
-      ils[tid] = 1.0f / l[rows + t0 + tid];
-      des[tid] = delta[rows + t0 + tid];
+  // query tile n into stage n mod S: q, dO, the bias tile, then m, l, delta
+  auto fetch = [&](int n) {
+    const int t0 = n * kBQ;
+    unsigned char* st = stages + (n % S) * P::kStage;
+    float* qs = reinterpret_cast<float*>(st);
+    async_tile<float, D>(q + head + static_cast<size_t>(t0) * D, qs, LD, tid, kThreadsTc);
+    async_tile<float, D>(dout + head + static_cast<size_t>(t0) * D, qs + kBQ * LD, LD, tid,
+                         kThreadsTc);
+    TB* bs = reinterpret_cast<TB*>(st + P::kQD);
+    constexpr int V = 16 / sizeof(TB), kChunks = kBQ / V;
+    for (int i = tid; i < kBK * kChunks; i += kThreadsTc) {
+      const int r = i / kChunks, c = (i % kChunks) * V;
+      cp_async16(bs + r * kBiasLDS + c, bias_h + static_cast<size_t>(s0 + r) * t_len + t0 + c);
     }
-    __syncthreads();
+    float* rs = reinterpret_cast<float*>(st + P::kQD + P::kBias);
+    if (tid < 3 * kBQ / 4) {
+      const int which = tid / (kBQ / 4), c = (tid % (kBQ / 4)) * 4;
+      const float* src = which == 0 ? m : which == 1 ? l : delta;
+      cp_async16(rs + which * kBQ + c, src + rows + t0 + c);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
 
-    for (int j = 0; j < kBQ; ++j) {
-      const float4* qj = reinterpret_cast<const float4*>(qs + j * D + 4 * quarter);
-      const float4* dj = reinterpret_cast<const float4*>(dos + j * D + 4 * quarter);
-      float ps = 0.f, pd = 0.f;
+  // the block's k and v, split once
+  for (int i = tid; i < kBK * (D / 4); i += kThreadsTc) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const size_t off = head + static_cast<size_t>(s0 + r) * D + c;
+    const float4 a = *reinterpret_cast<const float4*>(k + off);
+    const float4 b = *reinterpret_cast<const float4*>(v + off);
+    const float ka[4] = {a.x, a.y, a.z, a.w}, va[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 a = qj[4 * i], c = dj[4 * i];
-        ps = fmaf(kr[i].x, a.x, ps); ps = fmaf(kr[i].y, a.y, ps);
-        ps = fmaf(kr[i].z, a.z, ps); ps = fmaf(kr[i].w, a.w, ps);
-        pd = fmaf(vr[i].x, c.x, pd); pd = fmaf(vr[i].y, c.y, pd);
-        pd = fmaf(vr[i].z, c.z, pd); pd = fmaf(vr[i].w, c.w, pd);
-      }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      pd += __shfl_xor_sync(0xffffffffu, pd, 1);
-      pd += __shfl_xor_sync(0xffffffffu, pd, 2);
-      const float p = expf(ps * sm_scale + bs[row * kBiasLD + j] - ms[j]) * ils[j];
-      const float ds = p * (pd - des[j]);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 a = qj[4 * i], c = dj[4 * i];
-        dva[i].x = fmaf(p, c.x, dva[i].x); dva[i].y = fmaf(p, c.y, dva[i].y);
-        dva[i].z = fmaf(p, c.z, dva[i].z); dva[i].w = fmaf(p, c.w, dva[i].w);
-        dka[i].x = fmaf(ds, a.x, dka[i].x); dka[i].y = fmaf(ds, a.y, dka[i].y);
-        dka[i].z = fmaf(ds, a.z, dka[i].z); dka[i].w = fmaf(ds, a.w, dka[i].w);
-      }
+    for (int e = 0; e < 4; ++e) {
+      split(ka[e], khi[r * LD + c + e], klo[r * LD + c + e]);
+      split(va[e], vhi[r * LD + c + e], vlo[r * LD + c + e]);
     }
   }
+
+  float dka[ND][4], dva[ND][4];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    *reinterpret_cast<float4*>(dk + mine + 16 * i) =
-        make_float4(dka[i].x * sm_scale, dka[i].y * sm_scale, dka[i].z * sm_scale,
-                    dka[i].w * sm_scale);
-    *reinterpret_cast<float4*>(dv + mine + 16 * i) = dva[i];
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    if constexpr (S == 2) {
+      if (n + 1 < n_tiles) {
+        fetch(n + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      if (n > 0) fetch(n);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* st = stages + (n % S) * P::kStage;
+    const float* qs = reinterpret_cast<const float*>(st);
+    const float* dos = qs + kBQ * LD;
+    const TB* bs = reinterpret_cast<const TB*>(st + P::kQD);
+    const float* rs = reinterpret_cast<const float*>(st + P::kQD + P::kBias);
+
+    // sT = K.Q^T and dpT = V.dO^T: 16 keys x 32 queries per warp
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int ao = (r0 + g) * LD + 8 * kk + tg;
+      const int aoff[4] = {ao, ao + 8 * LD, ao + 4, ao + 8 * LD + 4};
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kh[e] = khi[aoff[e]];
+        kl[e] = klo[aoff[e]];
+        vh[e] = vhi[aoff[e]];
+        vl[e] = vlo[aoff[e]];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int bo = (qb + 8 * j + g) * LD + 8 * kk + tg;
+        mma_3xtf32(s[j], kh, kl, qs[bo], qs[bo + 4]);
+        mma_3xtf32(dp[j], vh, vl, dos[bo], dos[bo + 4]);
+      }
+    }
+    // pT into s, dsT into dp
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = qb + 8 * j + 2 * tg;
+      const float2 b0 = bias_pair(bs, r0 + g, c), b1 = bias_pair(bs, r0 + g + 8, c);
+      const float2 mm = *reinterpret_cast<const float2*>(rs + c);
+      const float2 ll = *reinterpret_cast<const float2*>(rs + kBQ + c);
+      const float2 de = *reinterpret_cast<const float2*>(rs + 2 * kBQ + c);
+      const float il0 = 1.0f / ll.x, il1 = 1.0f / ll.y;
+      s[j][0] = expf(s[j][0] * sm_scale + b0.x - mm.x) * il0;
+      s[j][1] = expf(s[j][1] * sm_scale + b0.y - mm.y) * il1;
+      s[j][2] = expf(s[j][2] * sm_scale + b1.x - mm.x) * il0;
+      s[j][3] = expf(s[j][3] * sm_scale + b1.y - mm.y) * il1;
+      dp[j][0] = s[j][0] * (dp[j][0] - de.x);
+      dp[j][1] = s[j][1] * (dp[j][1] - de.y);
+      dp[j][2] = s[j][2] * (dp[j][2] - de.x);
+      dp[j][3] = s[j][3] * (dp[j][3] - de.y);
+    }
+    // dv += pT.dO and dk += dsT.Q over the warp's 32 queries: C (g, 2 tg |
+    // 2 tg + 1) is A (g, tg | tg + 4), and B row tg | tg + 4 is query 2 tg |
+    // 2 tg + 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split(s[j][0], ph[0], pl[0]);
+      split(s[j][2], ph[1], pl[1]);
+      split(s[j][1], ph[2], pl[2]);
+      split(s[j][3], ph[3], pl[3]);
+      split(dp[j][0], dh[0], dl[0]);
+      split(dp[j][2], dh[1], dl[1]);
+      split(dp[j][1], dh[2], dl[2]);
+      split(dp[j][3], dh[3], dl[3]);
+      const int bo = (qb + 8 * j + 2 * tg) * LD + g;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        mma_3xtf32(dva[d], ph, pl, dos[bo + 8 * d], dos[bo + LD + 8 * d]);
+        mma_3xtf32(dka[d], dh, dl, qs[bo + 8 * d], qs[bo + LD + 8 * d]);
+      }
+    }
+    __syncthreads();                   // the stage is free
+  }
+
+  // query half 1 hands its partials to half 0, which adds them in that order
+  float* red = reinterpret_cast<float*>(stages);         // [dk, dv][64 x kRedLD]
+  constexpr int RL = P::kRedLD;
+  const int o0 = (r0 + g) * RL + 2 * tg, o1 = o0 + 8 * RL;
+  if (qb != 0) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<float2*>(red + o0 + 8 * d) = make_float2(dka[d][0], dka[d][1]);
+      *reinterpret_cast<float2*>(red + o1 + 8 * d) = make_float2(dka[d][2], dka[d][3]);
+      *reinterpret_cast<float2*>(red + kBK * RL + o0 + 8 * d) = make_float2(dva[d][0], dva[d][1]);
+      *reinterpret_cast<float2*>(red + kBK * RL + o1 + 8 * d) = make_float2(dva[d][2], dva[d][3]);
+    }
+  }
+  __syncthreads();
+  if (qb != 0) return;
+  const size_t out0 = head + static_cast<size_t>(s0 + r0 + g) * D + 2 * tg;
+  const size_t out1 = out0 + 8 * D;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const float2 k0 = *reinterpret_cast<const float2*>(red + o0 + 8 * d);
+    const float2 k1 = *reinterpret_cast<const float2*>(red + o1 + 8 * d);
+    const float2 v0 = *reinterpret_cast<const float2*>(red + kBK * RL + o0 + 8 * d);
+    const float2 v1 = *reinterpret_cast<const float2*>(red + kBK * RL + o1 + 8 * d);
+    *reinterpret_cast<float2*>(dk + out0 + 8 * d) =
+        make_float2((dka[d][0] + k0.x) * sm_scale, (dka[d][1] + k0.y) * sm_scale);
+    *reinterpret_cast<float2*>(dk + out1 + 8 * d) =
+        make_float2((dka[d][2] + k1.x) * sm_scale, (dka[d][3] + k1.y) * sm_scale);
+    *reinterpret_cast<float2*>(dv + out0 + 8 * d) =
+        make_float2(dva[d][0] + v0.x, dva[d][1] + v0.y);
+    *reinterpret_cast<float2*>(dv + out1 + 8 * d) =
+        make_float2(dva[d][2] + v1.x, dva[d][3] + v1.y);
   }
 }
 
@@ -287,12 +444,12 @@ int launch_bf16(const Args& a) {
 
 template <int D, typename TB>
 int launch_f32(const Args& a) {
-  constexpr size_t kSmem = (2 * kBQ * D + kBK * kBiasLD + 3 * kBQ) * sizeof(float);
-  auto kernel = flash_dkv_f32<D, TB>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  constexpr int kSmem = PlanDkv<D, TB>::kSmem;
+  auto kernel = flash_dkv_tf32<D, TB>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(a.t_len / kBK, a.b * a.heads), 256, kSmem, a.st>>>(
+  kernel<<<dim3(a.t_len / kBK, a.b * a.heads), kThreadsTc, kSmem, a.st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const TB*>(a.bias),
       static_cast<const float*>(a.dout), a.l, a.m, a.delta, static_cast<float*>(a.dk),

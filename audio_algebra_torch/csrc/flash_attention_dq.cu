@@ -84,62 +84,6 @@ struct Plan {
   static_assert(kChunk >= 1 && kSmem <= kMaxSmem, "K4c's tiles do not fit");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying a (64, D) tile, contiguous rows, into shared memory (row
-// stride D + 8).
-template <typename E, int D>
-__device__ __forceinline__ void async_tile(const E* __restrict__ src, E* dst, int tid) {
-  constexpr int V = 16 / sizeof(E);
-  constexpr int kChunks = D / V;
-  for (int i = tid; i < kBQ * kChunks; i += kThreadsDq) {
-    const int r = i / kChunks, c = (i % kChunks) * V;
-    cp_async16(dst + r * (D + 8) + c, src + static_cast<size_t>(r) * D + c);
-  }
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a.b in 3xTF32, the small cross terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(c, alo, bh0, bh1);
-  mma_tf32(c, ahi, bl0, bl1);
-  mma_tf32(c, ahi, bh0, bh1);
-}
-
 // s[j] = rows r0 .. r0 + 15 of `as` dotted with rows kb + 8 j .. + 7 of
 // `bs` (j < 4: 32 keys), over D. TF32's k index is permuted within each
 // 8-wide step (dims 2 tg, 2 tg + 1 for tg, tg + 4), the same in A and B.
@@ -286,10 +230,11 @@ flash_dq(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__
       const size_t head = (static_cast<size_t>(b0 + n % cc) * heads + h) * t_len * D;
       const size_t s0 = static_cast<size_t>(n / cc) * kBK;
       E* dst = tiles + (n % S) * 4 * kTileElems;
-      async_tile<E, D>(q + head + static_cast<size_t>(t0) * D, dst, tid);
-      async_tile<E, D>(dout + head + static_cast<size_t>(t0) * D, dst + kTileElems, tid);
-      async_tile<E, D>(k + head + s0 * D, dst + 2 * kTileElems, tid);
-      async_tile<E, D>(v + head + s0 * D, dst + 3 * kTileElems, tid);
+      async_tile<E, D>(q + head + static_cast<size_t>(t0) * D, dst, LD, tid, kThreadsDq);
+      async_tile<E, D>(dout + head + static_cast<size_t>(t0) * D, dst + kTileElems, LD, tid,
+                       kThreadsDq);
+      async_tile<E, D>(k + head + s0 * D, dst + 2 * kTileElems, LD, tid, kThreadsDq);
+      async_tile<E, D>(v + head + s0 * D, dst + 3 * kTileElems, LD, tid, kThreadsDq);
       cp_async_commit();
     };
     if constexpr (S == 2) fetch(0);

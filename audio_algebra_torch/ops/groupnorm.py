@@ -9,9 +9,10 @@ groupnorm1_gelu_btc`, on the port's (B, C, T) layout:
                          plus an int8 twin on a given grid (turbo GN_1)
 
 On a CUDA tensor each launches the hand-written CUDA kernel of
-`csrc/groupnorm.cu` (built for sm_90a at first use) or raises; on a CPU
-tensor it takes its plain PyTorch twin (`*_ref`), which computes the same
-function. There is no fallback from the card to a twin.
+`csrc/groupnorm.cu` (built for sm_90a at first use; K2a as one cooperative
+launch over row groups that fit in L2, planned by `quant_plan`) or raises;
+on a CPU tensor it takes its plain PyTorch twin (`*_ref`), which computes
+the same function. There is no fallback from the card to a twin.
 
 K1 is differentiable, as JAX's `groupnorm1_gelu_btc` is: with grad enabled
 and an input that requires grad, the CUDA launch runs inside a
@@ -38,6 +39,9 @@ _MAX_ROW = 1 << 30              # the kernel indexes a row with 32-bit ints
 _MAX_AMAX_C = 12288             # the amax table lives in 48 KB of shared memory
 _THREADS = 256
 _QUANT, _RES_AMAX, _RES_AMAX_Q = 0, 1, 2
+L2_GROUP_BYTES = 32 << 20       # x of one K2a row group: what L2 (50 MB) keeps
+MAX_GROUP_ROWS = 64             # the kernel's (mu, rstd) table of a group
+MAX_QUANT_BLOCKS = 1056         # K2a's grid at most: 132 SMs x 8 blocks of 256 threads
 
 launches = 0
 quant_launches = 0
@@ -151,6 +155,8 @@ def _lib(name: str = "aa_groupnorm1_gelu"):
         if name == "aa_groupnorm1_gelu":
             fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                            cf, ci, vp]
+        elif name == "aa_groupnorm1_quant":
+            fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, vp]
         else:
             fn.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                            ci, ci, ci, cf, ci, vp]
@@ -164,6 +170,18 @@ def _launch_shape(b: int, n: int, vec: int) -> tuple[int, int]:
     n_split = max(1, min(-(-n // (_THREADS * vec * 4)), 1024 // b))
     apply_blocks = max(1, min(-(-n // (_THREADS * vec)), 2048 // b))
     return n_split, apply_blocks
+
+
+def quant_plan(b: int, n: int, esize: int, vec: int) -> tuple[int, int]:
+    """(max_split, group_rows) of K2a's one launch: the rows are taken in
+    groups whose x (n elements of esize bytes a row) fits in
+    L2_GROUP_BYTES, at least one row and at most MAX_GROUP_ROWS; the kernel
+    cuts each row into n_split slices, one to a block of its grid (which
+    the card sets), at most max_split: one vector a thread at least, and
+    MAX_QUANT_BLOCKS a group."""
+    group_rows = max(1, min(b, MAX_GROUP_ROWS, L2_GROUP_BYTES // max(1, n * esize)))
+    max_split = max(1, min(-(-n // (_THREADS * vec)), MAX_QUANT_BLOCKS // group_rows))
+    return max_split, group_rows
 
 
 def gn1_backward(x, scale, bias, dout, gelu: bool, eps: float = 1e-6):
@@ -270,17 +288,26 @@ def _turbo_launch(mode: int, x, scale, bias, residual, q_scale, gelu: bool,
     vec = 16 // x.element_size()
     ptrs = [t.data_ptr() for t in (x, residual, y, y8) if t is not None]
     vec_ok = int(n % vec == 0 and all(p % 16 == 0 for p in ptrs))
-    n_split, apply_blocks = _launch_shape(b, n, vec)
-    partials = torch.empty((b, n_split, 2), dtype=torch.float32, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("aa_groupnorm1_turbo")(
-        _DTYPES[x.dtype], mode, x.data_ptr(), ptr(residual), scale.data_ptr(),
-        bias.data_ptr(), ptr(qinv), ptr(y), ptr(y8), ptr(amax), partials.data_ptr(),
-        b, c, t_len, n_split, apply_blocks, int(gelu), float(eps), vec_ok, stream)
+    if mode == _QUANT:
+        max_split, group_rows = quant_plan(b, n, x.element_size(), vec)
+        partials = torch.empty((b, max_split, 2), dtype=torch.float32, device=x.device)
+        done = torch.empty(-(-b // group_rows), dtype=torch.int32, device=x.device)
+        err = _lib("aa_groupnorm1_quant")(
+            _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(), ptr(qinv),
+            ptr(y8), partials.data_ptr(), done.data_ptr(), b, c, t_len, max_split, group_rows,
+            int(gelu), float(eps), vec_ok, stream)
+    else:
+        n_split, apply_blocks = _launch_shape(b, n, vec)
+        partials = torch.empty((b, n_split, 2), dtype=torch.float32, device=x.device)
+        err = _lib("aa_groupnorm1_turbo")(
+            _DTYPES[x.dtype], mode, x.data_ptr(), ptr(residual), scale.data_ptr(),
+            bias.data_ptr(), ptr(qinv), ptr(y), ptr(y8), ptr(amax), partials.data_ptr(),
+            b, c, t_len, n_split, apply_blocks, int(gelu), float(eps), vec_ok, stream)
     if err != 0:
         raise RuntimeError(f"groupnorm1 turbo kernel launch failed: CUDA error {err}")
     return y, amax, y8

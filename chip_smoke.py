@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
                 decoded in 35 v-DDIM steps; K1 must launch 35 x 191 times
   kernels (K2)  the turbo GroupNorm modes (int8 emit, residual + amax, +
                 int8 twin) against their twins at the turbo decode's level
-                0 and 2 shapes, and the int8 conv against the bf16 cuDNN
+                0 and 2 shapes, each timed beside the twin, the library
+                chain and its byte bound, with the rate it reached (TB/s of
+                the bound's bytes); and the int8 conv against the bf16 cuDNN
                 conv at level 0
   destructo_turbo  the same pipeline at B = 16 x 65536 chunks, decoded in 35
                 steps once in bf16 and once through the turbo int8 route with
@@ -72,11 +74,12 @@ Phases, each printing one JSON line:
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
                 2e-4, the JAX package's) and bf16, at (16, 16, 1024, 64) bf16
                 and at B = 1, each timed beside the twin, SDPA forward /
-                backward and its bound (K4c in f32: 3xTF32 on the tensor
-                cores, and the f32 CUDA-core bound beside it); two K4c
-                launches at (8, 16, 1024, 64) f32 and bf16 give the same
-                bits; and the autograd Functions around K1 and K5: forward
-                through the kernel, backward() against autograd of the twin
+                backward and its bound (K4b and K4c in f32: 3xTF32 on the
+                tensor cores, and the f32 CUDA-core bound beside it); two
+                launches each of K4b and K4c at (8, 16, 1024, 64) f32 and
+                bf16 give the same bits; and the autograd Functions around
+                K1 and K5: forward through the kernel, backward() against
+                autograd of the twin
   train_model   one v_objective_loss forward + backward of the full-width
                 songs UNetCFG1d at (8, 32, 2048) f32 through K4 and K5 and
                 through their twins, from the same weights, noise, t,
@@ -507,6 +510,16 @@ def phase_destructo() -> int:
     return launches
 
 
+def k2_bytes(shape, dtype, mode: str) -> int:
+    """Bytes K2 must move: x (and the residual) read once, each output
+    written once, the (C,) planes."""
+    import torch
+    n, c = math.prod(shape), shape[1]
+    esize = torch.empty((), dtype=dtype).element_size()
+    per = {"quant": esize + 1, "res_amax": 3 * esize, "res_amax_q": 3 * esize + 1}[mode]
+    return n * per + 4 * c * esize
+
+
 def k2_bound(shape, dtype, mode: str) -> tuple[float, str]:
     """Least time for K2: read x (and the residual) once, write each output
     once (int8: 1 byte an element, amax and the (C,) planes negligible
@@ -516,9 +529,8 @@ def k2_bound(shape, dtype, mode: str) -> tuple[float, str]:
     import torch
     n, c = math.prod(shape), shape[1]
     esize = torch.empty((), dtype=dtype).element_size()
-    per = {"quant": esize + 1, "res_amax": 3 * esize, "res_amax_q": 3 * esize + 1}[mode]
     ops = {"quant": 18, "res_amax": 17, "res_amax_q": 20}[mode]
-    t_bytes = (n * per + 4 * c * esize) / HBM_BYTES_PER_S * 1e3
+    t_bytes = k2_bytes(shape, dtype, mode) / HBM_BYTES_PER_S * 1e3
     t_ops = n * ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -598,7 +610,9 @@ def phase_kernels_k2() -> dict:
             del got, want
             big = shape[2] > 16384
             bound_ms, bound_by = k2_bound(shape, dt, mode)
-            row.update({"kernel_ms": cuda_ms(kernel, 20),
+            kernel_ms = cuda_ms(kernel, 20)
+            row.update({"kernel_ms": kernel_ms,
+                        "kernel_tb_s": k2_bytes(shape, dt, mode) / kernel_ms / 1e9,
                         "plain_ms": cuda_ms(plain, 3 if big else 10, warmup=1),
                         "library_ms": cuda_ms(library, 3 if big else 10, warmup=1),
                         "bound_ms": bound_ms, "bound_by": bound_by})
@@ -1150,9 +1164,10 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
     of 2 B H T^2 D operations) at the peak of q's type, whichever is
     larger. Inputs of the backward kernels: q, k, v, do, biasT and the
     three (H, B, T) f32 rows; K4c returns dq and dbT, which is like biasT.
-    In f32, K4c runs its 3 products as 3xTF32 on the tensor cores: its bound
-    is those 9 TF32 products at the dense TF32 peak ("k4c"), and the f32
-    CUDA-core bound stands beside it as "k4c_f32_cuda_cores"."""
+    In f32, K4b and K4c run their products as 3xTF32 on the tensor cores:
+    their bounds are three TF32 passes of each product at the dense TF32
+    peak ("k4b", "k4c"), and the f32 CUDA-core bounds stand beside them as
+    "k4b_f32_cuda_cores" and "k4c_f32_cuda_cores"."""
     import torch
     b, h, t, d = shape
     e = torch.empty((), dtype=dtype).element_size()
@@ -1167,11 +1182,10 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_products * product / peak * 1e3
         out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    if dtype == torch.float32:
-        out["k4c_f32_cuda_cores"] = out["k4c"]
-        t_tf32 = 9 * product / TF32_TC_OPS_PER_S * 1e3
-        t_bytes = (5 * qkv + 2 * bias + 3 * row) / HBM_BYTES_PER_S * 1e3
-        out["k4c"] = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
+        if dtype == torch.float32 and name != "k4a":
+            out[f"{name}_f32_cuda_cores"] = out[name]
+            t_tf32 = 3 * n_products * product / TF32_TC_OPS_PER_S * 1e3
+            out[name] = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
     return out
 
 
@@ -1264,16 +1278,19 @@ def phase_kernels_k4() -> dict:
                 "library_ms": times[kern][2] if kern == "k4a" else bwd_library,
                 "plain_and_library_cover": "K4a" if kern == "k4a" else "K4b + K4c",
                 "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
-                **({"bound_f32_cuda_cores_ms": bounds["k4c_f32_cuda_cores"][0]}
-                   if kern == "k4c" and "k4c_f32_cuda_cores" in bounds else {})})
+                **({"bound_f32_cuda_cores_ms": bounds[f"{kern}_f32_cuda_cores"][0]}
+                   if f"{kern}_f32_cuda_cores" in bounds else {})})
         del q, k, v, do, bias_t, mask, o, l, m, delta, leaves, o_lib
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train", "cases": rows})
+    main = {r["kernel"]: r for r in rows
+            if r["shape"] == [8, 16, 1024, 64] and r["dtype"] == "float32"}
+    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train", "cases": rows,
+          "k4b_f32_under_sdpa_backward": main["k4b"]["kernel_ms"] <= main["k4b"]["library_ms"]})
     failed = [r for r in rows if r["n_outside_tol"]]
     if failed:
         raise AssertionError(f"K4 disagrees with its twin: {failed}")
 
-    # K4c sums dq and d(biasT) in a fixed order: two launches, the same bits
+    # K4b and K4c sum in a fixed order: two launches of each, the same bits
     same = {}
     for dt in (f32, bf16):
         g = torch.Generator(device=dev).manual_seed(530)
@@ -1282,15 +1299,18 @@ def phase_kernels_k4() -> dict:
         bias_t = (torch.randn((16, 1024, 1024), generator=g, device=dev) * 0.5).to(dt)
         o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
         delta = fa.flash_delta(o, do)
-        first = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
-        second = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
-        same[str(dt).removeprefix("torch.")] = all(torch.equal(a, b)
-                                                   for a, b in zip(first, second))
-        del q, k, v, do, bias_t, o, l, m, delta, first, second
-    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train_dq",
+        for kern, fn in (("k4b", fa.flash_attention_relpos_dkv),
+                         ("k4c", fa.flash_attention_relpos_dq)):
+            first = fn(q, k, v, bias_t, do, l, m, delta, 0.125)
+            second = fn(q, k, v, bias_t, do, l, m, delta, 0.125)
+            same[f"{kern}_{str(dt).removeprefix('torch.')}"] = all(
+                torch.equal(a, b) for a, b in zip(first, second))
+            del first, second
+        del q, k, v, do, bias_t, o, l, m, delta
+    emit({"phase": "kernels", "kernel": "flash_attention_relpos_train_dkv_dq",
           "shape": [TRAIN_BATCH, 16, 1024, 64], "bitwise_equal_across_two_runs": same})
     if not all(same.values()):
-        raise AssertionError(f"K4c gave other bits on a second run: {same}")
+        raise AssertionError(f"K4b or K4c gave other bits on a second run: {same}")
 
     # the Functions around K1 and K5: forward through the kernel, backward()
     # against autograd of the twin, relative to each gradient's peak
@@ -1332,9 +1352,7 @@ def phase_kernels_k4() -> dict:
         if not r["has_grad_fn"] or r["launches"] != 1 \
                 or any(not e < 1e-4 for e in r["rel_err"].values()):
             raise AssertionError(f"autograd through the kernel wrapper: {r}")
-    main_rows = {r["kernel"]: r for r in rows
-                 if r["shape"] == [8, 16, 1024, 64] and r["dtype"] == "float32"}
-    return main_rows
+    return main
 
 
 def _k4_k5_counts():
@@ -1598,7 +1616,8 @@ def main() -> int:
               "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"]),
         entry("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:170", train["k4b"], k4["k4b"],
-              plain_and_library_cover="K4b + K4c"),
+              plain_and_library_cover="K4b + K4c",
+              bound_f32_cuda_cores_ms=k4["k4b"]["bound_f32_cuda_cores_ms"]),
         entry("flash_attention_relpos_train_dq", "flash_attention_dq.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:211", train["k4c"], k4["k4c"],
               plain_and_library_cover="K4b + K4c",

@@ -2,8 +2,11 @@
 plain PyTorch twin: K1 (GroupNorm(1) + GELU + residual) and K2 (its turbo
 int8 modes) at the UNet's shapes and a ragged one, K3 (rel-pos flash
 attention) and K5 (grouped GroupNorm + FiLM + SiLU) at the MIRAGE UNet's
-shapes; K4 (the differentiable flash attention: forward with residuals,
-dK/dV, dQ and d-bias) at the trainer's shapes and batch sizes 1 to 16; the
+shapes, K2a also over its L2 row groups (a short last group, a row
+above the group's budget, channels changing inside a vector); K4 (the
+differentiable flash attention: forward with residuals, dK/dV, dQ and
+d-bias) at the trainer's shapes and batch sizes 1 to 16, K4b and K4c each
+alone with a same-bits check of two launches; the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
@@ -142,6 +145,37 @@ def test_turbo_gn_matches_twin_on_card(cuda_device, shape, dtype, mode):
     torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-5)
     if q is not None:
         _int8_close(got[2], want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 256, 65536), torch.bfloat16),      # the decode's level 0 at B = 1: one group
+    ((16, 256, 65536), torch.bfloat16),     # level 0 at B = 16: 16 groups of one row
+    ((5, 512, 16384), torch.bfloat16),      # groups of 2 rows, 5 rows: a short last group
+    ((17, 1024, 4096), torch.bfloat16),     # groups of 4 rows, 17 rows
+    ((3, 256, 65536), torch.float32),       # a row larger than a group's L2 budget
+    ((4, 128, 1001), torch.bfloat16),       # t_len % 8 != 0: channels change inside a vector
+    ((3, 64, 4100), torch.float32),         # t_len % 4 == 0 but % 8 != 0
+    ((2, 3, 1001), torch.bfloat16),         # n % 8 != 0: the element path
+])
+@pytest.mark.parametrize("gelu", [True, False])
+def test_turbo_quant_matches_twin_on_card(cuda_device, shape, dtype, gelu):
+    """K2a's one cooperative launch over L2 row groups against its twin:
+    int8 within 1 LSB on at most 0.1 % of elements; and the same bits on a
+    second launch (the statistics are summed in a fixed order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 1.5 + 0.2).to(dtype)
+    scale = (torch.rand(c, generator=g, device=cuda_device) + 0.5).to(dtype)
+    bias = (torch.rand(c, generator=g, device=cuda_device) - 0.5).to(dtype)
+    grid = torch.rand(c, generator=g, device=cuda_device) * 0.06 + 0.02
+    before = gn.quant_launches
+    got = gn.groupnorm1_gelu_quant(x, scale, bias, grid, gelu)
+    again = gn.groupnorm1_gelu_quant(x, scale, bias, grid, gelu)
+    torch.cuda.synchronize()
+    assert gn.quant_launches == before + 2 and got.dtype == torch.int8
+    _int8_close(got, gn.groupnorm1_gelu_quant_ref(x, scale, bias, grid, gelu))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -335,6 +369,48 @@ def test_flash_dq_kernel_gives_the_same_bits_every_run(cuda_device, dtype):
     delta = fa.flash_delta(o, do)
     first = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
     second = fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 1024, 64), (8, 16, 512, 64), (16, 16, 1024, 64),
+                                   (1, 16, 1024, 64), (2, 2, 64, 64), (3, 5, 512, 64),
+                                   (7, 3, 256, 32), (16, 2, 512, 16), (2, 2, 512, 128)])
+@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+def test_flash_dkv_kernel_matches_twin_on_card(cuda_device, shape, dtype, bias_dtype):
+    """K4b alone, (dk, dv) against the twin from the same residuals: the
+    trainer's shapes (the kernels_k4 phase of chip_smoke.py), T = 64 (one
+    query tile), B.H = 15 and 21 (not multiples of the 132 SMs), and every
+    head dim (one cp.async stage at D = 128 in f32, two below)."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, bias_dtype, 40 + shape[2])
+    scale = shape[3] ** -0.5
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+    delta = fa.flash_delta(o, do)
+    before = fa.dkv_launches
+    dk, dv = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, scale)
+    torch.cuda.synchronize()
+    assert fa.dkv_launches == before + 1
+    _, want_dk, want_dv, _ = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do,
+                                                               scale)
+    assert dk.dtype == want_dk.dtype and dv.dtype == want_dv.dtype
+    torch.testing.assert_close(dk.float(), want_dk.float(), **K4_TOL[dtype])
+    torch.testing.assert_close(dv.float(), want_dv.float(), **K4_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+def test_flash_dkv_kernel_gives_the_same_bits_every_run(cuda_device, dtype, bias_dtype):
+    """K4b sums in a fixed order (no atomics; the query halves of a key
+    tile add in one order): two launches, equal bits."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, (5, 3, 1024, 64), dtype, bias_dtype, 15)
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    delta = fa.flash_delta(o, do)
+    first = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+    second = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
