@@ -1,6 +1,6 @@
 // Blocked (flash) self-attention with an additive rel-pos bias, forward,
 // for Hopper (sm_90a): kernels K3 (serving) and K4a (training, with the
-// softmax residuals) of the port, one kernel with optional outputs.
+// softmax residuals) of the port.
 //
 // Replaces: audio_algebra_tpu/ops/pallas/flash_attention.py:
 // flash_attention_relpos and the forward of flash_attention_relpos_train
@@ -16,29 +16,33 @@
 // l of every query are also written, as f32 (H, B, T): what the backward
 // kernels recompute the probabilities from.
 //
-// Design: one block per (batch*head, 64-query tile) with a loop over 64-key
-// tiles. The K, V and bias tiles are staged in shared memory; the online
-// softmax state and the output accumulator stay in registers, so no score
-// ever goes to device memory. The bias tile biasT[h, s0:s0+64, t0:t0+64]
-// is contiguous along t: it is loaded coalesced and read transposed from a
-// padded f32 tile. Every block reads the bias of its own (batch, head), so
-// the bias is read once per batch row (B times in all), not once for all.
+// Two designs. flash_serve_bf16 (K3 in bf16, the serving route; its own
+// comment below): a block serves every batch row of its (query tile,
+// head), so each bias tile is read once for all of them, with a cp.async
+// ring, ldmatrix fragments and a base-2 softmax. flash_fwd_bf16 / _f32
+// (K4a in both dtypes, K3 in f32): one block per (batch*head, 64-query
+// tile) with a loop over 64-key tiles; the K, V and bias tiles staged in
+// shared memory, the bias read transposed from a padded f32 tile, once per
+// batch row.
 //   bf16: four warps, 16 query rows each; Q.K^T and P.V on the tensor cores
 //         through mma.sync m16n8k16 (bf16 in, f32 accumulate). The score
 //         fragments are re-packed in registers as the A operand of P.V.
 //   f32:  CUDA-core FMA, four threads per query row each holding D/4 of its
 //         dims, so that f32 results agree with the plain version to 1e-4.
+// In both the online softmax state and the output accumulator stay in
+// registers: no score goes to device memory.
 //
 // Bound: HBM bytes at the main path's shapes. The least traffic is one read
 // of q, k, v and the bias and one write of o: 50.3 MB at (2, 16, 1024, 64)
 // bf16 with a bf16 bias, 15.0 us on an H100 SXM, against 8.7 us for its
-// 8.6 GFLOP at the bf16 tensor-core peak. This kernel reads the bias once
-// per batch row (33.6 MB more at that shape) and K, V once per query tile
-// (mostly from L2), and is not yet pipelined (no cp.async or TMA, no wgmma).
+// 8.6 GFLOP at the bf16 tensor-core peak and ~9 us for its 33.5 M
+// exponentials on the MUFU pipe. The serving kernel moves those bytes but
+// K and V once per query tile (from L2); it runs at ~29 % of the bound
+// with one 256-thread block an SM (PERF.md, PR 8).
 //
-// C interface (bound with ctypes): aa_flash_attention_relpos launches one
-// kernel on the given stream, allocates nothing, does not synchronise, and
-// returns cudaGetLastError().
+// C interface (bound with ctypes): aa_flash_attention_relpos and
+// aa_flash_serve_bf16 launch one kernel on the given stream, allocate
+// nothing, do not synchronise, and return cudaGetLastError().
 
 #include "flash_common.cuh"
 
@@ -183,6 +187,285 @@ flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16 serving (K3) ---
+// One block per (query tile of BQ = 64 MT rows, head h, group of NB batch
+// rows): four warps a batch row, warp w serving batch row w / 4 of the
+// group and MT m-tiles of 16 query rows from 16 MT (w % 4). Every key tile
+// of the (H, S, T) bias is copied from device memory ONCE for the NB batch
+// rows that use it. K, V and bias tiles arrive by cp.async into a ring of
+// ST stages (2, or 3 with one barrier a key tile): the next key tile is in
+// flight while the tensor cores work on this one. The bias stays in its own dtype in shared memory. Q and K
+// fragments load by ldmatrix, V's B fragments by ldmatrix.trans (each K
+// and V fragment serves the warp's MT m-tiles), a bf16 bias's by
+// ldmatrix.trans (each register is the pair of scores it is added to).
+// The softmax runs in base 2: log2 e is folded into sm_scale and into the
+// bias as it is read, and the exponentials are ex2.approx. Q's fragments
+// are reloaded from shared memory each key tile: at MT = 1 that keeps a
+// thread at 128 registers, so that an SM holds two 256-thread blocks.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// 2^x in one MUFU instruction (flush to zero below 2^-126).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// (lo, hi) rounded to bf16 and packed in one cvt.rn.bf16x2.f32.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int D, typename TB, int MT, int NB, int ST = 2>
+struct ServeTiles {
+  static constexpr int BQ = 64 * MT;                     // query rows of a block
+  static constexpr int LD = D + 8;                       // bf16 row stride of Q, K, V
+  static constexpr int LDB = BQ + 16 / sizeof(TB);       // bias row stride, 16 bytes of pad
+  static constexpr int kQ = NB * BQ * LD;                // uint16 elements
+  static constexpr int kKV = NB * kBK * LD;
+  static constexpr size_t kBiasBytes = static_cast<size_t>(kBK) * LDB * sizeof(TB);
+  static constexpr size_t kStage = 2 * kKV * sizeof(uint16_t) + kBiasBytes;
+  static constexpr size_t kSmem = kQ * sizeof(uint16_t) + ST * kStage;
+  static constexpr int kThreads = NB * 4 * 32;           // four warps a batch row
+  // blocks an SM should hold (ptxas keeps a thread's registers to 65536 /
+  // (this x kThreads)): at one m-tile a warp, 2 x 256 threads at NB = 2,
+  // whose shared memory fits twice; at two, one block with the registers
+  static constexpr int kMinBlocks = MT == 2 ? 1 : kThreads <= 128 ? 3 : kThreads <= 256 ? 2 : 1;
+};
+
+template <int D, typename TB, int MT, int NB, int ST>
+__global__ void __launch_bounds__(ServeTiles<D, TB, MT, NB, ST>::kThreads,
+                                  ServeTiles<D, TB, MT, NB, ST>::kMinBlocks)
+flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                 const uint16_t* __restrict__ v, const TB* __restrict__ bias,
+                 uint16_t* __restrict__ o, int batch, int heads, int t_len, float sm_scale) {
+  using L = ServeTiles<D, TB, MT, NB, ST>;
+  constexpr int BQ = L::BQ, LD = L::LD, LDB = L::LDB, NT = L::kThreads;
+  constexpr int KD = D / 16;         // k-steps of Q.K^T
+  constexpr int ND = D / 8;          // 8-wide dim tiles of the output
+  constexpr int NK = kBK / 8;        // 8-wide key tiles of the scores
+  constexpr int CD = D / 8;          // 16-byte chunks of a Q / K / V row
+  constexpr int CB = BQ * static_cast<int>(sizeof(TB)) / 16;   // ... of a bias row
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);
+  unsigned char* stages = smem + L::kQ * sizeof(uint16_t);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int slot = warp / 4, r0 = (warp % 4) * 16 * MT;   // batch row; first query row
+  const int h = blockIdx.y, t0 = blockIdx.x * BQ, b0 = blockIdx.z * NB;
+  const int nb = min(NB, batch - b0);                      // batch rows of this group
+  const bool active = slot < nb;
+  const TB* bias_h = bias + static_cast<size_t>(h) * t_len * t_len;
+  auto head = [&](int s) {                                  // (b0 + s, h) offset
+    return (static_cast<size_t>(b0 + s) * heads + h) * t_len * D;
+  };
+
+  // Q of the group's rows, then each key tile's K, V (per batch row) and
+  // bias (once), all by cp.async.
+  for (int i = tid; i < nb * BQ * CD; i += NT) {
+    const int s = i / (BQ * CD), r = (i / CD) % BQ, c = (i % CD) * 8;
+    cp_async16(qs + (s * BQ + r) * LD + c, q + head(s) + static_cast<size_t>(t0 + r) * D + c);
+  }
+  auto issue = [&](int stage, int s0) {
+    uint16_t* ks = reinterpret_cast<uint16_t*>(stages + stage * L::kStage);
+    uint16_t* vs = ks + L::kKV;
+    TB* bs = reinterpret_cast<TB*>(vs + L::kKV);
+    for (int i = tid; i < nb * kBK * CD; i += NT) {
+      const int s = i / (kBK * CD), r = (i / CD) % kBK, c = (i % CD) * 8;
+      const size_t src = head(s) + static_cast<size_t>(s0 + r) * D + c;
+      cp_async16(ks + (s * kBK + r) * LD + c, k + src);
+      cp_async16(vs + (s * kBK + r) * LD + c, v + src);
+    }
+    constexpr int E = 16 / sizeof(TB);
+    for (int i = tid; i < kBK * CB; i += NT) {
+      const int r = i / CB, c = (i % CB) * E;
+      cp_async16(bs + r * LDB + c, bias_h + static_cast<size_t>(s0 + r) * t_len + t0 + c);
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+
+  float acc[MT][ND][4];
+  float mrow[MT][2], lrow[MT][2];    // rows g and g + 8 of each m-tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) acc[mt][d][0] = acc[mt][d][1] = acc[mt][d][2] = acc[mt][d][3] = 0.f;
+    mrow[mt][0] = mrow[mt][1] = kNegInf;
+    lrow[mt][0] = lrow[mt][1] = 0.f;
+  }
+  const float scale2 = sm_scale * kLog2e;
+  const int n_tiles = t_len / kBK;
+  // ldmatrix lane roles: rows lane & 7 of the four 8 x 8 matrices
+  const int lr = lane & 7, lhi = (lane >> 4) & 1, lmid = (lane >> 3) & 1;
+
+  if (ST == 3 && n_tiles > 1) issue(1, kBK);
+  for (int it = 0; it < n_tiles; ++it) {
+    if constexpr (ST == 2) {
+      if (it + 1 < n_tiles) {
+        issue((it + 1) & 1, (it + 1) * kBK);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    } else {                         // one barrier a tile: it also frees stage (it + 2) % 3
+      if (it + 1 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+      if (it + 2 < n_tiles) issue((it + 2) % 3, (it + 2) * kBK);
+    }
+    const int stage = ST == 2 ? (it & 1) : it % 3;
+    if (active) {
+      const uint16_t* ks = reinterpret_cast<const uint16_t*>(stages + stage * L::kStage)
+                           + slot * kBK * LD;
+      const uint16_t* vs = ks + L::kKV;
+      const TB* bs = reinterpret_cast<const TB*>(
+          reinterpret_cast<const uint16_t*>(stages + stage * L::kStage) + 2 * L::kKV);
+      float s[MT][NK][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NK; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qf[MT][4];          // Q stays in shared memory: registers for occupancy
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(qf[mt], qs + (slot * BQ + r0 + 16 * mt + lr + 8 * lmid) * LD + 16 * kk
+                              + 8 * lhi);
+#pragma unroll
+        for (int jp = 0; jp < NK / 2; ++jp) {
+          uint32_t kb[4];            // one K fragment for every m-tile
+          ldsm_x4(kb, ks + (16 * jp + lr + 8 * lhi) * LD + 16 * kk + 8 * lmid);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * jp], qf[mt], kb[0], kb[1]);
+            mma_bf16(s[mt][2 * jp + 1], qf[mt], kb[2], kb[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rq = r0 + 16 * mt;   // this m-tile's first query row in the block
+        // scores in base 2, with the bias tile biasT[h, s0 + key, t0 + query]
+        if constexpr (sizeof(TB) == 2) {
+          const uint16_t* b16 = reinterpret_cast<const uint16_t*>(bs);
+#pragma unroll
+          for (int jp = 0; jp < NK / 2; ++jp) {
+            uint32_t bb[4];
+            ldsm_x4_t(bb, b16 + (16 * jp + lr + 8 * lhi) * LDB + rq + 8 * lmid);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float* sj = s[mt][2 * jp + e];
+              sj[0] = fmaf(sj[0], scale2, aa::bf16_lo(bb[2 * e]) * kLog2e);
+              sj[1] = fmaf(sj[1], scale2, aa::bf16_hi(bb[2 * e]) * kLog2e);
+              sj[2] = fmaf(sj[2], scale2, aa::bf16_lo(bb[2 * e + 1]) * kLog2e);
+              sj[3] = fmaf(sj[3], scale2, aa::bf16_hi(bb[2 * e + 1]) * kLog2e);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NK; ++j) {
+            const float* b = reinterpret_cast<const float*>(bs) + (8 * j + 2 * tg) * LDB + rq + g;
+            s[mt][j][0] = fmaf(s[mt][j][0], scale2, b[0] * kLog2e);
+            s[mt][j][1] = fmaf(s[mt][j][1], scale2, b[LDB] * kLog2e);
+            s[mt][j][2] = fmaf(s[mt][j][2], scale2, b[8] * kLog2e);
+            s[mt][j][3] = fmaf(s[mt][j][3], scale2, b[LDB + 8] * kLog2e);
+          }
+        }
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(mrow[mt][0], mx0), mn1 = fmaxf(mrow[mt][1], mx1);
+        const float al0 = exp2_ftz(mrow[mt][0] - mn0), al1 = exp2_ftz(mrow[mt][1] - mn1);
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          s[mt][j][0] = exp2_ftz(s[mt][j][0] - mn0);
+          s[mt][j][1] = exp2_ftz(s[mt][j][1] - mn0);
+          s[mt][j][2] = exp2_ftz(s[mt][j][2] - mn1);
+          s[mt][j][3] = exp2_ftz(s[mt][j][3] - mn1);
+          ps0 += s[mt][j][0] + s[mt][j][1];
+          ps1 += s[mt][j][2] + s[mt][j][3];
+        }
+        lrow[mt][0] = lrow[mt][0] * al0 + ps0;   // this thread's share of the row sums
+        lrow[mt][1] = lrow[mt][1] * al1 + ps1;
+        mrow[mt][0] = mn0;
+        mrow[mt][1] = mn1;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          acc[mt][d][0] *= al0; acc[mt][d][1] *= al0;
+          acc[mt][d][2] *= al1; acc[mt][d][3] *= al1;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = pack_bf16x2(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          pa[mt][1] = pack_bf16x2(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          pa[mt][2] = pack_bf16x2(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][3] = pack_bf16x2(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t vb[4];            // one V fragment for every m-tile
+          ldsm_x4_t(vb, vs + (16 * kk + lr + 8 * lmid) * LD + 16 * dp + 8 * lhi);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
+            mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    if constexpr (ST == 2) __syncthreads();   // this stage is free for the copy after next
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = lrow[mt][0], l1 = lrow[mt][1];
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    uint16_t* o0 = o + head(slot) + static_cast<size_t>(t0 + r0 + 16 * mt + g) * D + 2 * tg;
+    uint16_t* o1 = o0 + 8 * D;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<uint32_t*>(o0 + 8 * d) =
+          pack_bf16x2(acc[mt][d][0] / l0, acc[mt][d][1] / l0);
+      *reinterpret_cast<uint32_t*>(o1 + 8 * d) =
+          pack_bf16x2(acc[mt][d][2] / l1, acc[mt][d][3] / l1);
+    }
+  }
+}
+
 // ----------------------------------------------------------------- f32 ---
 // 256 threads: query row tid / 4 of the tile, dims quarter + 4 i of it.
 template <int D, typename TB>
@@ -278,6 +561,76 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// Two m-tiles a warp run one block an SM, so they take a third stage
+// where it fits the block's shared memory (one barrier a key tile); one
+// m-tile keeps two stages and two blocks an SM.
+template <int D, typename TB, int MT, int NB,
+          int ST = MT == 2 && ServeTiles<D, TB, MT, NB, 3>::kSmem <= 227 * 1024 ? 3 : 2>
+int launch_serve(const void* q, const void* k, const void* v, const void* bias, void* o,
+                 int b, int heads, int t_len, float sm_scale, cudaStream_t st) {
+  using L = ServeTiles<D, TB, MT, NB, ST>;
+  auto kernel = flash_serve_bf16<D, TB, MT, NB, ST>;
+  static bool configured = false;    // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  kernel<<<dim3(t_len / L::BQ, heads, (b + NB - 1) / NB), L::kThreads, L::kSmem, st>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<const TB*>(bias),
+      static_cast<uint16_t*>(o), b, heads, t_len, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The SMs of the current device, read once.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// The query tile when the caller leaves it to the kernel (bq = 0): 128
+// rows (two m-tiles a warp, one 256-thread block an SM) where D <= 64 and
+// B <= 2, unless that grid's last wave would leave more than a quarter of
+// the SMs idle; else 64 (two blocks an SM). Measured on an H100 (PERF.md,
+// PR 8): 128 rows 10 % faster at T = 1024 and 3072, 12 % slower at 1536.
+template <int D>
+int pick_query_tile(int b, int heads, int t_len) {
+  if (D > 64 || b > 2 || t_len % 128 != 0) return 64;
+  const int sms = sm_count();
+  const int tail = (t_len / 128) * heads % sms;
+  return tail == 0 || 4 * tail >= 3 * sms ? 128 : 64;
+}
+
+// The batch rows a block serves: all of them up to 4 (2 at D = 128, where
+// four rows' tiles do not fit a block's shared memory and registers).
+template <int D, typename TB>
+int dispatch_serve(const void* q, const void* k, const void* v, const void* bias, void* o,
+                   int b, int heads, int t_len, float sm_scale, int bq, cudaStream_t st) {
+  if (bq == 0) bq = pick_query_tile<D>(b, heads, t_len);
+  if (bq == 128) {
+    if constexpr (D <= 64) {
+      if (b == 1) return launch_serve<D, TB, 2, 1>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+      if (b == 2) return launch_serve<D, TB, 2, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 1) return launch_serve<D, TB, 1, 1>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+  if constexpr (D == 128) {
+    return launch_serve<D, TB, 1, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+  } else {
+    if (b == 2)
+      return launch_serve<D, TB, 1, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+    return launch_serve<D, TB, 1, 4>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
+  }
+}
+
 template <int D, typename TB>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
                float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
@@ -340,4 +693,36 @@ extern "C" int aa_flash_attention_relpos(int dtype, int bias_dtype, const void* 
     return dispatch<__nv_bfloat16>(dtype, d, q, k, v, bias, o, lo, mo, b, heads, t_len,
                                    sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3, the bf16 serving route: q, k, v, o contiguous bf16 (B, H, T, D),
+// 16-byte aligned; bias (H, T, T) transposed, bias_dtype 0 = float32, 1 =
+// bfloat16. T a multiple of 64 (of bq), D one of 16, 32, 64, 128; bq the
+// query tile: 0 lets the kernel choose (pick_query_tile), else 64, or 128
+// at D <= 64 and B <= 2. Returns cudaGetLastError().
+extern "C" int aa_flash_serve_bf16(int bias_dtype, const void* q, const void* k,
+                                   const void* v, const void* bias, void* o, int b,
+                                   int heads, int t_len, int d, float sm_scale, int bq,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((bias_dtype != 0 && bias_dtype != 1) || (bq != 0 && bq != 64 && bq != 128) ||
+      t_len % (bq ? bq : 64) != 0 ||
+      b < 1 || heads < 1 || heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define AA_SERVE_D(DV)                                                                  \
+  case DV:                                                                              \
+    return bias_dtype == 1                                                              \
+               ? dispatch_serve<DV, __nv_bfloat16>(q, k, v, bias, o, b, heads, t_len,   \
+                                                   sm_scale, bq, st)                    \
+               : dispatch_serve<DV, float>(q, k, v, bias, o, b, heads, t_len,           \
+                                           sm_scale, bq, st);
+  switch (d) {
+    AA_SERVE_D(16)
+    AA_SERVE_D(32)
+    AA_SERVE_D(64)
+    AA_SERVE_D(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef AA_SERVE_D
 }

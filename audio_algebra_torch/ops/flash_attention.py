@@ -10,9 +10,11 @@ scores and softmax statistics and P cast to v's dtype before P·V.
 
 `flash_attention_relpos_train` is the port of `flash_attention_relpos_train`
 there, a `torch.autograd.Function` of three kernels: the forward with its
-residuals (K4a: the same CUDA kernel as K3, also writing the final row max
-m and normaliser l, f32 (H, B, T)), dK/dV (K4b) and dQ with d(biasT) summed
-over the batch (K4c). delta = Σ_d do·o is a plain reduction, as in JAX.
+residuals (K4a: the per-(batch, head) forward kernel that K3 also takes in
+f32, writing the final row max m and normaliser l, f32 (H, B, T)), dK/dV
+(K4b) and dQ with d(biasT) summed over the batch (K4c). K3 in bf16 takes
+the serving kernel, whose blocks serve every batch row so that each bias
+tile is read once. delta = Σ_d do·o is a plain reduction, as in JAX.
 
 On a CUDA tensor each launches the hand-written CUDA kernels of
 `csrc/flash_attention*.cu` (built for sm_90a at first use) or raises; on a
@@ -28,7 +30,7 @@ import ctypes
 
 import torch
 
-from .groupnorm import _DTYPES, refuse_grad
+from .groupnorm import _DTYPES, refuse_grad, stream_handle
 
 SOURCE = "flash_attention.cu"
 SOURCE_DKV = "flash_attention_dkv.cu"
@@ -136,6 +138,7 @@ _ARGTYPES = {
     "aa_flash_attention_relpos": "iipppppppiiiifp",
     "aa_flash_attention_dkv": "iippppppppppiiiifp",
     "aa_flash_attention_dq": "iippppppppppiiiifp",
+    "aa_flash_serve_bf16": "ipppppiiiifip",
 }
 
 
@@ -169,20 +172,39 @@ def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool):
     return o, l, m
 
 
+def _serve_cuda(q, k, v, biasT, sm_scale: float, bq: int = 0):
+    """Launch K3's bf16 serving kernel (each bias tile read once for all
+    batch rows); `bq` the query tile: 0 lets the kernel choose by shape,
+    64, or 128 at D <= 64 and B <= 2."""
+    b, h, t, d = q.shape
+    o = torch.empty_like(q)
+    _check_cuda(q, biasT, k, v, o)
+    err = _lib(SOURCE, "aa_flash_serve_bf16")(
+        _DTYPES[biasT.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), biasT.data_ptr(),
+        o.data_ptr(), b, h, t, d, float(sm_scale), bq, stream_handle(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_relpos kernel launch failed: CUDA error {err}")
+    return o
+
+
 def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            biasT: torch.Tensor, sm_scale: float = 1.0) -> torch.Tensor:
     """softmax(q·kᵀ·sm_scale + bias)·v for (B, H, T, D) q, k, v and the
     transposed (H, S, T) bias, in q's dtype: kernel K3, forward only. CPU
     tensors take the plain twin; CUDA tensors launch the CUDA kernel (T a
-    multiple of 64, D one of 16, 32, 64, 128) and must not require grad
-    (`flash_attention_relpos_train` is the differentiable one)."""
+    multiple of 64, D one of 16, 32, 64, 128; bf16 q, k, v take the serving
+    kernel, f32 ones K4a's forward without its residuals) and must not
+    require grad (`flash_attention_relpos_train` is the differentiable one)."""
     global launches
     _check(q, k, v, biasT)
     if q.device.type == "cpu":
         return flash_attention_relpos_ref(q, k, v, biasT, sm_scale)
     refuse_grad("flash_attention_relpos (K3, forward only; use "
                 "flash_attention_relpos_train)", q, k, v, biasT)
-    o, _, _ = _forward_cuda(q, k, v, biasT, sm_scale, residuals=False)
+    if q.dtype == torch.bfloat16:
+        o = _serve_cuda(q, k, v, biasT, sm_scale)
+    else:
+        o, _, _ = _forward_cuda(q, k, v, biasT, sm_scale, residuals=False)
     launches += 1
     return o
 

@@ -49,6 +49,13 @@ amax_launches = 0
 amax_q_launches = 0
 
 
+# The current CUDA stream of a device index as an int: torch's raw accessor
+# (a fraction of a microsecond, against several for the Stream object) where
+# the build has it.
+stream_handle = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda device: torch.cuda.current_stream(device).cuda_stream)
+
+
 def wants_grad(*tensors) -> bool:
     """True when grad is enabled and one of the tensors (None allowed)
     requires grad: a kernel's raw-pointer launch must then run inside an

@@ -11,7 +11,17 @@ always takes this fused route (the JAX package gates it behind
 AA_LDM_GN=1). On a CUDA tensor it launches the hand-written CUDA kernel of
 `csrc/grouped_gn.cu` (built for sm_90a at first use) or raises; on a CPU
 tensor it takes the plain PyTorch twin `grouped_gn_film_silu_ref`, which
-computes the same function. `launches` counts the kernel's launches.
+computes the same function.
+
+The kernel has two routes, chosen by shape in `ggn_plan`: the cluster
+route (one launch, a (batch, group) row to a thread-block cluster whose
+CTAs hold their slices of the row in shared memory, so x is read once)
+for every row whose slice fits a CTA at 16 CTAs or fewer, and the
+two-pass route (statistics, then apply) for longer rows. `launches`
+counts every call's launch, `cluster_launches` and `two_pass_launches`
+each route's. The host path is cut to one output allocation, a plan and
+its C argument array cached by shape, the raw stream handle and one
+ctypes call.
 
 It is differentiable: with grad enabled and an input that requires grad,
 the CUDA launch runs inside a `torch.autograd.Function` whose backward
@@ -23,14 +33,20 @@ differentiates; no TPU backward kernel exists to port.)
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from .groupnorm import _DTYPES, _MAX_ROW, _launch_shape, wants_grad
+from .groupnorm import _DTYPES, _MAX_ROW, _launch_shape, stream_handle, wants_grad
 
 SOURCE = "grouped_gn.cu"
+SMEM_BUDGET = 225 * 1024          # dynamic shared memory a CTA may take (grouped_gn.cu)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is Hopper's non-portable cluster size
+TARGET_SLICE_BYTES = 16 << 10     # cut rows into slices of about this size (PERF.md, PR 8)
 
-launches = 0
+launches = 0                      # both routes
+cluster_launches = 0
+two_pass_launches = 0
 
 
 def grouped_gn_film_silu_ref(x, scale, bias, groups: int, film_scale=None,
@@ -63,38 +79,107 @@ def grouped_gn_film_silu_ref(x, scale, bias, groups: int, film_scale=None,
 
 
 def _check(x, scale, bias, groups, film_scale, film_shift):
-    if x.dim() != 3:
-        raise ValueError(f"grouped_gn_film_silu wants (B, C, T), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"grouped_gn_film_silu supports float32/bfloat16, got {x.dtype}")
-    b, c, _ = x.shape
+    """Raise on what K5 and its twin do not take. Each tensor's device is
+    read once, as an index (-1 on the CPU): a call reads few attributes."""
+    shape = x.shape
+    if len(shape) != 3:
+        raise ValueError(f"grouped_gn_film_silu wants (B, C, T), got {tuple(shape)}")
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"grouped_gn_film_silu supports float32/bfloat16, got {dt}")
+    b, c, _ = shape
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
+    dev = x.get_device()
     for name, p in (("scale", scale), ("bias", bias)):
-        if p.shape != (c,) or p.dtype != x.dtype or p.device != x.device \
+        if p.shape != (c,) or p.dtype is not dt or p.get_device() != dev \
                 or not p.is_contiguous():
-            raise ValueError(f"{name} must be contiguous ({c},) {x.dtype} on {x.device}, "
+            raise ValueError(f"{name} must be contiguous ({c},) {dt} on {x.device}, "
                              f"got {tuple(p.shape)} {p.dtype} on {p.device}")
-    for name, p in (("film_scale", film_scale), ("film_shift", film_shift)):
-        if p is not None and (p.shape != (b, c) or p.dtype != x.dtype
-                              or p.device != x.device or p.stride(1) != 1):
-            raise ValueError(f"{name} must be ({b}, {c}) {x.dtype} on {x.device} "
-                             f"with unit channel stride")
-    if film_scale is not None and film_shift is not None \
-            and film_scale.stride(0) != film_shift.stride(0):
-        raise ValueError("film_scale and film_shift must share a row stride")
+    if film_scale is not None or film_shift is not None:
+        rows = []
+        for name, p in (("film_scale", film_scale), ("film_shift", film_shift)):
+            if p is None:
+                continue
+            if p.shape != (b, c) or p.dtype is not dt or p.get_device() != dev \
+                    or p.stride(1) != 1:
+                raise ValueError(f"{name} must be ({b}, {c}) {dt} on {x.device} "
+                                 f"with unit channel stride")
+            rows.append(p.stride(0))
+        if len(rows) == 2 and rows[0] != rows[1]:
+            raise ValueError("film_scale and film_shift must share a row stride")
     if not x.is_contiguous():
         raise ValueError("grouped_gn_film_silu wants a contiguous x")
 
 
-def _lib():
-    from ._build import load
-    fn = load(SOURCE).aa_grouped_gn_film_silu
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, ci, vp]
-        fn.restype = ci
+class GGNPlan(NamedTuple):
+    """How K5 runs one shape: `route` "cluster" (one launch, a row to a
+    cluster of `cs` CTAs of `threads` threads, each holding `per` elements
+    of it in `smem` bytes of dynamic shared memory) or "two_pass" (the
+    statistics and apply launches, `n_split` and `apply_blocks` blocks a
+    row)."""
+    route: str
+    cs: int = 0
+    threads: int = 0
+    per: int = 0
+    smem: int = 0
+    n_split: int = 0
+    apply_blocks: int = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def cluster_plan(n: int, cg: int, t_len: int, esize: int, cs: int) -> GGNPlan | None:
+    """The cluster route at cluster size cs for rows of n elements (cg
+    channels of t_len), or None when a CTA's slice and its channels'
+    parameters and planes would not fit SMEM_BUDGET."""
+    per = _round_up(-(-n // cs), 16 // esize)
+    smem = _round_up(per * esize, 16) + 24 * min(cg, per // t_len + 2)
+    if smem > SMEM_BUDGET:
+        return None
+    threads = 128 if per * esize <= 8 << 10 else 256 if per * esize <= 32 << 10 else 512
+    return GGNPlan("cluster", cs, threads, per, smem)
+
+
+def ggn_plan(b: int, c: int, t_len: int, groups: int, esize: int) -> GGNPlan:
+    """K5's route for x of (b, c, t_len) in elements of esize bytes. A row
+    (one (batch, group), n = c / groups * t_len elements) takes the cluster
+    route when some cluster size in CLUSTER_SIZES gives each CTA a slice
+    that fits SMEM_BUDGET with its channels' parameters and planes; the
+    size is the least that fits, raised to cut the row into slices of
+    about TARGET_SLICE_BYTES. Else the two-pass route."""
+    cg = c // groups
+    n = cg * t_len
+    want = 1
+    while want < CLUSTER_SIZES[-1] and n * esize >= 2 * want * TARGET_SLICE_BYTES:
+        want *= 2
+    for cs in CLUSTER_SIZES:
+        plan = cluster_plan(n, cg, t_len, esize, cs) if cs >= want else None
+        if plan is not None:
+            return plan
+    n_split, apply_blocks = _launch_shape(b * groups, n, 16 // esize)
+    return GGNPlan("two_pass", n_split=n_split, apply_blocks=apply_blocks)
+
+
+_FN = {}                                   # C entry -> ctypes function, argtypes set
+_PLANS: dict[tuple, tuple] = {}            # shape key -> (plan, C plan array, flags)
+
+
+def _fn(name: str):
+    """The C entry `name` (aa_ggn_cluster or aa_ggn_two_pass) with its
+    argtypes: plan array, flags, eps, x, scale, bias, film scale and shift,
+    y, [partials,] stream."""
+    fn = _FN.get(name)
+    if fn is None:
+        from ._build import load
+        fn = getattr(load(SOURCE), name)
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, ctypes.c_int, ctypes.c_float, vp, vp, vp, vp, vp, vp] + \
+            ([vp] if name == "aa_ggn_two_pass" else []) + [vp]
+        fn.restype = ctypes.c_int
+        _FN[name] = fn
     return fn
 
 
@@ -109,10 +194,10 @@ def grouped_gn_film_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     or None. CPU tensors take the plain twin; CUDA tensors launch the
     CUDA kernel."""
     _check(x, scale, bias, groups, film_scale, film_shift)
-    if x.device.type == "cpu":
-        return grouped_gn_film_silu_ref(x, scale, bias, groups, film_scale,
-                                        film_shift, silu, eps)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return grouped_gn_film_silu_ref(x, scale, bias, groups, film_scale,
+                                            film_shift, silu, eps)
         raise ValueError(f"grouped_gn_film_silu: unsupported device {x.device}")
     if wants_grad(x, scale, bias, film_scale, film_shift):
         return _GroupedGN.apply(x, scale, bias, film_scale, film_shift, groups, silu, eps)
@@ -142,30 +227,64 @@ class _GroupedGN(torch.autograd.Function):
         return (*out, None, None, None)
 
 
+def _plan(x, groups: int, film_stride: int) -> tuple:
+    """(GGNPlan, C plan array, flags) of x's shape, computed once a shape;
+    flags carries the dtype and whether a row is whole 16-byte vectors."""
+    key = (x.shape, x.dtype, groups, film_stride)
+    got = _PLANS.get(key)
+    if got is None:
+        b, c, t_len = x.shape
+        n = (c // groups) * t_len
+        if n > _MAX_ROW or x.numel() >= 1 << 31:
+            raise ValueError(f"grouped_gn_film_silu: {tuple(x.shape)} exceeds 32-bit indexing")
+        esize = x.element_size()
+        plan = ggn_plan(b, c, t_len, groups, esize)
+        ints = ((b, c, t_len, groups, plan.cs, plan.threads, plan.per, plan.smem, film_stride)
+                if plan.route == "cluster" else
+                (b, c, t_len, groups, plan.n_split, plan.apply_blocks, film_stride))
+        flags = _DTYPES[x.dtype] | (4 if n % (16 // esize) == 0 else 0)
+        got = _PLANS[key] = (plan, (ctypes.c_int * len(ints))(*ints), flags)
+    return got
+
+
 def _launch(x, scale, bias, groups: int, film_scale, film_shift, silu: bool,
-            eps: float) -> torch.Tensor:
-    global launches
-    b, c, t_len = x.shape
-    n = (c // groups) * t_len
-    if n > _MAX_ROW or x.numel() >= 1 << 31:
-        raise ValueError(f"grouped_gn_film_silu: {tuple(x.shape)} exceeds 32-bit indexing")
+            eps: float, plan: GGNPlan | None = None) -> torch.Tensor:
+    """One K5 call on CUDA tensors that `_check` passed; `plan`, a cluster
+    route plan (`cluster_plan`), replaces the planner's choice, to time
+    other cluster sizes."""
+    global launches, cluster_launches, two_pass_launches
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    vec = 16 // x.element_size()
-    vec_ok = int(n % vec == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    rows = b * groups
-    n_split, apply_blocks = _launch_shape(rows, n, vec)
-    partials = torch.empty((rows, n_split, 2), dtype=torch.float32, device=x.device)
-    film_stride = next((p.stride(0) for p in (film_scale, film_shift) if p is not None), 0)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(_DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 film_scale.data_ptr() if film_scale is not None else None,
-                 film_shift.data_ptr() if film_shift is not None else None,
-                 film_stride, y.data_ptr(), partials.data_ptr(), b, c, t_len, groups,
-                 n_split, apply_blocks, int(silu), float(eps), vec_ok, stream)
+    film = film_scale if film_scale is not None else film_shift
+    film_stride = film.stride(0) if film is not None else 0
+    chosen, ints, flags = _plan(x, groups, film_stride)
+    if plan is not None:
+        b, c, t_len = x.shape
+        ints = (ctypes.c_int * 9)(b, c, t_len, groups, plan.cs, plan.threads, plan.per,
+                                  plan.smem, film_stride)
+    plan = plan or chosen
+    xp = x.data_ptr()
+    if xp % 16:
+        flags &= ~4
+    if silu:
+        flags |= 2
+    fs = film_scale.data_ptr() if film_scale is not None else None
+    sh = film_shift.data_ptr() if film_shift is not None else None
+    stream = stream_handle(x.get_device())
+    if plan.route == "cluster":
+        err = _fn("aa_ggn_cluster")(ints, flags, eps, xp, scale.data_ptr(), bias.data_ptr(),
+                                    fs, sh, y.data_ptr(), stream)
+    else:
+        partials = torch.empty((x.shape[0] * groups, plan.n_split, 2), dtype=torch.float32,
+                               device=x.device)
+        err = _fn("aa_ggn_two_pass")(ints, flags, eps, xp, scale.data_ptr(), bias.data_ptr(),
+                                     fs, sh, y.data_ptr(), partials.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"grouped_gn_film_silu kernel launch failed: CUDA error {err}")
+    if plan.route == "cluster":
+        cluster_launches += 1
+    else:
+        two_pass_launches += 1
     launches += 1
     return y
-

@@ -1,13 +1,23 @@
-"""Launch one kernel of the port a few times at a main-path shape, for a
-profiler that wraps the process, such as Nsight Compute:
+"""Launch one kernel of the port at its main-path shapes and time it, or
+run it a few times for a profiler that wraps the process, such as Nsight
+Compute:
 
     ncu -k regex:flash_dkv python3 audio_algebra_torch/profile_kernel.py --kernel k4b
+    python3 audio_algebra_torch/profile_kernel.py --kernel k5 --host-split
 
 Run from the root of a checkout: the package is imported from the current
-directory. Kernels: k4b (dK/dV of the rel-pos flash attention at the
-trainer's (8, 16, 1024, 64), f32 or bf16) and k2a / k2b / k2c (the turbo
-GroupNorm modes at the decode's level 0, (16, 256, 65536) bf16). Prints
-one JSON line with the CUDA-event time a launch and the card's name.
+directory, so the same script times another checkout's kernels when run
+from that checkout's root. Kernels: k4b (dK/dV of the rel-pos flash
+attention at the trainer's (8, 16, 1024, 64), f32 or bf16), k2a / k2b / k2c
+(the turbo GroupNorm modes at the decode's level 0, (16, 256, 65536)
+bf16), k3 (the bf16 serving attention at the MIRAGE inner UNet's flash
+sites, B = 2, 16 heads of 64, T = 1024 / 3072 / 1536, and B = 1 / 4 at T =
+1024) and k5 (the grouped GroupNorm + FiLM + SiLU at the inner UNet's
+shapes and the trainer's (8, 512, 2048) f32). k3 and k5 print one JSON
+line a shape with the CUDA-event ms a call and the device ms a call (the
+card kept busy while the host queues the calls); `--host-split` (k5) adds
+the wrapper's host microseconds a call, split into its parts. Every line
+names the card.
 """
 from __future__ import annotations
 
@@ -15,14 +25,136 @@ import argparse
 import json
 import os
 import sys
+import time
+
+K3_SHAPES = [(2, 16, 1024, 64), (2, 16, 3072, 64), (2, 16, 1536, 64), (1, 16, 1024, 64),
+             (4, 16, 1024, 64)]
+K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
+             ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
+             ((8, 512, 2048), "float32", True)]
+
+
+def events_ms(fn, iters: int) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms a call: the card sleeps while the host queues the calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 300) -> float:
+    """Host microseconds a call, the card kept busy so that no call waits
+    for it."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def k5_inputs(shape, dtype, film, seed):
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c, _ = shape
+    dt = getattr(torch, dtype)
+    x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.2).to(dt)
+    scale = (torch.rand(c, generator=g, device=dev) + 0.5).to(dt)
+    bias = (torch.rand(c, generator=g, device=dev) - 0.5).to(dt)
+    ts = (torch.randn((b, 2 * c), generator=g, device=dev) * 0.3).to(dt)
+    fs, sh = ts.chunk(2, dim=1) if film else (None, None)
+    return x, scale, bias, fs, sh
+
+
+def k5_host_split(x, scale, bias, fs, sh) -> dict:
+    """The wrapper's host cost a call and its parts, in microseconds: the
+    input checks, wants_grad, the output (and scratch) allocation, the
+    stream lookup, the ctypes call of the C entry with arguments it refuses
+    before launching (groups = 0), and the whole call; `launch` is what the
+    whole call spends beyond its parts."""
+    import ctypes
+    import torch
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    b, c, t = x.shape
+    split = {"check": host_us(lambda: ggn._check(x, scale, bias, 8, fs, sh)),
+             "wants_grad": host_us(lambda: gn.wants_grad(x, scale, bias, fs, sh)),
+             "alloc_y": host_us(lambda: torch.empty_like(x)),
+             "stream": host_us(lambda: torch.cuda.current_stream(x.device).cuda_stream)}
+    stride = fs.stride(0) if fs is not None else 0
+    fsp = fs.data_ptr() if fs is not None else None
+    shp = sh.data_ptr() if sh is not None else None
+    if hasattr(ggn, "_fn"):          # one launch, a plan array per shape
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw is not None:
+            split["stream_raw"] = host_us(lambda: raw(x.get_device()))
+        split["plan"] = host_us(lambda: ggn._plan(x, 8, stride))
+        plan, ints, _ = ggn._plan(x, 8, stride)
+        bad = (ctypes.c_int * len(ints))(*ints)
+        bad[3] = 0
+        entry = ggn._fn("aa_ggn_cluster" if plan.route == "cluster" else "aa_ggn_two_pass")
+        extra = [] if plan.route == "cluster" else [None]
+        split["ctypes_no_launch"] = host_us(lambda: entry(
+            bad, 7, 1e-6, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), fsp, shp,
+            x.data_ptr(), *extra, 0))
+        split["route"] = plan.route
+    else:                            # the two-launch design: partials, 19 arguments
+        n = c // 8 * t
+        n_split, apply_blocks = gn._launch_shape(b * 8, n, 16 // x.element_size())
+        split["alloc_partials"] = host_us(lambda: torch.empty(
+            (b * 8, n_split, 2), dtype=torch.float32, device=x.device))
+        fn = ggn._lib()
+        split["ctypes_no_launch"] = host_us(lambda: fn(
+            gn._DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(), fsp, shp,
+            stride, x.data_ptr(), x.data_ptr(), b, c, t, 0, n_split, apply_blocks, 1, 1e-6,
+            1, 0))
+    split["whole_call"] = host_us(lambda: ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh))
+    used = "stream_raw" if "stream_raw" in split else "stream"    # the wrapper's lookup
+    parts = sum(v for k, v in split.items() if k not in (
+        "whole_call", "route", "stream", "stream_raw")) + split[used]
+    split["launch"] = split["whole_call"] - parts
+    return split
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["k4b", "k2a", "k2b", "k2c"], required=True)
+    ap.add_argument("--kernel", choices=["k4b", "k2a", "k2b", "k2c", "k3", "k5"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
+    ap.add_argument("--host-split", action="store_true",
+                    help="k5: the wrapper's host microseconds a call, by part")
+    ap.add_argument("--variants", action="store_true",
+                    help="k5: device ms at every cluster size that fits; k3: the 64- "
+                         "and 128-row query tiles at B <= 2, in turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -31,9 +163,52 @@ def main(argv=None) -> int:
         return 2
     from audio_algebra_torch.ops import flash_attention as fa
     from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
 
     dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.kernel == "k3":
+        for shape in K3_SHAPES:
+            q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16() for _ in range(3))
+            h, t = shape[1], shape[2]
+            bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).bfloat16()
+
+            def call():
+                return fa.flash_attention_relpos(q, k, v, bias_t, 0.125)
+            row = {"kernel": "k3", "tree": os.getcwd(), "shape": list(shape),
+                   "dtype": "bfloat16", "bias_dtype": "bfloat16",
+                   "ms": events_ms(call, 20), "device_ms": device_ms(call, 20), "device": card}
+            if args.variants and shape[0] <= 2:     # the query tiles, in turns
+                calls = {bq: (lambda bq=bq: fa._serve_cuda(q, k, v, bias_t, 0.125, bq))
+                         for bq in (64, 128)}
+                row["device_ms_by_query_tile_in_turns"] = [
+                    [bq, device_ms(calls[bq], 20)] for bq in (64, 128, 128, 64)]
+            print(json.dumps(row), flush=True)
+            del q, k, v, bias_t
+        return 0
+    if args.kernel == "k5":
+        for i, (shape, dtype, film) in enumerate(K5_SHAPES):
+            x, scale, bias, fs, sh = k5_inputs(shape, dtype, film, 200 + i)
+
+            def call():
+                return ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+            row = {"kernel": "k5", "tree": os.getcwd(), "shape": list(shape), "dtype": dtype,
+                   "film": film, "ms": events_ms(call, 200), "device_ms": device_ms(call, 200),
+                   "device": card}
+            if args.host_split:
+                row["host_us"] = k5_host_split(x, scale, bias, fs, sh)
+            if args.variants:
+                b, c, t = shape
+                n, esize = c // 8 * t, x.element_size()
+                plans = [p for p in (ggn.cluster_plan(n, c // 8, t, esize, cs)
+                                     for cs in ggn.CLUSTER_SIZES) if p is not None]
+                row["device_ms_by_cluster"] = {
+                    f"{p.cs}x{p.threads}": [device_ms(lambda p=p: ggn._launch(
+                        x, scale, bias, 8, fs, sh, True, 1e-6, plan=p), 200) for _ in range(2)]
+                    for p in plans}
+            print(json.dumps(row), flush=True)
+        return 0
     if args.kernel == "k4b":
         dt = getattr(torch, args.dtype or "float32")
         shape = (8, 16, 1024, 64)
@@ -69,7 +244,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernel": args.kernel, "shape": list(shape),
                       "dtype": str(dt).removeprefix("torch."),
                       "ms": start.elapsed_time(end) / args.launches,
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+                      "device": card}), flush=True)
     return 0
 
 

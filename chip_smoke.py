@@ -12,8 +12,11 @@ Phases, each printing one JSON line:
   kernels       hold each kernel against its plain PyTorch twin on the card,
                 at the main paths' shapes, and time it beside the twin, one
                 PyTorch library call and its bound: K1 (fused GroupNorm(1)
-                [+GELU] [+residual]), K3 (rel-pos flash attention) and K5
-                (grouped GroupNorm + FiLM + SiLU)
+                [+GELU] [+residual]), K3 (rel-pos flash attention; each row
+                also on the device alone) and K5 (grouped GroupNorm + FiLM
+                + SiLU; each row on the device alone, with the wrapper's
+                host microseconds a call, the route the planner chose and a
+                same-bits check of two launches)
   model         one full-width Destructo UNet forward, (2, 2, 16384) bf16,
                 through K1 and through the twin with the same weights:
                 rel-RMS under a bound
@@ -40,7 +43,8 @@ Phases, each printing one JSON line:
                 22 s (1,048,576 samples), batch 1, CFG 4, 150 DPM++(2M)
                 inner steps and 100 v-DDIM outer steps, from the weighted
                 algebra of two seeded unit embeddings, run twice; K3, K5 and
-                K1 must launch 150 x 4, 150 x 63 and 100 x 119 times
+                K1 must launch 150 x 4, 150 x 63 and 100 x 119 times, every
+                K5 launch on its one-launch cluster route
   kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
@@ -303,15 +307,17 @@ def flash_bound(shape, dtype, bias_dtype) -> tuple[float, str]:
 def phase_kernels_k3() -> dict:
     """K3 at the MIRAGE inner UNet's flash sites: 22 s (T = 1024) and 66 s
     (T = 3072, 1536), B = 2 from CFG, 16 heads x 64, bf16 with a bf16
-    bias; and one f32 row."""
+    bias; B = 1 and 4 at T = 1024; and one f32 row. Each row by CUDA events
+    (a call) and on the device alone (`device_ms`)."""
     import torch
     import torch.nn.functional as F
     from audio_algebra_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    cases = [((2, 16, 1024, 64), torch.bfloat16, torch.bfloat16),
-             ((2, 16, 3072, 64), torch.bfloat16, torch.bfloat16),
-             ((2, 16, 1536, 64), torch.bfloat16, torch.bfloat16),
+    bf16 = torch.bfloat16
+    cases = [((2, 16, 1024, 64), bf16, bf16), ((2, 16, 3072, 64), bf16, bf16),
+             ((2, 16, 1536, 64), bf16, bf16), ((1, 16, 1024, 64), bf16, bf16),
+             ((4, 16, 1024, 64), bf16, bf16),
              ((2, 16, 1024, 64), torch.float32, torch.float32)]
     rows = []
     for shape, dt, bdt in cases:
@@ -329,9 +335,12 @@ def phase_kernels_k3() -> dict:
         mask = bias_t.transpose(1, 2)[None].to(dt)           # (1, H, T, S)
         big = t > 1024
         bound_ms, bound_by = flash_bound(shape, dt, bdt)
+
+        def kernel():
+            return fa.flash_attention_relpos(q, k, v, bias_t, scale)
+
         row.update({
-            "kernel_ms": cuda_ms(lambda: fa.flash_attention_relpos(q, k, v, bias_t, scale),
-                                 20),
+            "kernel_ms": cuda_ms(kernel, 20), "kernel_device_ms": device_ms(kernel, 20),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_relpos_ref(q, k, v, bias_t, scale),
                                 3 if big else 10, warmup=1),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -360,30 +369,55 @@ def ggn_bound(shape, dtype, film: bool) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def host_us(fn, iters: int = 300) -> float:
+    """Host microseconds a call, the card kept busy (torch.cuda._sleep) so
+    that no call waits for it: the inverse of `device_ms`."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def phase_kernels_k5() -> dict:
     """K5 at the MIRAGE inner UNet's shapes (8 groups, SiLU): the widest
     level with FiLM, the widest up-level input without FiLM, the deepest
-    level; and one f32 row."""
+    level; one f32 row and the trainer's (8, 512, 2048) f32. Each row by
+    CUDA events, on the device alone, and the wrapper's host microseconds
+    a call, with the route the planner chose; two launches give the same
+    bits."""
     import torch
     import torch.nn.functional as F
     from audio_algebra_torch.ops import groupnorm_grouped as ggn
 
     dev = torch.device("cuda")
     cases = [((2, 512, 2048), torch.bfloat16, True), ((2, 1536, 2048), torch.bfloat16, False),
-             ((2, 1024, 32), torch.bfloat16, True), ((2, 512, 2048), torch.float32, True)]
+             ((2, 1024, 32), torch.bfloat16, True), ((2, 512, 2048), torch.float32, True),
+             ((8, 512, 2048), torch.float32, True)]
     rows = []
     for shape, dt, film in cases:
         g = torch.Generator(device=dev).manual_seed(200 + len(rows))
-        b, c, _ = shape
+        b, c, t = shape
         x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.2).to(dt)
         scale = (torch.rand(c, generator=g, device=dev) + 0.5).to(dt)
         bias = (torch.rand(c, generator=g, device=dev) - 0.5).to(dt)
         ts = (torch.randn((b, 2 * c), generator=g, device=dev) * 0.3).to(dt)
         fs, sh = ts.chunk(2, dim=1) if film else (None, None)
         got = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+        again = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
         torch.cuda.synchronize()
         want = ggn.grouped_gn_film_silu_ref(x, scale, bias, 8, fs, sh)
-        row = {"shape": list(shape), "film": film, "silu": True, **_compare(got, want, dt)}
+        plan = ggn.ggn_plan(b, c, t, 8, x.element_size())
+        row = {"shape": list(shape), "film": film, "silu": True, "route": plan.route,
+               "cluster_size": plan.cs, "threads": plan.threads, "smem_bytes": plan.smem,
+               "same_bits": bool(torch.equal(got, again)), **_compare(got, want, dt)}
+        del got, again, want
 
         def library():
             y = F.group_norm(x, 8, scale, bias, 1e-6)
@@ -391,18 +425,21 @@ def phase_kernels_k5() -> dict:
                 y = y * (1 + fs[:, :, None]) + sh[:, :, None]
             return F.silu(y)
 
+        def kernel():
+            return ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+
         bound_ms, bound_by = ggn_bound(shape, dt, film)
-        row.update({"kernel_ms": cuda_ms(lambda: ggn.grouped_gn_film_silu(x, scale, bias, 8,
-                                                                           fs, sh), 200),
+        row.update({"kernel_ms": cuda_ms(kernel, 200), "kernel_device_ms": device_ms(kernel, 200),
+                    "host_us": host_us(kernel),
                     "plain_ms": cuda_ms(lambda: ggn.grouped_gn_film_silu_ref(x, scale, bias,
                                                                               8, fs, sh), 50),
                     "library_ms": cuda_ms(library, 200),
                     "bound_ms": bound_ms, "bound_by": bound_by})
         rows.append(row)
     emit({"phase": "kernels", "kernel": "grouped_gn_film_silu", "cases": rows})
-    failed = [r for r in rows if r["n_outside_tol"]]
+    failed = [r for r in rows if r["n_outside_tol"] or not r["same_bits"]]
     if failed:
-        raise AssertionError(f"K5 disagrees with its twin: {failed}")
+        raise AssertionError(f"K5 disagrees with its twin or with itself: {failed}")
     return rows[0]
 
 
@@ -805,8 +842,10 @@ def phase_mirage():
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = ggn.launches = gn.launches = 0
+    ggn.cluster_launches = ggn.two_pass_launches = 0
     fakes, lat, first_s, first_stages = run()
     counts = {"k3": fa.launches, "k5": ggn.launches, "k1": gn.launches}
+    k5_routes = {"cluster": ggn.cluster_launches, "two_pass": ggn.two_pass_launches}
     _, _, gen_s, stages = run()
     expected = {"k3": INNER_STEPS * K3_PER_INNER, "k5": INNER_STEPS * K5_PER_INNER,
                 "k1": OUTER_STEPS * K1_PER_OUTER}
@@ -822,12 +861,15 @@ def phase_mirage():
           "realtime_factor": MIRAGE_SAMPLES / 48000 / gen_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "out_shape": list(fakes.shape), "finite": finite, "latents_in_range": in_range,
-          "launches": counts, "launches_expected": expected})
+          "launches": counts, "launches_expected": expected, "k5_routes": k5_routes})
     if tuple(fakes.shape) != (2, MIRAGE_SAMPLES) or not finite or not in_range:
         raise AssertionError(f"mirage output {tuple(fakes.shape)} finite={finite} "
                              f"latents in range={in_range}")
     if counts != expected:
         raise AssertionError(f"mirage launches {counts}, expected {expected}")
+    if k5_routes != {"cluster": expected["k5"], "two_pass": 0}:
+        raise AssertionError(f"mirage K5 routes {k5_routes}: every inner-UNet shape should "
+                             f"take the one-launch cluster route")
     return model, counts
 
 
@@ -1360,7 +1402,8 @@ def _k4_k5_counts():
     from audio_algebra_torch.ops import groupnorm_grouped as ggn
     from audio_algebra_torch.ops import stft_kernel as stk
     return {"k3": fa.launches, "k4a": fa.train_fwd_launches, "k4b": fa.dkv_launches,
-            "k4c": fa.dq_launches, "k5": ggn.launches, "k6": stk.launches}
+            "k4c": fa.dq_launches, "k5": ggn.launches, "k6": stk.launches,
+            "k5_cluster": ggn.cluster_launches, "k5_two_pass": ggn.two_pass_launches}
 
 
 def _zero_train_counts():
@@ -1368,7 +1411,7 @@ def _zero_train_counts():
     from audio_algebra_torch.ops import groupnorm_grouped as ggn
     from audio_algebra_torch.ops import stft_kernel as stk
     fa.launches = fa.train_fwd_launches = fa.dkv_launches = fa.dq_launches = 0
-    ggn.launches = stk.launches = 0
+    ggn.launches = ggn.cluster_launches = ggn.two_pass_launches = stk.launches = 0
 
 
 def phase_train_model() -> None:
@@ -1450,7 +1493,7 @@ def phase_train_model() -> None:
         raise AssertionError(f"kernels vs twins: loss rel {loss_rel}, worst gradients "
                              f"{ {n: errs[n] for n in worst} }")
     want = {"k3": 0, "k4a": K4_PER_STEP, "k4b": K4_PER_STEP, "k4c": K4_PER_STEP,
-            "k5": K5_PER_STEP, "k6": 0}
+            "k5": K5_PER_STEP, "k6": 0, "k5_cluster": K5_PER_STEP, "k5_two_pass": 0}
     if counts != want:
         raise AssertionError(f"training forward + backward launched {counts}, expected {want}")
 
@@ -1514,7 +1557,8 @@ def phase_train(clap_module) -> dict:
     steady = run["records"][1:]
     expected = {"k3": 0, "k4a": steps * K4_PER_STEP, "k4b": steps * K4_PER_STEP,
                 "k4c": steps * K4_PER_STEP, "k5": steps * (K5_PER_STEP + K5_PER_ENCODE),
-                "k6": steps}
+                "k6": steps, "k5_cluster": steps * (K5_PER_STEP + K5_PER_ENCODE),
+                "k5_two_pass": 0}
     emit({"phase": "train", "batch": [TRAIN_BATCH, 2, MIRAGE_SAMPLES], "dtype": "float32",
           "allow_tf32": False, "files": TRAIN_FILES, "corpus_s": corpus_s,
           "steps": [{k: r[k] for k in ("step", "train_loss", "train_lr", "train_ema_decay",
@@ -1611,7 +1655,8 @@ def main() -> int:
               "audio_algebra_tpu/ops/pallas/groupnorm.py:321", turbo["k2c"],
               k2["res_amax_q"]),
         entry("flash_attention_relpos", "flash_attention.cu",
-              "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3),
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3,
+              device_ms=k3["kernel_device_ms"]),
         entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"]),
         entry("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu",
@@ -1624,7 +1669,11 @@ def main() -> int:
               bound_f32_cuda_cores_ms=k4["k4c"]["bound_f32_cuda_cores_ms"]),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
-              launches_by_path={"mirage": counts["k5"], "train": train["k5"]}),
+              launches_by_path={"mirage": counts["k5"], "train": train["k5"]},
+              launches_by_route={"cluster": counts["k5"] + train["k5_cluster"],
+                                 "two_pass": train["k5_two_pass"]},
+              device_ms=k5["kernel_device_ms"], host_us=k5["host_us"],
+              planner_route=k5["route"]),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
               spectrogram_k6 + clap_k6 + serve_k6 + train["k6"], k6["fft"],
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,

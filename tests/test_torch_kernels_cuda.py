@@ -2,7 +2,8 @@
 plain PyTorch twin: K1 (GroupNorm(1) + GELU + residual) and K2 (its turbo
 int8 modes) at the UNet's shapes and a ragged one, K3 (rel-pos flash
 attention) and K5 (grouped GroupNorm + FiLM + SiLU) at the MIRAGE UNet's
-shapes, K2a also over its L2 row groups (a short last group, a row
+shapes, K5 on both its routes with a same-bits check, K3's bf16 serving
+kernel at B = 1 to 4 and T = 1024 to 3072 with both bias dtypes, K2a also over its L2 row groups (a short last group, a row
 above the group's budget, channels changing inside a vector); K4 (the
 differentiable flash attention: forward with residuals, dK/dV, dQ and
 d-bias) at the trainer's shapes and batch sizes 1 to 16, K4b and K4c each
@@ -101,6 +102,101 @@ def test_grouped_gn_matches_twin_on_card(cuda_device, shape, film, dtype):
     want = ggn.grouped_gn_film_silu_ref(x, scale, bias, 8, fs, sh, silu=True)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# K5's main-path shapes (chip_smoke.py kernels_k5 and the trainer's widest
+# f32 level), a row of 2 MB in f32 (16 CTAs a cluster) and one too long for
+# any cluster (4 MB in f32: the two-pass route); channels that change inside
+# a vector, and rows that are no whole number of vectors
+K5_ROUTE_CASES = [((2, 512, 2048), torch.bfloat16, True, "cluster"),
+                  ((2, 1536, 2048), torch.bfloat16, False, "cluster"),
+                  ((2, 1024, 32), torch.bfloat16, True, "cluster"),
+                  ((2, 512, 2048), torch.float32, True, "cluster"),
+                  ((8, 512, 2048), torch.float32, True, "cluster"),
+                  ((2, 128, 32768), torch.float32, True, "cluster"),
+                  ((1, 64, 131072), torch.float32, True, "two_pass"),
+                  ((2, 128, 1001), torch.bfloat16, True, "cluster"),
+                  ((2, 16, 1001), torch.bfloat16, False, "cluster")]
+
+
+def _ggn_inputs(device, shape, dtype, film, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, c, _ = shape
+    x = (torch.randn(shape, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+    scale = (torch.rand(c, generator=g, device=device) + 0.5).to(dtype)
+    bias = (torch.rand(c, generator=g, device=device) - 0.5).to(dtype)
+    ts = (torch.randn((b, 2 * c), generator=g, device=device) * 0.3).to(dtype)
+    fs, sh = ts.chunk(2, dim=1) if film else (None, None)
+    return x, scale, bias, fs, sh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,film,route", K5_ROUTE_CASES)
+def test_grouped_gn_routes_match_twin_on_card(cuda_device, shape, dtype, film, route):
+    """Each route against the twin, counted in its own counter; the cluster
+    route takes one launch and no scratch tensor."""
+    x, scale, bias, fs, sh = _ggn_inputs(cuda_device, shape, dtype, film, 12)
+    assert ggn.ggn_plan(*shape, 8, x.element_size()).route == route
+    before = (ggn.launches, ggn.cluster_launches, ggn.two_pass_launches)
+    got = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+    torch.cuda.synchronize()
+    one = int(route == "cluster")
+    assert (ggn.launches, ggn.cluster_launches, ggn.two_pass_launches) == \
+        (before[0] + 1, before[1] + one, before[2] + 1 - one)
+    want = ggn.grouped_gn_film_silu_ref(x, scale, bias, 8, fs, sh)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,film,route", K5_ROUTE_CASES[:6:2] + K5_ROUTE_CASES[5:7])
+def test_grouped_gn_gives_the_same_bits_every_run(cuda_device, shape, dtype, film, route):
+    """The partials are folded in a fixed order (rank order across a
+    cluster): two launches give the same bits."""
+    x, scale, bias, fs, sh = _ggn_inputs(cuda_device, shape, dtype, film, 13)
+    a = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+    b = ggn.grouped_gn_film_silu(x, scale, bias, 8, fs, sh)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 3, 4])
+@pytest.mark.parametrize("t", [1024, 1536, 3072])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_serve_matches_twin_on_card(cuda_device, batch, t, bias_dtype):
+    """K3's bf16 serving kernel (a block serves every batch row of its
+    (head, query tile)) at the MIRAGE inner UNet's lengths, 16 heads of 64."""
+    g = torch.Generator(device=cuda_device).manual_seed(batch * 7 + t)
+    shape = (batch, 16, t, 64)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    bias_t = (torch.randn((16, t, t), generator=g, device=cuda_device) * 0.5).to(bias_dtype)
+    before = fa.launches
+    got = fa.flash_attention_relpos(q, k, v, bias_t, 0.125)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_relpos_ref(q, k, v, bias_t, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq", [64, 128])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("t", [1024, 1536])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_serve_query_tiles_match_twin_on_card(cuda_device, bq, batch, t, bias_dtype):
+    """Both query tiles of the serving kernel: 64 rows (one m-tile a warp)
+    and 128 (two), at D = 64."""
+    g = torch.Generator(device=cuda_device).manual_seed(bq + batch + t)
+    shape = (batch, 16, t, 64)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    bias_t = (torch.randn((16, t, t), generator=g, device=cuda_device) * 0.5).to(bias_dtype)
+    got = fa._serve_cuda(q, k, v, bias_t, 0.125, bq)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_relpos_ref(q, k, v, bias_t, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
 
 
 def _int8_close(got, want):
