@@ -16,31 +16,40 @@
 // l of every query are also written, as f32 (H, B, T): what the backward
 // kernels recompute the probabilities from.
 //
-// Two designs. flash_serve_bf16 (K3 in bf16, the serving route; its own
+// Three designs. flash_serve_bf16 (K3 in bf16, the serving route; its own
 // comment below): a block serves every batch row of its (query tile,
 // head), so each bias tile is read once for all of them, with a cp.async
-// ring, ldmatrix fragments and a base-2 softmax. flash_fwd_bf16 / _f32
-// (K4a in both dtypes, K3 in f32): one block per (batch*head, 64-query
-// tile) with a loop over 64-key tiles; the K, V and bias tiles staged in
-// shared memory, the bias read transposed from a padded f32 tile, once per
-// batch row.
-//   bf16: four warps, 16 query rows each; Q.K^T and P.V on the tensor cores
-//         through mma.sync m16n8k16 (bf16 in, f32 accumulate). The score
-//         fragments are re-packed in registers as the A operand of P.V.
-//   f32:  CUDA-core FMA, four threads per query row each holding D/4 of its
-//         dims, so that f32 results agree with the plain version to 1e-4.
-// In both the online softmax state and the output accumulator stay in
-// registers: no score goes to device memory.
+// ring, ldmatrix fragments and a base-2 softmax. flash_fwd_tf32 (K4a and K3
+// in f32; its own comment below): the same sharing for a group of one or
+// two batch rows, both products as 3xTF32 mma.sync m16n8k8 (each operand
+// split into its TF32 rounding hi and the TF32 rounding of the remainder
+// lo; lo.hi + hi.lo + hi.hi accumulated in f32), which keeps f32's
+// tolerance where one TF32 pass does not. Its softmax runs in base 2:
+// log2 e is folded into sm_scale and into the bias as it is read, the
+// exponentials are ex2.approx, and the residual m is written back in
+// natural units (times ln 2), so that the backward kernels recompute
+// p = exp(s - m) / l from it as before. flash_fwd_bf16 (K4a in bf16, the
+// earlier design, off the trainer's strict-f32 path): one block per
+// (batch*head, 64-query tile) with a loop over 64-key tiles, the K, V and
+// bias tiles staged synchronously, the bias read once per batch row; four
+// warps of 16 query rows, both products as mma.sync m16n8k16, the score
+// fragments re-packed in registers as P.V's A operand.
+// In all three the online softmax state and the output accumulator stay
+// in registers: no score goes to device memory.
 //
-// Bound: HBM bytes at the main path's shapes. The least traffic is one read
-// of q, k, v and the bias and one write of o: 50.3 MB at (2, 16, 1024, 64)
-// bf16 with a bf16 bias, 15.0 us on an H100 SXM, against 8.7 us for its
-// 8.6 GFLOP at the bf16 tensor-core peak and ~9 us for its 33.5 M
-// exponentials on the MUFU pipe. The serving kernel moves those bytes but
-// K and V once per query tile (from L2); it runs at ~29 % of the bound
-// with one 256-thread block an SM (PERF.md, PR 8).
+// Bound. bf16 (K3 serving): HBM bytes. The least traffic is one read of q,
+// k, v and the bias and one write of o: 50.3 MB at (2, 16, 1024, 64) bf16
+// with a bf16 bias, 15.0 us on an H100 SXM, against 8.7 us for its 8.6
+// GFLOP at the bf16 tensor-core peak and ~9 us for its 33.5 M exponentials
+// on the MUFU pipe; the serving kernel runs at ~29 % of it with one
+// 256-thread block an SM (PERF.md). f32 (K4a): operations. Its two
+// products of 2 B H T^2 D as three TF32 passes each at the dense TF32
+// peak: 0.208 ms at (8, 16, 1024, 64) (0.513 ms for the f32 CUDA-core
+// peak; 0.060 ms for its 202 MB of q, k, v, o, bias, l and m; ~0.03 ms for
+// its 134 M exponentials).
 //
-// C interface (bound with ctypes): aa_flash_attention_relpos and
+// C interface (bound with ctypes): aa_flash_attention_relpos,
+// aa_flash_fwd_tf32 (the f32 route with a block chosen by the caller) and
 // aa_flash_serve_bf16 launch one kernel on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
 
@@ -203,6 +212,7 @@ flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // are reloaded from shared memory each key tile: at MT = 1 that keeps a
 // thread at 128 registers, so that an SM holds two 256-thread blocks.
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -466,80 +476,292 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------------- f32 ---
-// 256 threads: query row tid / 4 of the tile, dims quarter + 4 i of it.
-template <int D, typename TB>
-__global__ void __launch_bounds__(256)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const TB* __restrict__ bias,
-              float* __restrict__ o, float* __restrict__ l_out,
-              float* __restrict__ m_out, int heads, int t_len, float sm_scale) {
-  constexpr int DPT = D / 4;
+// ---------------------------------------------- f32: 3xTF32 (K4a, K3) ---
+// One block per (batch group of NB rows, query tile of BQ = 64 MT rows,
+// head h): four warps a batch row, warp w serving batch row w / 4 of the
+// group and MT m-tiles of 16 query rows from 16 MT (w % 4). Every key tile
+// of the (H, S, T) bias is copied from device memory ONCE for the NB batch
+// rows that use it; the grid's fastest axis is the batch group, so the
+// groups of one (query tile, head) run side by side and share the tile in
+// L2 as well. K, V and bias tiles arrive by cp.async into two stages (one
+// where two do not fit), the next key tile in flight while the tensor
+// cores work on this one.
+//
+// Both products run as 3xTF32 mma.sync m16n8k8 (flash_common.cuh). TF32's
+// k index is permuted within each 8-wide step: for Q.K^T, dims 2 tg and
+// 2 tg + 1 for columns tg and tg + 4, so that a lane reads its Q and K
+// pairs as float2; for P.V, keys 2 tg and 2 tg + 1, so that the score C
+// fragment is P's A fragment as it lies (no trip through shared memory),
+// and V's rows are read with the same permutation. Each K and V fragment
+// is split once for the warp's MT m-tiles. With one m-tile a warp and
+// D <= 64, Q is read from device memory once into registers and split into
+// hi and lo once; else (D = 128, or 128 query rows) the registers do not
+// hold it (ptxas spills), and Q is copied once into shared memory with the
+// first key tile and split at each use.
+template <int D, typename TB, int MT, int NB, int BK>
+struct Tf32Tiles {
+  static constexpr int BQ = 64 * MT;                     // query rows of a block
+  static constexpr int LDK = D + 8;                      // float2 row reads: 32 banks
+  static constexpr int LDV = D + 4;                      // column reads: 32 banks
+  static constexpr int LDB = BQ + 16 / sizeof(TB);       // bias row stride, 16 bytes of pad
+  static constexpr int kK = NB * BK * LDK;               // floats
+  static constexpr int kV = NB * BK * LDV;
+  static constexpr bool kQSplit = MT == 1 && D <= 64;    // Q held as hi, lo
+  static constexpr size_t kQ = kQSplit ? 0 : NB * BQ * LDK * sizeof(float);
+  static constexpr size_t kStage = (kK + kV) * sizeof(float)
+                                   + static_cast<size_t>(BK) * LDB * sizeof(TB);
+  static constexpr int kStages = kQ + 2 * kStage <= 232448 ? 2 : 1;
+  static constexpr size_t kSmem = kQ + kStages * kStage;
+  static constexpr int kThreads = NB * 4 * 32;
+  static_assert(kQ + kStage <= 232448, "the forward's tiles do not fit");
+};
+
+__device__ __forceinline__ float bias_value(const float* p) { return *p; }
+__device__ __forceinline__ float bias_value(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <int D, typename TB, int MT, int NB, int BK>
+__global__ void __launch_bounds__(Tf32Tiles<D, TB, MT, NB, BK>::kThreads)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const TB* __restrict__ bias,
+               float* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
+               int batch, int heads, int t_len, float sm_scale) {
+  using L = Tf32Tiles<D, TB, MT, NB, BK>;
+  constexpr int BQ = L::BQ, LDK = L::LDK, LDV = L::LDV, LDB = L::LDB, NT = L::kThreads;
+  constexpr int S = L::kStages;
+  constexpr int KD = D / 8;          // k-steps of Q.K^T
+  constexpr int ND = D / 8;          // 8-wide dim tiles of the output
+  constexpr int NK = BK / 8;         // 8-wide key tiles of the scores
+  constexpr int QS = L::kQSplit ? KD : 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + kBK * D;
-  float* bs = vs + kBK * D;
+  float* qs = reinterpret_cast<float*>(smem);              // where Q is not in registers
+  unsigned char* stages = smem + L::kQ;
 
-  const int tid = threadIdx.x, row = tid >> 2, quarter = tid & 3;
-  const int bh = blockIdx.y, h = bh % heads;
-  const int t0 = blockIdx.x * kBQ;
-  const size_t head = static_cast<size_t>(bh) * t_len * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int slot = warp / 4, r0 = (warp % 4) * 16 * MT;   // batch row; first query row
+  const int b0 = blockIdx.x * NB, t0 = blockIdx.y * BQ, h = blockIdx.z;
+  const int nb = min(NB, batch - b0);                      // batch rows of this group
+  const bool active = slot < nb;
   const TB* bias_h = bias + static_cast<size_t>(h) * t_len * t_len;
+  auto head = [&](int s) {                                  // (b0 + s, h) offset
+    return (static_cast<size_t>(b0 + s) * heads + h) * t_len * D;
+  };
 
-  float qr[DPT], acc[DPT];
-  const float* qrow = q + head + static_cast<size_t>(t0 + row) * D + quarter;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = qrow[4 * i];
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  for (int s0 = 0; s0 < t_len; s0 += kBK) {
-    __syncthreads();
-    load_tile<float, D>(k + head + static_cast<size_t>(s0) * D, ks, D, kBK, tid, 256);
-    load_tile<float, D>(v + head + static_cast<size_t>(s0) * D, vs, D, kBK, tid, 256);
-    load_bias_tile<TB>(bias_h, t_len, s0, t0, bs, tid, 256);
-    __syncthreads();
-
-    float s[kBK];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) part = fmaf(qr[i], ks[j * D + quarter + 4 * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = part * sm_scale + bs[j * kBiasLD + row];
-      mx = fmaxf(mx, s[j]);
+  // key tile n into stage n mod S: K and V of the group's rows, the bias once
+  auto fetch = [&](int n) {
+    float* ks = reinterpret_cast<float*>(stages + (n % S) * L::kStage);
+    float* vs = ks + L::kK;
+    TB* bs = reinterpret_cast<TB*>(vs + L::kV);
+    const int s0 = n * BK;
+    constexpr int CD = D / 4;        // 16-byte chunks of a K / V row
+    for (int i = tid; i < nb * BK * CD; i += NT) {
+      const int s = i / (BK * CD), r = (i / CD) % BK, c = (i % CD) * 4;
+      const size_t src = head(s) + static_cast<size_t>(s0 + r) * D + c;
+      cp_async16(ks + (s * BK + r) * LDK + c, k + src);
+      cp_async16(vs + (s * BK + r) * LDV + c, v + src);
     }
-    const float mn = fmaxf(m, mx);
-    const float al = expf(m - mn);
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      s[j] = expf(s[j] - mn);
-      ps += s[j];
+    constexpr int E = 16 / sizeof(TB), CB = BQ / E;
+    for (int i = tid; i < BK * CB; i += NT) {
+      const int r = i / CB, c = (i % CB) * E;
+      cp_async16(bs + r * LDB + c, bias_h + static_cast<size_t>(s0 + r) * t_len + t0 + c);
     }
-    l = l * al + ps;
-    m = mn;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= al;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(s[j], vs[j * D + quarter + 4 * i], acc[i]);
+    cp_async_commit();
+  };
+  if constexpr (!L::kQSplit) {      // Q of the group's rows, with the first key tile
+    constexpr int CD = D / 4;
+    for (int i = tid; i < nb * BQ * CD; i += NT) {
+      const int s = i / (BQ * CD), r = (i / CD) % BQ, c = (i % CD) * 4;
+      cp_async16(qs + (s * BQ + r) * LDK + c, q + head(s) + static_cast<size_t>(t0 + r) * D + c);
     }
   }
-  float* orow = o + head + static_cast<size_t>(t0 + row) * D + quarter;
+  fetch(0);
+
+  // Q's A fragments: rows g, g + 8 of each m-tile, dims 8 kk + 2 tg (+1)
+  auto q_pair = [&](int mt, int kk, int half) -> float2 {
+    const size_t row = t0 + r0 + 16 * mt + g + 8 * half;
+    if constexpr (L::kQSplit)
+      return *reinterpret_cast<const float2*>(q + head(slot) + row * D + 8 * kk + 2 * tg);
+    else
+      return *reinterpret_cast<const float2*>(qs + (slot * BQ + row - t0) * LDK + 8 * kk
+                                              + 2 * tg);
+  };
+  uint32_t qhi[MT][QS][4], qlo[MT][QS][4];
+  if constexpr (L::kQSplit) {
+    if (active) {
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) orow[4 * i] = acc[i] / l;
-  if (l_out != nullptr && quarter == 0) {   // residuals, (H, B, T)
-    const int batch = gridDim.y / heads;
-    const size_t r = (static_cast<size_t>(h) * batch + bh / heads) * t_len + t0 + row;
-    l_out[r] = l;
-    m_out[r] = m;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const float2 x0 = q_pair(mt, kk, 0), x1 = q_pair(mt, kk, 1);
+          split(x0.x, qhi[mt][kk][0], qlo[mt][kk][0]);
+          split(x1.x, qhi[mt][kk][1], qlo[mt][kk][1]);
+          split(x0.y, qhi[mt][kk][2], qlo[mt][kk][2]);
+          split(x1.y, qhi[mt][kk][3], qlo[mt][kk][3]);
+        }
+    }
+  }
+
+  float acc[MT][ND][4];
+  float mrow[MT][2], lrow[MT][2];    // rows g and g + 8 of each m-tile, base 2
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) acc[mt][d][0] = acc[mt][d][1] = acc[mt][d][2] = acc[mt][d][3] = 0.f;
+    mrow[mt][0] = mrow[mt][1] = kNegInf;
+    lrow[mt][0] = lrow[mt][1] = 0.f;
+  }
+  const float scale2 = sm_scale * kLog2e;
+  const int n_tiles = t_len / BK;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    if constexpr (S == 2) {
+      if (n + 1 < n_tiles) {
+        fetch(n + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      if (n > 0) fetch(n);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* ks = reinterpret_cast<const float*>(stages + (n % S) * L::kStage);
+      const TB* bs = reinterpret_cast<const TB*>(ks + L::kK + L::kV);
+      const float* vs = ks + L::kK + slot * BK * LDV;
+      ks += slot * BK * LDK;
+
+      // s = Q.K^T
+      float s[MT][NK][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NK; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (L::kQSplit) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ah[mt][e] = qhi[mt][kk][e];
+              al[mt][e] = qlo[mt][kk][e];
+            }
+          } else {
+            const float2 x0 = q_pair(mt, kk, 0), x1 = q_pair(mt, kk, 1);
+            split(x0.x, ah[mt][0], al[mt][0]);
+            split(x1.x, ah[mt][1], al[mt][1]);
+            split(x0.y, ah[mt][2], al[mt][2]);
+            split(x1.y, ah[mt][3], al[mt][3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float2 kb = *reinterpret_cast<const float2*>(ks + (8 * j + g) * LDK + 8 * kk
+                                                             + 2 * tg);
+          uint32_t bh[2], bl[2];
+          split(kb.x, bh[0], bl[0]);
+          split(kb.y, bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(s[mt][j], ah[mt], al[mt], bh, bl);
+        }
+      }
+      // the online softmax in base 2, the bias biasT[h, s0 + key, t0 + query]
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const TB* br = bs + 2 * tg * LDB + r0 + 16 * mt + g;
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const TB* b = br + 8 * j * LDB;
+          s[mt][j][0] = fmaf(s[mt][j][0], scale2, bias_value(b) * kLog2e);
+          s[mt][j][1] = fmaf(s[mt][j][1], scale2, bias_value(b + LDB) * kLog2e);
+          s[mt][j][2] = fmaf(s[mt][j][2], scale2, bias_value(b + 8) * kLog2e);
+          s[mt][j][3] = fmaf(s[mt][j][3], scale2, bias_value(b + LDB + 8) * kLog2e);
+          mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(mrow[mt][0], mx0), mn1 = fmaxf(mrow[mt][1], mx1);
+        const float al0 = exp2_ftz(mrow[mt][0] - mn0), al1 = exp2_ftz(mrow[mt][1] - mn1);
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          s[mt][j][0] = exp2_ftz(s[mt][j][0] - mn0);
+          s[mt][j][1] = exp2_ftz(s[mt][j][1] - mn0);
+          s[mt][j][2] = exp2_ftz(s[mt][j][2] - mn1);
+          s[mt][j][3] = exp2_ftz(s[mt][j][3] - mn1);
+          ps0 += s[mt][j][0] + s[mt][j][1];
+          ps1 += s[mt][j][2] + s[mt][j][3];
+        }
+        lrow[mt][0] = lrow[mt][0] * al0 + ps0;   // this thread's share of the row sums
+        lrow[mt][1] = lrow[mt][1] * al1 + ps1;
+        mrow[mt][0] = mn0;
+        mrow[mt][1] = mn1;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          acc[mt][d][0] *= al0; acc[mt][d][1] *= al0;
+          acc[mt][d][2] *= al1; acc[mt][d][3] *= al1;
+        }
+      }
+      // acc += P.V: C (g, 2 tg | 2 tg + 1) of key tile j is A (g, tg | tg + 4),
+      // and B row tg | tg + 4 is key 2 tg | 2 tg + 1
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          split(s[mt][j][0], ph[mt][0], pl[mt][0]);
+          split(s[mt][j][2], ph[mt][1], pl[mt][1]);
+          split(s[mt][j][1], ph[mt][2], pl[mt][2]);
+          split(s[mt][j][3], ph[mt][3], pl[mt][3]);
+        }
+        const float* vr = vs + (8 * j + 2 * tg) * LDV + g;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          uint32_t bh[2], bl[2];
+          split(vr[8 * d], bh[0], bl[0]);
+          split(vr[LDV + 8 * d], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][d], ph[mt], pl[mt], bh, bl);
+        }
+      }
+    }
+    __syncthreads();                 // the stage is free for the copy after next
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = lrow[mt][0], l1 = lrow[mt][1];
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const int row = t0 + r0 + 16 * mt + g;
+    float* o0 = o + head(slot) + static_cast<size_t>(row) * D + 2 * tg;
+    float* o1 = o0 + 8 * D;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<float2*>(o0 + 8 * d) = make_float2(acc[mt][d][0] / l0, acc[mt][d][1] / l0);
+      *reinterpret_cast<float2*>(o1 + 8 * d) = make_float2(acc[mt][d][2] / l1, acc[mt][d][3] / l1);
+    }
+    if (l_out != nullptr && tg == 0) {   // residuals, (H, B, T), m in natural units
+      const size_t r = (static_cast<size_t>(h) * batch + b0 + slot) * t_len + row;
+      l_out[r] = l0;
+      l_out[r + 8] = l1;
+      m_out[r] = mrow[mt][0] * kLn2;
+      m_out[r + 8] = mrow[mt][1] * kLn2;
+    }
   }
 }
 
@@ -631,32 +853,74 @@ int dispatch_serve(const void* q, const void* k, const void* v, const void* bias
   }
 }
 
-template <int D, typename TB>
-int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
-               float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
-               cudaStream_t st) {
-  constexpr size_t kSmem = (2 * kBK * D + kBK * kBiasLD) * sizeof(float);
-  auto kernel = flash_fwd_f32<D, TB>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(t_len / kBQ, b * heads), 256, kSmem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const TB*>(bias),
-      static_cast<float*>(o), l_out, m_out, heads, t_len, sm_scale);
+// The f32 route's arguments.
+struct Tf32Args {
+  const void *q, *k, *v, *bias;
+  void* o;
+  float *l_out, *m_out;
+  int b, heads, t_len;
+  float sm_scale;
+  cudaStream_t st;
+};
+
+template <int D, typename TB, int MT, int NB, int BK>
+int launch_tf32(const Tf32Args& a) {
+  using L = Tf32Tiles<D, TB, MT, NB, BK>;
+  auto kernel = flash_fwd_tf32<D, TB, MT, NB, BK>;
+  static bool configured = false;    // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  kernel<<<dim3((a.b + NB - 1) / NB, a.t_len / L::BQ, a.heads), L::kThreads, L::kSmem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const TB*>(a.bias),
+      static_cast<float*>(a.o), a.l_out, a.m_out, a.b, a.heads, a.t_len, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 route's block: nb batch rows (1 or 2), a query tile of bq rows
+// (64, or 128 at D <= 64 with T a multiple of 128) and key tiles of bk
+// rows (64 or 32); all three 0 let the kernel choose: two batch rows of
+// 128 queries (two m-tiles a warp, each K / V fragment split once for
+// both) and 32-key tiles, whose two stages fit beside Q, where B > 1 and
+// D <= 64; else 64 queries and 64 keys, one batch row at B = 1. Measured
+// on an H100 at (8, 16, 1024, 64) (PERF.md): 0.734 ms against 0.741
+// with 64-key tiles in one stage, 0.834-0.843 with 64 queries, 1.08 with
+// 64 queries and 32 keys.
+template <int D, typename TB>
+int dispatch_tf32(const Tf32Args& a, int nb, int bq, int bk) {
+  if (nb == 0 && bq == 0 && bk == 0) {
+    const bool wide = D <= 64 && a.b > 1 && a.t_len % 128 == 0;
+    nb = a.b == 1 ? 1 : 2;
+    bq = wide ? 128 : 64;
+    bk = wide ? 32 : 64;
+  }
+#define AA_TF32(MT, NB, BK) \
+  if (bq == 64 * MT && nb == NB && bk == BK) return launch_tf32<D, TB, MT, NB, BK>(a);
+  AA_TF32(1, 1, 64)
+  AA_TF32(1, 2, 64)
+  AA_TF32(1, 2, 32)
+  if constexpr (D <= 64) {
+    if (a.t_len % 128 == 0) {
+      AA_TF32(2, 1, 64)
+      AA_TF32(2, 2, 64)
+      AA_TF32(2, 2, 32)
+    }
+  }
+#undef AA_TF32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename TB>
-int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
-             const void* bias, void* o, float* l_out, float* m_out, int b, int heads,
-             int t_len, float sm_scale, cudaStream_t st) {
-#define AA_FLASH_D(DV)                                                              \
-  case DV:                                                                          \
-    return dtype == 1 ? launch_bf16<DV, TB>(q, k, v, bias, o, l_out, m_out, b,      \
-                                            heads, t_len, sm_scale, st)             \
-                      : launch_f32<DV, TB>(q, k, v, bias, o, l_out, m_out, b,       \
-                                           heads, t_len, sm_scale, st);
+int dispatch(int dtype, int d, const Tf32Args& a, int nb, int bq, int bk) {
+#define AA_FLASH_D(DV)                                                                  \
+  case DV:                                                                              \
+    return dtype == 1 ? launch_bf16<DV, TB>(a.q, a.k, a.v, a.bias, a.o, a.l_out, a.m_out, \
+                                            a.b, a.heads, a.t_len, a.sm_scale, a.st)    \
+                      : dispatch_tf32<DV, TB>(a, nb, bq, bk);
   switch (d) {
     AA_FLASH_D(16)
     AA_FLASH_D(32)
@@ -666,6 +930,15 @@ int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef AA_FLASH_D
+}
+
+int forward(int dtype, int bias_dtype, const Tf32Args& a, int d, int nb, int bq, int bk) {
+  if ((dtype != 0 && dtype != 1) || a.t_len % kBQ != 0 || a.b < 1 ||
+      (a.l_out == nullptr) != (a.m_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bias_dtype == 0) return dispatch<float>(dtype, d, a, nb, bq, bk);
+  if (bias_dtype == 1) return dispatch<__nv_bfloat16>(dtype, d, a, nb, bq, bk);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -680,19 +953,23 @@ extern "C" int aa_flash_attention_relpos(int dtype, int bias_dtype, const void* 
                                          const void* bias, void* o, void* l_out,
                                          void* m_out, int b, int heads, int t_len,
                                          int d, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || t_len % kBQ != 0 ||
-      (l_out == nullptr) != (m_out == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  float* lo = static_cast<float*>(l_out);
-  float* mo = static_cast<float*>(m_out);
-  if (bias_dtype == 0)
-    return dispatch<float>(dtype, d, q, k, v, bias, o, lo, mo, b, heads, t_len,
-                           sm_scale, st);
-  if (bias_dtype == 1)
-    return dispatch<__nv_bfloat16>(dtype, d, q, k, v, bias, o, lo, mo, b, heads, t_len,
-                                   sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Tf32Args a{q, k, v, bias, o, static_cast<float*>(l_out), static_cast<float*>(m_out),
+                   b, heads, t_len, sm_scale, static_cast<cudaStream_t>(stream)};
+  return forward(dtype, bias_dtype, a, d, 0, 0, 0);
+}
+
+// The f32 route with its block chosen by the caller (for timing the
+// variants): nb batch rows, 1 or 2; bq query rows, 64 or 128 (D <= 64, T a
+// multiple of 128); bk keys a tile, 64 or 32; all three 0 for the kernel's
+// own choice. Arguments otherwise as aa_flash_attention_relpos's with f32
+// q, k, v, o.
+extern "C" int aa_flash_fwd_tf32(int bias_dtype, const void* q, const void* k, const void* v,
+                                 const void* bias, void* o, void* l_out, void* m_out, int b,
+                                 int heads, int t_len, int d, float sm_scale, int nb, int bq,
+                                 int bk, void* stream) {
+  const Tf32Args a{q, k, v, bias, o, static_cast<float*>(l_out), static_cast<float*>(m_out),
+                   b, heads, t_len, sm_scale, static_cast<cudaStream_t>(stream)};
+  return forward(0, bias_dtype, a, d, nb, bq, bk);
 }
 
 // K3, the bf16 serving route: q, k, v, o contiguous bf16 (B, H, T, D),

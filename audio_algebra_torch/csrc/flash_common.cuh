@@ -137,15 +137,22 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 // first, f32 accumulation); b0, b1 are split here. m16n8k8 fragments: lane
 // 4 g + tg holds A (g, tg), (g + 8, tg), (g, tg + 4), (g + 8, tg + 4), B
 // (k tg, n g), (k tg + 4, n g) and C (g, 2 tg), (g, 2 tg + 1), (g + 8,
-// 2 tg), (g + 8, 2 tg + 1).
+// 2 tg), (g + 8, 2 tg + 1). The first form takes B already split (a B
+// fragment that serves several A fragments is split once).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(c, alo, bhi[0], bhi[1]);
+  mma_tf32(c, ahi, blo[0], blo[1]);
+  mma_tf32(c, ahi, bhi[0], bhi[1]);
+}
+
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
                                            const uint32_t (&alo)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(c, alo, bh0, bh1);
-  mma_tf32(c, ahi, bl0, bl1);
-  mma_tf32(c, ahi, bh0, bh1);
+  uint32_t bhi[2], blo[2];
+  split(b0, bhi[0], blo[0]);
+  split(b1, bhi[1], blo[1]);
+  mma_3xtf32(c, ahi, alo, bhi, blo);
 }
 
 }  // namespace aa_flash

@@ -10,8 +10,10 @@ scores and softmax statistics and P cast to v's dtype before P·V.
 
 `flash_attention_relpos_train` is the port of `flash_attention_relpos_train`
 there, a `torch.autograd.Function` of three kernels: the forward with its
-residuals (K4a: the per-(batch, head) forward kernel that K3 also takes in
-f32, writing the final row max m and normaliser l, f32 (H, B, T)), dK/dV
+residuals (K4a: the 3xTF32 tensor-core forward kernel that K3 also takes
+in f32, a block serving one or two batch rows so that each bias tile is
+read once for them, writing the final row max m and normaliser l, f32
+(H, B, T)), dK/dV
 (K4b) and dQ with d(biasT) summed over the batch (K4c). K3 in bf16 takes
 the serving kernel, whose blocks serve every batch row so that each bias
 tile is read once. delta = Σ_d do·o is a plain reduction, as in JAX.
@@ -138,6 +140,7 @@ _ARGTYPES = {
     "aa_flash_attention_relpos": "iipppppppiiiifp",
     "aa_flash_attention_dkv": "iippppppppppiiiifp",
     "aa_flash_attention_dq": "iippppppppppiiiifp",
+    "aa_flash_fwd_tf32": "ipppppppiiiifiiip",
     "aa_flash_serve_bf16": "ipppppiiiifip",
 }
 
@@ -152,9 +155,12 @@ def _lib(source: str, name: str):
     return fn
 
 
-def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool):
+def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool,
+                  block: tuple[int, int, int] | None = None):
     """Launch the forward kernel; returns (o, l, m), l and m None without
-    `residuals`."""
+    `residuals`. `block` = (batch rows 1 or 2, query rows 64 or 128 (D <=
+    64), keys a tile 64 or 32) chooses the f32 route's block; None leaves it
+    to the kernel."""
     b, h, t, d = q.shape
     o = torch.empty_like(q)
     _check_cuda(q, biasT, k, v, o)
@@ -162,11 +168,17 @@ def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool):
     if residuals:
         l = torch.empty((h, b, t), dtype=torch.float32, device=q.device)
         m = torch.empty_like(l)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), biasT.data_ptr(), o.data_ptr(),
+            l.data_ptr() if residuals else None, m.data_ptr() if residuals else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib(SOURCE, "aa_flash_attention_relpos")(
-        _DTYPES[q.dtype], _DTYPES[biasT.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        biasT.data_ptr(), o.data_ptr(), l.data_ptr() if residuals else None,
-        m.data_ptr() if residuals else None, b, h, t, d, float(sm_scale), stream)
+    if block is not None:
+        if q.dtype != torch.float32:
+            raise ValueError("flash_attention_relpos: `block` chooses the f32 route's block")
+        err = _lib(SOURCE, "aa_flash_fwd_tf32")(
+            _DTYPES[biasT.dtype], *ptrs, b, h, t, d, float(sm_scale), *block, stream)
+    else:
+        err = _lib(SOURCE, "aa_flash_attention_relpos")(
+            _DTYPES[q.dtype], _DTYPES[biasT.dtype], *ptrs, b, h, t, d, float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_relpos kernel launch failed: CUDA error {err}")
     return o, l, m
@@ -193,7 +205,7 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     transposed (H, S, T) bias, in q's dtype: kernel K3, forward only. CPU
     tensors take the plain twin; CUDA tensors launch the CUDA kernel (T a
     multiple of 64, D one of 16, 32, 64, 128; bf16 q, k, v take the serving
-    kernel, f32 ones K4a's forward without its residuals) and must not
+    kernel, f32 ones K4a's 3xTF32 forward without its residuals) and must not
     require grad (`flash_attention_relpos_train` is the differentiable one)."""
     global launches
     _check(q, k, v, biasT)

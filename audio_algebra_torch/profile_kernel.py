@@ -16,8 +16,12 @@ sites, B = 2, 16 heads of 64, T = 1024 / 3072 / 1536, and B = 1 / 4 at T =
 shapes and the trainer's (8, 512, 2048) f32). k3 and k5 print one JSON
 line a shape with the CUDA-event ms a call and the device ms a call (the
 card kept busy while the host queues the calls); `--host-split` (k5) adds
-the wrapper's host microseconds a call, split into its parts. Every line
-names the card.
+the wrapper's host microseconds a call, split into its parts. k4a (the
+f32 training forward with its residuals, 3xTF32 on the tensor cores) at
+the trainer's (8, 16, 1024 / 512, 64), at B = 1 and at K3's f32 row (2,
+16, 1024, 64), one JSON line a shape like k3's; `--variants` adds the
+device ms of each block the f32 route can take (1 or 2 batch rows, 64 or
+128 query rows, 64 or 32 keys a tile), in turns. Every line names the card.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ import time
 
 K3_SHAPES = [(2, 16, 1024, 64), (2, 16, 3072, 64), (2, 16, 1536, 64), (1, 16, 1024, 64),
              (4, 16, 1024, 64)]
+K4A_SHAPES = [(8, 16, 1024, 64), (8, 16, 512, 64), (1, 16, 1024, 64), (2, 16, 1024, 64)]
+K4A_BLOCKS = [(1, 64, 64), (2, 64, 64), (2, 64, 32), (1, 128, 64), (2, 128, 64),
+              (2, 128, 32)]                     # (batch rows, query rows, keys a tile)
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]
@@ -146,7 +153,8 @@ def k5_host_split(x, scale, bias, fs, sh) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["k4b", "k2a", "k2b", "k2c", "k3", "k5"], required=True)
+    ap.add_argument("--kernel", choices=["k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5"],
+                    required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
@@ -154,7 +162,9 @@ def main(argv=None) -> int:
                     help="k5: the wrapper's host microseconds a call, by part")
     ap.add_argument("--variants", action="store_true",
                     help="k5: device ms at every cluster size that fits; k3: the 64- "
-                         "and 128-row query tiles at B <= 2, in turns")
+                         "and 128-row query tiles at B <= 2, in turns; k4a: each block "
+                         "(batch rows, query rows, keys a tile) of the f32 route, "
+                         "in turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -184,6 +194,26 @@ def main(argv=None) -> int:
                          for bq in (64, 128)}
                 row["device_ms_by_query_tile_in_turns"] = [
                     [bq, device_ms(calls[bq], 20)] for bq in (64, 128, 128, 64)]
+            print(json.dumps(row), flush=True)
+            del q, k, v, bias_t
+        return 0
+    if args.kernel == "k4a":
+        for shape in K4A_SHAPES:
+            q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+            h, t = shape[1], shape[2]
+            bias_t = torch.randn((h, t, t), generator=g, device=dev) * 0.5
+
+            def call():
+                return fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+            row = {"kernel": "k4a", "tree": os.getcwd(), "shape": list(shape),
+                   "dtype": "float32", "bias_dtype": "float32",
+                   "ms": events_ms(call, 20), "device_ms": device_ms(call, 20), "device": card}
+            if args.variants:                       # the blocks, in turns
+                blocks = [blk for blk in K4A_BLOCKS if blk[0] <= shape[0]]
+                calls = {blk: (lambda blk=blk: fa._forward_cuda(
+                    q, k, v, bias_t, 0.125, True, blk)) for blk in blocks}
+                row["device_ms_by_block_in_turns"] = [
+                    [*blk, device_ms(calls[blk], 20)] for blk in blocks + blocks[::-1]]
             print(json.dumps(row), flush=True)
             del q, k, v, bias_t
         return 0

@@ -78,8 +78,8 @@ Phases, each printing one JSON line:
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
                 2e-4, the JAX package's) and bf16, at (16, 16, 1024, 64) bf16
                 and at B = 1, each timed beside the twin, SDPA forward /
-                backward and its bound (K4b and K4c in f32: 3xTF32 on the
-                tensor cores, and the f32 CUDA-core bound beside it); two
+                backward and its bound (K4a, K4b and K4c in f32: 3xTF32 on
+                the tensor cores, and the f32 CUDA-core bound beside it); two
                 launches each of K4b and K4c at (8, 16, 1024, 64) f32 and
                 bf16 give the same bits; and the autograd Functions around
                 K1 and K5: forward through the kernel, backward() against
@@ -1206,10 +1206,11 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
     of 2 B H T^2 D operations) at the peak of q's type, whichever is
     larger. Inputs of the backward kernels: q, k, v, do, biasT and the
     three (H, B, T) f32 rows; K4c returns dq and dbT, which is like biasT.
-    In f32, K4b and K4c run their products as 3xTF32 on the tensor cores:
+    In f32, all three run their products as 3xTF32 on the tensor cores:
     their bounds are three TF32 passes of each product at the dense TF32
-    peak ("k4b", "k4c"), and the f32 CUDA-core bounds stand beside them as
-    "k4b_f32_cuda_cores" and "k4c_f32_cuda_cores"."""
+    peak ("k4a", "k4b", "k4c"), and the f32 CUDA-core bounds stand beside
+    them as "k4a_f32_cuda_cores", "k4b_f32_cuda_cores" and
+    "k4c_f32_cuda_cores"."""
     import torch
     b, h, t, d = shape
     e = torch.empty((), dtype=dtype).element_size()
@@ -1224,7 +1225,7 @@ def k4_bounds(shape, dtype, bias_dtype) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_products * product / peak * 1e3
         out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        if dtype == torch.float32 and name != "k4a":
+        if dtype == torch.float32:
             out[f"{name}_f32_cuda_cores"] = out[name]
             t_tf32 = 3 * n_products * product / TF32_TC_OPS_PER_S * 1e3
             out[name] = (t_bytes, "bytes") if t_bytes >= t_tf32 else (t_tf32, "operations")
@@ -1658,7 +1659,8 @@ def main() -> int:
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3,
               device_ms=k3["kernel_device_ms"]),
         entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
-              "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"]),
+              "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"],
+              bound_f32_cuda_cores_ms=k4["k4a"]["bound_f32_cuda_cores_ms"]),
         entry("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:170", train["k4b"], k4["k4b"],
               plain_and_library_cover="K4b + K4c",

@@ -6,8 +6,10 @@ shapes, K5 on both its routes with a same-bits check, K3's bf16 serving
 kernel at B = 1 to 4 and T = 1024 to 3072 with both bias dtypes, K2a also over its L2 row groups (a short last group, a row
 above the group's budget, channels changing inside a vector); K4 (the
 differentiable flash attention: forward with residuals, dK/dV, dQ and
-d-bias) at the trainer's shapes and batch sizes 1 to 16, K4b and K4c each
-alone with a same-bits check of two launches; the
+d-bias) at the trainer's shapes and batch sizes 1 to 16, K4a's 3xTF32 f32
+route at every head dim, B = 1, 3, 8, T = 64 to 1024, both bias dtypes and
+each block it can take, K4a, K4b and K4c each alone with a same-bits check
+of two launches; the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
@@ -527,6 +529,64 @@ def test_flash_train_residuals_survive_a_late_row_max(cuda_device):
     want = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do, 0.125)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("t", [64, 512, 1024])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_tf32_matches_twin_on_card(cuda_device, d, batch, t, bias_dtype):
+    """K4a's f32 route (3xTF32 tensor cores, a block serving a group of
+    batch rows; B = 3 leaves a partial group, T = 64 one key tile, D = 128
+    one cp.async stage) against the twin: o within K3's f32 tolerance,
+    which is inside K4's, and the residuals l and m."""
+    q, k, v, _, bias_t = _flash_inputs(cuda_device, (batch, 2, t, d), torch.float32,
+                                       bias_dtype, 60 + batch + t + d)
+    scale = d ** -0.5
+    before = fa.train_fwd_launches
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+    torch.cuda.synchronize()
+    assert fa.train_fwd_launches == before + 1
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, scale)
+    torch.testing.assert_close(o, o_ref, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(1, 64, 64), (2, 64, 64), (2, 64, 32), (1, 128, 64),
+                                   (2, 128, 64), (2, 128, 32)])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("residuals", [True, False])
+def test_flash_fwd_tf32_blocks_match_twin_on_card(cuda_device, block, batch, residuals):
+    """Every block of the f32 route that `profile_kernel.py --kernel k4a
+    --variants` times (1 or 2 batch rows, 64 or 128 query rows, 64 or 32
+    keys a tile), with and without the residuals (K4a, K3), against the
+    twin."""
+    q, k, v, _, bias_t = _flash_inputs(cuda_device, (batch, 3, 512, 64), torch.float32,
+                                       torch.float32, 70 + sum(block) + batch)
+    o, l, m = fa._forward_cuda(q, k, v, bias_t, 0.125, residuals, block)
+    torch.cuda.synchronize()
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, 0.125)
+    torch.testing.assert_close(o, o_ref, atol=F32_TOL, rtol=F32_TOL)
+    if residuals:
+        torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-4)
+    else:
+        assert l is None and m is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_tf32_gives_the_same_bits_every_run(cuda_device, bias_dtype):
+    """K4a's f32 route has no atomics: two launches, equal bits."""
+    q, k, v, _, bias_t = _flash_inputs(cuda_device, (3, 4, 1024, 64), torch.float32,
+                                       bias_dtype, 16)
+    first = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    second = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(fa.flash_attention_relpos(q, k, v, bias_t, 0.125), first[0])
 
 
 @pytest.mark.cuda
