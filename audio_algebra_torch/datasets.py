@@ -5,12 +5,17 @@ file scanning, random-crop chunking with silence redraw, the PadCrop /
 Stereo / PhaseFlipper augmentations, `AudioDataset`, and a batching
 `DataLoader` with a seeded shuffle and background-thread prefetch. Files
 are read with the port's utils/audio_io.load_audio (WAV and MP3) and
-resampled with ops/resample.resample_np. The filter effects (Gain, the
-Butterworth classes) and `DualEffectsDataset` belong to the effects trainer
-and are not ported yet.
+resampled with ops/resample.resample_np.
+
+The effects trainer's bank: `Gain` and the Butterworth `LowPassFilter`,
+`HighPassFilter`, `BandPassFilter`, `BandStopFilter` (audiomentations'
+defaults), designed and applied on the host (ops/filters), and
+`DualEffectsDataset`, two clips under two distinct effects. Like JAX's,
+they draw from Python's `random`, so equal seeds give equal bits.
 """
 from __future__ import annotations
 
+import math
 import os
 import queue as queue_mod
 import random
@@ -20,10 +25,13 @@ from typing import Optional
 
 import numpy as np
 
+from .ops import filters as F
 from .utils.audio_io import load_audio
 
 __all__ = ['get_audio_filenames', 'is_silence', 'PadCrop', 'Stereo',
-           'PhaseFlipper', 'AudioDataset', 'DataLoader']
+           'PhaseFlipper', 'Gain', 'LowPassFilter', 'HighPassFilter',
+           'BandPassFilter', 'BandStopFilter', 'math_loguniform', 'AudioDataset',
+           'DualEffectsDataset', 'DataLoader']
 
 AUDIO_EXTS = ('.wav', '.mp3', '.flac', '.ogg', '.aif', '.aiff')
 LOADABLE = ('.wav', '.wave', '.mp3')        # what utils/audio_io decodes
@@ -100,6 +108,119 @@ class PhaseFlipper:
 
 
 AUGMENTATIONS.update(PadCrop=PadCrop, Stereo=Stereo, PhaseFlipper=PhaseFlipper)
+
+
+# ----------------------------------------------------------- effect bank ---
+
+class _FilterEffect:
+    """An audiomentations-style effect: fresh random parameters each call,
+    applied with probability p."""
+
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def apply(self, samples: np.ndarray, sample_rate: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def __call__(self, samples: np.ndarray, sample_rate: int) -> np.ndarray:
+        if random.random() > self.p:
+            return samples
+        return np.asarray(self.apply(np.asarray(samples, np.float32), sample_rate))
+
+
+class Gain(_FilterEffect):
+    """audiomentations.Gain: a uniform gain in dB (default ±12)."""
+
+    def __init__(self, min_gain_db: float = -12.0, max_gain_db: float = 12.0,
+                 p: float = 0.5):
+        super().__init__(p)
+        self.min_gain_db, self.max_gain_db = min_gain_db, max_gain_db
+
+    def apply(self, x, sr):
+        g = random.uniform(self.min_gain_db, self.max_gain_db)
+        return x * (10.0 ** (g / 20.0))
+
+
+class _ButterEffect(_FilterEffect):
+    """A Butterworth filter designed and run on the host (numpy design,
+    scipy sosfilt), with a random roll-off of 12-24 dB per octave."""
+    btype = "lowpass"
+
+    def __init__(self, min_rolloff: int = 12, max_rolloff: int = 24, p: float = 0.5):
+        super().__init__(p)
+        self.min_rolloff, self.max_rolloff = min_rolloff, max_rolloff
+
+    def _order(self) -> int:
+        # roll-off dB / octave -> Butterworth order (6 dB / octave a pole)
+        rolloff = random.choice(range(self.min_rolloff, self.max_rolloff + 1, 6))
+        return max(2, rolloff // 6)
+
+    def _filter(self, x, cutoff, sr, two_sided: bool):
+        sos = F.butter_sos_np(self._order(), cutoff if two_sided else float(cutoff),
+                              sr, self.btype)
+        return F.sosfilt_np(sos, x)
+
+
+class LowPassFilter(_ButterEffect):
+    """audiomentations.LowPassFilter (cutoff 150-7500 Hz, log-uniform)."""
+    btype = "lowpass"
+
+    def __init__(self, min_cutoff_freq: float = 150.0, max_cutoff_freq: float = 7500.0,
+                 **kw):
+        super().__init__(**kw)
+        self.min_cutoff_freq, self.max_cutoff_freq = min_cutoff_freq, max_cutoff_freq
+
+    def apply(self, x, sr):
+        return self._filter(x, math_loguniform(self.min_cutoff_freq, self.max_cutoff_freq),
+                            sr, False)
+
+
+class HighPassFilter(_ButterEffect):
+    """audiomentations.HighPassFilter (cutoff 20-2400 Hz, log-uniform)."""
+    btype = "highpass"
+
+    def __init__(self, min_cutoff_freq: float = 20.0, max_cutoff_freq: float = 2400.0,
+                 **kw):
+        super().__init__(**kw)
+        self.min_cutoff_freq, self.max_cutoff_freq = min_cutoff_freq, max_cutoff_freq
+
+    def apply(self, x, sr):
+        return self._filter(x, math_loguniform(self.min_cutoff_freq, self.max_cutoff_freq),
+                            sr, False)
+
+
+class _BandEffect(_ButterEffect):
+    def __init__(self, min_center_freq: float = 200.0, max_center_freq: float = 4000.0,
+                 min_bandwidth_fraction: float = 0.5, max_bandwidth_fraction: float = 1.99,
+                 **kw):
+        super().__init__(**kw)
+        self.min_center_freq, self.max_center_freq = min_center_freq, max_center_freq
+        self.min_bw, self.max_bw = min_bandwidth_fraction, max_bandwidth_fraction
+
+    def _edges(self, sr):
+        center = math_loguniform(self.min_center_freq, self.max_center_freq)
+        bw = random.uniform(self.min_bw, self.max_bw) * center
+        return max(10.0, center - bw / 2), min(sr / 2 - 10.0, center + bw / 2)
+
+
+class BandPassFilter(_BandEffect):
+    """audiomentations.BandPassFilter."""
+    btype = "bandpass"
+
+    def apply(self, x, sr):
+        return self._filter(x, self._edges(sr), sr, True)
+
+
+class BandStopFilter(_BandEffect):
+    """audiomentations.BandStopFilter."""
+    btype = "bandstop"
+
+    def apply(self, x, sr):
+        return self._filter(x, self._edges(sr), sr, True)
+
+
+def math_loguniform(lo: float, hi: float) -> float:
+    return float(np.exp(random.uniform(math.log(lo), math.log(hi))))
 
 
 # -------------------------------------------------------------- datasets ---
@@ -187,6 +308,37 @@ class AudioDataset:
 
     def __getitem__(self, idx: int) -> np.ndarray:
         return self.get_nonsilent_chunk(idx)
+
+
+class DualEffectsDataset(AudioDataset):
+    """Two clips under two effects: {a, b, a1, b1, a2, b2, e1, e2}, the
+    effects two distinct draws from `effects_list` (each applied with p =
+    1), every clip cut to a's length."""
+
+    def __init__(self, paths, effects_list=None, **kwargs):
+        effects_list = effects_list if effects_list is not None else \
+            [Gain, BandPassFilter, BandStopFilter, HighPassFilter, LowPassFilter]
+        super().__init__(paths, **kwargs)
+        print("effects_list = ", [x().__class__.__name__ for x in effects_list])
+        self.effects_list = [x(p=1.0) for x in effects_list]
+
+    def apply_effect(self, audio: np.ndarray, effect) -> np.ndarray:
+        return np.asarray(effect(audio, sample_rate=self.sr))
+
+    def check_size(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        return b[:, : a.shape[-1]] if a.shape[-1] < b.shape[-1] else b
+
+    def __getitem__(self, idx: int) -> dict:
+        a = self.get_nonsilent_chunk(idx)
+        b = self.get_nonsilent_chunk(random.randint(0, len(self.filenames) - 1))
+        effect1 = random.choice(self.effects_list)
+        effect2 = random.choice([e for e in self.effects_list if e is not effect1])
+        a1, b1 = (self.apply_effect(x, effect1) for x in (a, b))
+        a2, b2 = (self.apply_effect(x, effect2) for x in (a, b))
+        b, a1, b1, a2, b2 = (self.check_size(a, x) for x in (b, a1, b1, a2, b2))
+        return dict(zip(["a", "b", "a1", "b1", "a2", "b2", "e1", "e2"],
+                        [a, b, a1, b1, a2, b2,
+                         effect1.__class__.__name__, effect2.__class__.__name__]))
 
 
 class DataLoader:

@@ -58,6 +58,27 @@ def cosine_lr(step: int, lr: float, t_max: int, lr_min: float = LR_MIN) -> float
     return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * s / t_max)) + alpha)
 
 
+def onecycle_lr(step: int, total_steps: int, max_lr: float, pct_start: float = 0.3,
+                div_factor: float = 25.0, final_div_factor: float = 1e4) -> float:
+    """optax.cosine_onecycle_schedule(total_steps, max_lr): a half cosine
+    from max_lr / div_factor up to max_lr over the first
+    int(pct_start * total_steps) steps, a half cosine down to
+    max_lr / (div_factor * final_div_factor) by int(total_steps), flat
+    after. As in optax, a phase of zero steps (total_steps < 4 at the
+    default pct_start) makes every value NaN: optax divides by the
+    phase's length whether or not the step lies in it."""
+    bounds = [0, int(pct_start * total_steps), int(total_steps)]
+    values = [max_lr / div_factor, max_lr, max_lr / (div_factor * final_div_factor)]
+    if bounds[1] == bounds[0] or bounds[2] == bounds[1]:
+        return math.nan
+    for i in range(2):
+        if bounds[i] <= step < bounds[i + 1]:
+            pct = (step - bounds[i]) / (bounds[i + 1] - bounds[i])
+            return values[i + 1] + (values[i] - values[i + 1]) / 2.0 * \
+                (math.cos(math.pi * pct) + 1.0)
+    return values[2]
+
+
 @dataclass
 class TrainState:
     """What a step updates: the model's parameters (in place), their EMA
@@ -153,22 +174,24 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s % (1 << 63))
 
 
-def _refuse_parallel(args, device: torch.device) -> None:
+def _refuse_parallel(args, device: torch.device, name: str = "train_clapdae") -> None:
+    """Say so and raise where the flags ask for more than one card or a
+    sharded state (the trainers `name`d run on one)."""
     available = torch.cuda.device_count() if device.type == "cuda" else 1
     asked = args.num_gpus if args.num_gpus > 0 else 1
     fsdp = int(getattr(args, "fsdp", 0) or 0)
     if fsdp:
-        print(f"train_clapdae: --fsdp {fsdp} asks for a sharded train state, which is "
+        print(f"{name}: --fsdp {fsdp} asks for a sharded train state, which is "
               "not ported (ROADMAP item 15)")
         raise NotImplementedError("--fsdp is not ported yet: ROADMAP item 15 "
                                   "(DDP / FSDP mapping of the JAX package's parallel/)")
     if min(asked, available) > 1:
-        print(f"train_clapdae: --num_gpus {asked} with {available} devices asks for data "
+        print(f"{name}: --num_gpus {asked} with {available} devices asks for data "
               "parallelism, which is not ported (ROADMAP item 15); pass --num_gpus 1")
         raise NotImplementedError("--num_gpus > 1 is not ported yet: ROADMAP item 15 "
                                   "(DDP / FSDP mapping of the JAX package's parallel/)")
     if asked > available:
-        print(f"train_clapdae: --num_gpus {asked}, {available} device available: "
+        print(f"{name}: --num_gpus {asked}, {available} device available: "
               "training on one")
 
 

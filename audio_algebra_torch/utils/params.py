@@ -14,15 +14,20 @@ nested dicts of numpy arrays maps onto the torch state by name:
   FourierFeatures weight (out/2, 1)    FourierFeatures.weight, as is
   Embed     embedding (N, C)           clap.Embed.embedding, as is
   CLAP _BN  scale, bias, mean, var     clap._BN's parameters of those names
+  BatchNorm scale, bias                aa.BatchNorm's parameters of those names
+  BatchNorm batch_stats mean, var      aa.BatchNorm's buffers of those names
   rel_pos_bias, fixed_embedding,       the parameter of that name, as is
   token_type_embeddings, bn_scale,
   bn_bias, bn_mean, bn_var
   any       bias                       bias
 
 `load_flax_params` raises on any leaf left over or missing. It is the
-inverse of audio_algebra_tpu.checkpoint.torch_to_flax_array. `to_flax_tree`
-goes the other way, for parameters (`to_flax_params`), gradients
-(`to_flax_grads`) or any name -> tensor dict in the parameters' layout.
+inverse of audio_algebra_tpu.checkpoint.torch_to_flax_array. It takes a
+bare params tree, `{"params": ...}`, or flax's variables
+`{"params": ..., "batch_stats": ...}`, whose `batch_stats` load into the
+BatchNorm buffers. `to_flax_tree` goes the other way, for parameters
+(`to_flax_params`), gradients (`to_flax_grads`) or any name -> tensor dict
+in the parameters' layout; `to_flax_batch_stats` for the buffers.
 
 `random_init_(module, seed)` fills the module as
 audio_algebra_tpu.utils.params.fast_random_params fills a flax tree with
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.aa import BatchNorm
 from ..models.blocks import (Conv1d, ConvTranspose1d, Dense, FourierFeatures, GroupNorm,
                              GroupNorm1, LayerNorm, Linear)
 from ..models.clap import _BN, Conv2d
@@ -54,7 +60,7 @@ def _same(a):
 def _flax_leaf(owner: nn.Module, leaf: str) -> tuple[str, Any, Any]:
     """(flax leaf name, torch layout -> flax layout, flax layout -> torch
     layout) for a torch parameter."""
-    if leaf == "bias" or leaf in _AS_IS or isinstance(owner, _BN):
+    if leaf == "bias" or leaf in _AS_IS or isinstance(owner, (_BN, BatchNorm)):
         return leaf, _same, _same
     if isinstance(owner, (Conv1d, ConvTranspose1d)):
         return "kernel", lambda a: a.transpose(2, 1, 0), lambda a: a.transpose(2, 1, 0)
@@ -92,7 +98,19 @@ def _flatten(tree: dict, prefix=()) -> dict[tuple[str, ...], np.ndarray]:
 
 
 def _unwrap(tree: dict) -> dict:
-    return tree["params"] if set(tree.keys()) == {"params"} else tree
+    return tree["params"] if set(tree.keys()) in ({"params"}, {"params", "batch_stats"}) \
+        else tree
+
+
+def stat_paths(module: nn.Module) -> dict[tuple[str, ...], str]:
+    """{flax `batch_stats` path: torch buffer name} of the BatchNorms."""
+    out = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, BatchNorm):
+            for leaf in ("mean", "var"):
+                path = (*name.split("."), leaf) if name else (leaf,)
+                out[path] = f"{name}.{leaf}" if name else leaf
+    return out
 
 
 def _inverse_layout(from_flax, arr: np.ndarray, shape) -> np.ndarray:
@@ -120,6 +138,15 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
         p = state[name]
         arr = _inverse_layout(from_flax, np.asarray(leaves[path], np.float32), p.shape)
         p.copy_(torch.from_numpy(np.array(arr, np.float32)).to(p.dtype))
+    stats = _flatten(tree.get("batch_stats", {})) if "params" in tree else {}
+    buffers = dict(module.named_buffers())
+    wanted = stat_paths(module)
+    if stats.keys() - wanted.keys() or (stats and wanted.keys() - stats.keys()):
+        raise KeyError(f"batch_stats do not match the module: have {sorted(stats)[:8]}, "
+                       f"want {sorted(wanted)[:8]}")
+    for path, arr in stats.items():
+        b = buffers[wanted[path]]
+        b.copy_(torch.from_numpy(np.array(arr, np.float32)).reshape(b.shape).to(b.dtype))
     return module
 
 
@@ -132,8 +159,21 @@ def to_flax_tree(module: nn.Module, tensors: dict) -> dict:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(
-            to_flax(tensors[name].detach().float().cpu().numpy()))
+        node[path[-1]] = np.array(           # a copy: never a view of a live tensor
+            to_flax(tensors[name].detach().float().cpu().numpy()), order="C")
+    return tree
+
+
+def to_flax_batch_stats(module: nn.Module) -> dict:
+    """The BatchNorm buffers as flax's `batch_stats` tree of numpy f32
+    arrays."""
+    tree: dict = {}
+    buffers = dict(module.named_buffers())
+    for path, name in stat_paths(module).items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(buffers[name].detach().float().cpu().numpy())
     return tree
 
 

@@ -97,6 +97,29 @@ Phases, each printing one JSON line:
                 step; lr and EMA decay against their closed forms, launch
                 counts (8 / 8 / 8 K4, 63 + 65 K5 and 1 K6 a step), stage
                 times, peak memory
+  train_aa_model  the algebra layer's two losses at full width (the frozen
+                DVAEWrapper() encode of a seeded stems batch (2, 128, 2, 65536)
+                with faders (1.1, -0.8) and a raw (128, 2, 65536) batch, and of
+                four (128, 2, 65536) clips; AudioAlgebra(64, 64)): the loss, its
+                terms and all 16 gradients in f32 against float64 on the card
+                from the same latents and weights (loss rel < 1e-5, gradient
+                rel-RMS < 1e-4, finite); the cov loss's Gram identity in f64
+                against the direct (c·t)^2 covariance at (128, 64, 512), rel <
+                1e-9, and the f32 Gram value's error against it; one v-DDIM
+                step of the demos' batch-1 f32 decode of aa.decode(zmix[:1]),
+                each of its 191 K1 calls against the twin on the same inputs
+  train_aa      audio_algebra_torch.train_aa_mixer.main on 256 seeded
+                synthetic 48 kHz stereo WAVs of 65,536 samples: batch 128
+                (defaults.ini's 1024 over its 8 GPUs), latent 64, hidden 64,
+                2 epochs (4 steps), a demo at step 2 (13,370 K1 launches, no
+                other kernel), a checkpoint; the same flags again resuming
+                from it at step 4 for 4 more steps; train_aa_effects.main for
+                2 epochs (4 steps) with a demo at step 2 (13,370 K1); every
+                demo's media logged without an error, its WAVs finite at (2,
+                65536); the lr Adam stepped with against the one-cycle closed
+                form, the resumed state against the saved bits, ms a step
+                split into host data, frozen encode and algebra + Adam, peak
+                memory
 
 The phases run in the order above, Destructo's first. Then the `kernels`
 summary line, the card's name and power limit from nvidia-smi, and last
@@ -165,6 +188,13 @@ TRAIN_BATCH, TRAIN_FILES, TRAIN_EPOCHS = 8, 16, 2
 K4_PER_STEP, K5_PER_STEP, K5_PER_ENCODE = 8, 63, 65
 K4_TOL = {"float32": (2e-4, 2e-4), "bfloat16": TOL["bfloat16"]}      # (atol, rtol)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_RMS = 1e-4, 1e-3
+# the algebra layer at one card's share of defaults.ini (batch_size 1024 over
+# num_gpus 8): batch 128 x 65536 samples, latent 64, hidden 64, 2 stems. Its
+# one frozen DVAEWrapper encode launches no kernel; each demo decodes zsum and
+# zmix (or za2_guess and za2) at batch 1 in 35 v-DDIM steps, 191 K1 a step
+AA_BATCH, AA_FILES, AA_DIMS, AA_FADERS = 128, 256, 64, (1.1, -0.8)
+AA_LOSS_REL, AA_GRAD_REL_RMS, AA_GRAM_REL = 1e-5, 1e-4, 1e-9
+K1_PER_AA_DEMO = 2 * STEPS * GN_CALLS_PER_FORWARD
 
 
 def emit(obj) -> None:
@@ -242,6 +272,9 @@ def phase_kernels() -> dict:
              for gelu in (True, False) for res in (True, False)]
     cases.append(((2, 128, 1000), torch.float32, True, True))
     cases.append(((1, 512, 32768), torch.bfloat16, True, True))     # MIRAGE outer UNet
+    # the algebra demos' decode: batch 1 in f32, its own launch plan
+    cases.append(((1, 256, 65536), torch.float32, True, True))
+    cases.append(((1, 512, 8), torch.float32, True, True))
     rows = []
     for shape, dt, gelu, res in cases:
         g = torch.Generator(device=dev).manual_seed(len(rows))
@@ -1590,6 +1623,313 @@ def phase_train(clap_module) -> dict:
     return counts
 
 
+def _all_counts():
+    from audio_algebra_torch.ops import groupnorm as gn
+    return {"k1": gn.launches, "k2": gn.quant_launches + gn.amax_launches + gn.amax_q_launches,
+            **_k4_k5_counts()}
+
+
+def _zero_all_counts():
+    from audio_algebra_torch.ops import groupnorm as gn
+    gn.launches = gn.quant_launches = gn.amax_launches = gn.amax_q_launches = 0
+    _zero_train_counts()
+
+
+def _loss_and_grads(fn, module, dtype, *latents):
+    """(loss, logs, {name: gradient in f64}) of an algebra loss on latents
+    cast to `dtype`, through `module` in that dtype."""
+    import torch
+    module.zero_grad(set_to_none=True)
+    loss, logs = fn(module, *(y.to(dtype) for y in latents))
+    loss.backward()
+    return float(loss.detach()), {k: float(v) for k, v in logs.items()}, \
+        {n: p.grad.double() for n, p in module.named_parameters()}
+
+
+def _f32_against_f64(name, fn, module, *latents) -> dict:
+    """One algebra loss and every gradient in f32 against the same in f64
+    on the card, from the same frozen latents and weights."""
+    import copy
+    import torch
+    loss32, logs32, g32 = _loss_and_grads(fn, module, torch.float32, *latents)
+    loss64, logs64, g64 = _loss_and_grads(fn, copy.deepcopy(module).double(), torch.float64,
+                                          *latents)
+    errs = {n: rel_rms(g32[n], g64[n]) for n in g64}
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    out = {"loss": name, "loss_f32": loss32, "loss_f64": loss64,
+           "loss_rel_diff": abs(loss32 - loss64) / abs(loss64),
+           "terms_rel_diff": {k: abs(logs32[k] - logs64[k]) / max(abs(logs64[k]), 1e-30)
+                              for k in logs64},
+           "terms_f64": logs64, "parameters": len(errs),
+           "grad_rel_rms_max": max(errs.values()),
+           "grad_rel_rms_worst": {n: errs[n] for n in worst},
+           "finite": all(bool(torch.isfinite(g).all()) for g in g32.values())
+           and math.isfinite(loss32)}
+    if not (out["finite"] and out["loss_rel_diff"] < AA_LOSS_REL
+            and out["grad_rel_rms_max"] < AA_GRAD_REL_RMS):
+        emit({"phase": "train_aa_model", "failed": out})
+        raise AssertionError(f"{name}: f32 against f64 {out}")
+    return out
+
+
+def _k1_in_demo_decode(wrapper, y) -> dict:
+    """One v-DDIM step of the algebra demos' decode (batch 1, f32), every
+    K1 call held against its twin on the same inputs; rows by (shape,
+    dtype, gelu, residual)."""
+    import torch
+    from audio_algebra_torch.models import blocks
+    from audio_algebra_torch.ops import groupnorm as gn
+
+    atol, rtol = TOL["float32"]
+    rows = {}
+
+    def checked(x, scale, bias, gelu, residual=None, eps=1e-6):
+        got = gn.groupnorm1_gelu(x, scale, bias, gelu, residual, eps)
+        want = gn.groupnorm1_gelu_ref(x, scale, bias, gelu, residual, eps).float()
+        err = (got.float() - want).abs()
+        key = (tuple(x.shape), str(x.dtype).removeprefix("torch."), bool(gelu),
+               residual is not None)
+        row = rows.setdefault(key, {"calls": 0, "max_abs_err": 0.0, "n_outside_tol": 0})
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+        row["n_outside_tol"] += int((err > atol + rtol * want.abs()).sum())
+        return got
+
+    blocks.groupnorm1_gelu = checked
+    try:
+        audio = wrapper.decode(y, demo_steps=1)
+    finally:
+        blocks.groupnorm1_gelu = gn.groupnorm1_gelu
+    out = {"latents": list(y.shape), "audio": list(audio.shape),
+           "audio_finite": bool(torch.isfinite(audio).all()), "atol": atol, "rtol": rtol,
+           "calls": sum(r["calls"] for r in rows.values()),
+           "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+           "n_outside_tol": sum(r["n_outside_tol"] for r in rows.values()),
+           "cases": [{"shape": list(k[0]), "dtype": k[1], "gelu": k[2], "residual": k[3], **r}
+                     for k, r in rows.items()]}
+    if out["calls"] != GN_CALLS_PER_FORWARD or out["n_outside_tol"] or \
+            not out["audio_finite"] or out["audio"][-2:] != [2, CHUNK] or \
+            math.prod(out["audio"]) != 2 * CHUNK:
+        emit({"phase": "train_aa_model", "failed": {"k1_demo_decode": out}})
+        raise AssertionError(f"K1 in the demo decode against its twin: {out}")
+    return out
+
+
+def phase_train_aa_model() -> None:
+    """The mixer and effects losses at full width in f32 against float64 on
+    the card, from the same frozen DVAE latents and algebra weights; the
+    cov loss's Gram identity in f64 against the direct covariance; and one
+    step of the demos' batch-1 decode with every K1 call against its twin."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import aa_effects, aa_mixer
+    from audio_algebra_torch.given_models import DVAEWrapper
+    from audio_algebra_torch.models.aa import AudioAlgebra
+    from audio_algebra_torch.utils.params import random_init_
+
+    dev = torch.device("cuda")
+    wrapper = DVAEWrapper(device=dev)
+    wrapper.ensure_params()
+    encode = aa_mixer.given_model_encode_fn(wrapper)
+    module = random_init_(AudioAlgebra(dims=AA_DIMS, hidden_dims=AA_DIMS), 1).to(dev)
+    rng = np.random.default_rng(21)
+
+    def audio(*shape):
+        return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    stems, batch = audio(2, AA_BATCH, 2, CHUNK), audio(AA_BATCH, 2, CHUNK)
+    faders = torch.tensor(AA_FADERS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y_all, y_batch = aa_mixer.encode_mixer_inputs(encode, stems, faders, batch)
+    torch.cuda.synchronize()
+    mixer_encode_s = time.perf_counter() - t0
+    encode_peak = torch.cuda.max_memory_allocated() / 1e9
+    del stems, batch
+    mixer = _f32_against_f64(
+        "make_mixer_loss_fn",
+        lambda m, ya, yb: aa_mixer.mixer_loss(m, ya, yb, len(AA_FADERS)), module, y_all, y_batch)
+
+    # the cov loss's Gram identity against the direct (c t)^2 covariance, f64
+    with torch.no_grad():
+        z = module.encode(y_all[len(AA_FADERS) * AA_BATCH:]).double()
+        gram64 = float(aa_mixer.vicreg_cov_loss(z))
+        gram32 = float(aa_mixer.vicreg_cov_loss(z.float()))
+        flat = z.reshape(z.shape[0], -1)
+        zc = flat - flat.mean(dim=0)
+        cov = zc.T @ zc / (z.shape[0] - 1)
+        del zc
+        direct = float(aa_mixer.off_diagonal(cov).square_().sum() / flat.shape[1])
+        del cov
+    torch.cuda.empty_cache()
+    gram = {"shape": list(z.shape), "direct_f64": direct, "gram_f64": gram64,
+            "gram_f64_rel_err": abs(gram64 - direct) / abs(direct), "gram_f32": gram32,
+            "gram_f32_rel_err": abs(gram32 - direct) / abs(direct)}
+    with torch.no_grad():                # as aa_demo: aa.decode(zmix[:1]), then the DVAE
+        k1_demo = _k1_in_demo_decode(wrapper, module.decode(z[:1].float()))
+    del y_all, y_batch, z
+
+    clips = [audio(AA_BATCH, 2, CHUNK) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y4 = encode(torch.cat(clips, dim=0))
+    torch.cuda.synchronize()
+    effects_encode_s = time.perf_counter() - t0
+    del clips
+    effects = _f32_against_f64("make_effects_loss_fn", aa_effects.effects_loss, module, y4)
+    del y4
+    torch.cuda.empty_cache()
+    emit({"phase": "train_aa_model", "dtype": "float32", "allow_tf32": False,
+          "algebra": {"dims": AA_DIMS, "hidden_dims": AA_DIMS},
+          "stems": [len(AA_FADERS), AA_BATCH, 2, CHUNK], "faders": list(AA_FADERS),
+          "clips": [4, AA_BATCH, 2, CHUNK], "bounds": {
+              "loss_rel": AA_LOSS_REL, "grad_rel_rms": AA_GRAD_REL_RMS,
+              "gram_f64_rel": AA_GRAM_REL},
+          "mixer": mixer, "effects": effects, "cov_gram": gram, "k1_demo_decode": k1_demo,
+          "encode_s": {"mixer_384_plus_128": mixer_encode_s, "effects_512": effects_encode_s},
+          "encode_peak_mem_gb": encode_peak})
+    if not gram["gram_f64_rel_err"] < AA_GRAM_REL:
+        raise AssertionError(f"the Gram identity in f64 against the direct form: {gram}")
+
+
+def _demo_media(run) -> dict:
+    """The demo files a trainer's run logged: name -> (exists, and for a WAV its
+    shape and whether it is finite)."""
+    import numpy as np
+    from audio_algebra_torch.utils.audio_io import read_wav
+
+    logged = {}
+    with open(Path(run["run_dir"]) / "log.jsonl") as f:
+        for line in f:
+            logged.update({k: v for k, v in json.loads(line).items()
+                           if k.startswith("demo/")})
+    out = {}
+    for name, path in logged.items():
+        row = {"exists": Path(path).is_file()}
+        if row["exists"] and str(path).endswith(".wav"):
+            audio, _ = read_wav(path)
+            row.update(shape=list(audio.shape), finite=bool(np.isfinite(audio).all()))
+        out[name] = row
+    return out
+
+
+def phase_train_aa() -> dict:
+    """Both algebra trainers' entry points at full width, with the flags
+    the reference's scripts take: the mixer for 2 epochs of 2 batches with a
+    demo and a checkpoint, the same run resumed from it for 4 more steps
+    past the schedule's end, and the effects trainer for 2 epochs with a
+    demo. Every demo must log its media without an error, its audio finite
+    at (2, CHUNK). Returns K1's launches in the two demos."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import train_aa_effects, train_aa_mixer
+    from audio_algebra_torch.train_clapdae import onecycle_lr
+    from audio_algebra_torch.utils.audio_io import write_wav
+
+    home = os.getcwd()
+    steps = 2 * AA_FILES // AA_BATCH
+    demo_media = {"mixer": ("demo/zsum", "demo/zmix"),
+                  "effects": ("demo/za2_guess", "demo/za2", "demo/emb_stats",
+                              "demo/pca_cloud", "demo/tokens_za1", "demo/tokens_zb1",
+                              "demo/tokens_za2", "demo/tokens_zb2")}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(12)
+        tt = np.arange(CHUNK, dtype=np.float32) / 48000
+        wavs = Path(tmp) / "wavs"
+        wavs.mkdir()
+        t0 = time.perf_counter()
+        for i in range(AA_FILES):
+            f0, f1 = rng.uniform(60, 2000, 2)
+            clip = np.stack([0.3 * np.sin(2 * np.pi * f0 * tt), 0.3 * np.sin(2 * np.pi * f1 * tt)])
+            clip += 0.05 * rng.standard_normal(clip.shape)
+            write_wav(wavs / f"clip{i:03d}.wav", clip.astype(np.float32), 48000,
+                      subtype="float32")
+        corpus_s = time.perf_counter() - t0
+        argv = ["--training_dir", str(wavs), "--batch_size", str(AA_BATCH),
+                "--sample_size", str(CHUNK), "--latent_dim", str(AA_DIMS),
+                "--hidden_dims", str(AA_DIMS), "--num_workers", "8", "--num_gpus", "1",
+                "--checkpoint_every", "0", "--seed", "0"]
+        os.chdir(tmp)                    # the run directory (runs/) is made beside the cwd
+        try:
+            def timed(main, *extra):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_all_counts()
+                t0 = time.perf_counter()
+                run = main([*argv, *extra])
+                torch.cuda.synchronize()
+                run.update(seconds=time.perf_counter() - t0, counts=_all_counts(),
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                del run["state"]
+                torch.cuda.empty_cache()
+                return run
+            mixer = timed(train_aa_mixer.main, "--name", "mixer", "--load_frac", "1.0",
+                          "--max_epochs", "2", "--demo_every", "2")
+            resumed = timed(train_aa_mixer.main, "--name", "resumed", "--load_frac", "1.0",
+                            "--max_epochs", "2", "--demo_every", "0",
+                            "--ckpt_path", f"{mixer['run_dir']}/ckpt")
+            effects = timed(train_aa_effects.main, "--name", "effects", "--load_frac", "1.0",
+                            "--max_epochs", "2", "--demo_every", "2")
+            demos = {"mixer": _demo_media(mixer), "effects": _demo_media(effects)}
+        finally:
+            os.chdir(home)
+
+    def summary(run):
+        recs = run["records"]
+        steady = recs[1:] or recs
+        return {"steps": [{k: r[k] for k in ("step", "train_loss", "mix_loss", "var_loss",
+                                             "cov_loss", "aa_recon_loss", "lr", "data_ms",
+                                             "encode_ms", "step_ms")} for r in recs],
+                "ms_per_step": {k: float(np.mean([r[k] for r in steady]))
+                                for k in ("data_ms", "encode_ms", "step_ms")},
+                "start_step": run["start_step"], "end_step": run["end_step"],
+                "total_updates": run["total_updates"], "seconds": run["seconds"],
+                "demo_s": run["demo_s"], "demo_errors": run["demo_errors"],
+                "peak_mem_gb": run["peak_mem_gb"], "launches": run["counts"]}
+
+    runs = {"mixer": mixer, "resumed": resumed, "effects": effects}
+    out = {name: summary(run) for name, run in runs.items()}
+    # each record's lr is the one Adam's param group stepped with
+    lr_closed_form = all(r["lr"] == onecycle_lr(r["step"], steps, 1e-3)
+                         for run in runs.values() for r in run["records"])
+    want = {"mixer": (0, steps, K1_PER_AA_DEMO), "resumed": (steps, 2 * steps, 0),
+            "effects": (0, steps, K1_PER_AA_DEMO)}
+    demo_faults = {name: [k for k in keys if not (
+        demos[name].get(k, {}).get("exists") and demos[name][k].get("finite", True)
+        and demos[name][k].get("shape", [2, CHUNK]) == [2, CHUNK])]
+        for name, keys in demo_media.items()}
+    demo_faults = {k: v for k, v in demo_faults.items() if v}
+    emit({"phase": "train_aa", "batch": [AA_BATCH, 2, CHUNK], "dtype": "float32",
+          "allow_tf32": False, "files": AA_FILES, "corpus_s": corpus_s, **out,
+          "demo_media": demos, "demo_faults": demo_faults,
+          "lr_closed_form": lr_closed_form,
+          "resume_reproduces_saved_state": resumed["start_digest"] == mixer["end_digest"],
+          "k1_expected_per_demo": K1_PER_AA_DEMO})
+    for name, (start, end, k1) in want.items():
+        run = runs[name]
+        if (run["start_step"], run["end_step"]) != (start, end):
+            raise AssertionError(f"{name}: steps {run['start_step']}..{run['end_step']}, "
+                                 f"expected {start}..{end}")
+        if not all(math.isfinite(r["train_loss"]) for r in run["records"]):
+            raise AssertionError(f"{name}: losses {run['records']}")
+        others = {k: v for k, v in run["counts"].items() if k != "k1" and v}
+        if run["counts"]["k1"] != k1 or others:
+            raise AssertionError(f"{name}: launches {run['counts']}, expected {k1} K1 only")
+    if not lr_closed_form:
+        raise AssertionError("a learning rate is off the one-cycle closed form")
+    if any(run["demo_errors"] for run in runs.values()) or demo_faults:
+        raise AssertionError(f"a demo failed: errors "
+                             f"{ {k: r['demo_errors'] for k, r in runs.items()} }, "
+                             f"missing or bad media {demo_faults}")
+    if resumed["start_digest"] != mixer["end_digest"] or \
+            mixer["start_digest"]["params"] == mixer["end_digest"]["params"]:
+        raise AssertionError("the mixer did not train, or the resumed run did not start "
+                             "from the saved bits")
+    return mixer["counts"]["k1"] + effects["counts"]["k1"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1634,6 +1974,10 @@ def main() -> int:
     k4 = phase_kernels_k4()
     phase_train_model()
     train = phase_train(clap_module)
+    del clap_module
+    torch.cuda.empty_cache()
+    phase_train_aa_model()
+    train_aa = phase_train_aa()
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -1647,7 +1991,7 @@ def main() -> int:
         entry("groupnorm1_gelu", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
               launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
-                                "mirage": counts["k1"]}),
+                                "mirage": counts["k1"], "train_aa": train_aa}),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
