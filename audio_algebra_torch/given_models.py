@@ -1,13 +1,28 @@
 """given_models — the spectrogram autoencoders, the DVAE wrapper of the
-Destructo path and the MIRAGE model CLAPDAE.
+Destructo path, the stacked diffusion AE, DMAE, RAVE and the MIRAGE
+model CLAPDAE.
 
 Port of audio_algebra_tpu/given_models.py: GivenModelClass (forward and
-`model(x)`, setup, match_sizes, zero_pad_po2, next_power_of_2) and its
-subclasses SpectrogramAE, MagSpectrogramAE, MagDPhaseSpectrogramAE,
-MelSpectrogramAE, DVAEWrapper and CLAPDAE, with JAX's `setup` signatures;
-`setup` reads no checkpoint yet and keeps the seeded weights. Each takes
-an explicit `device` (default "cuda") and draws its random numbers from
-its own torch.Generator unless the caller hands them in.
+`model(x)`, setup, get_checkpoint, match_sizes, zero_pad_po2,
+next_power_of_2) and its subclasses SpectrogramAE, MagSpectrogramAE,
+MagDPhaseSpectrogramAE, MelSpectrogramAE, DVAEWrapper,
+StackedDiffAEWrapper, DMAE1d, RAVEWrapper and CLAPDAE, with JAX's
+`setup` signatures. Each takes an explicit `device` (default "cuda") and
+draws its random numbers from its own torch.Generator unless the caller
+hands them in.
+
+Checkpoints. `setup` reads the reference's torch file named by
+`ckpt_info['ckpt_path']` (CLAPDAE: the environment variables
+LATENT_DIFFAE_CKPT, CLAP_CKPT and CLAPDAE_CKPT_{22s,66s}) and pours it
+into the model through convert.py, printing the hit and miss counts;
+without a file, or when it does not load, the weights stay the seeded
+random ones, with JAX's messages. `get_checkpoint` checks a file's
+SHA-256 against `ckpt_info['ckpt_hash']` and raises RuntimeError on a
+mismatch. It downloads (curl) only when the caller puts a URL in
+`ckpt_info['ckpt_url']`: the port's wrappers carry none by default (the
+JAX package's DVAE and DMAE URLs are Google Drive share pages, which a
+plain fetch does not serve), so no run of the port reaches the network
+unless asked to.
 
 The spectrogram models run on the port's STFT front end (ops/stft.py,
 ops/mel.py, ops/phase.py), whose forward STFT is kernel K6 on the card:
@@ -25,9 +40,17 @@ is the float one. The noise is an attribute the caller may set
 (`w.noise = ...`, shape (B, 2, sample_size)).
 
 The wrapper holds one set of weights, the ones inference uses (the JAX
-wrapper's `params_ema`). Without a checkpoint they are the seeded random
-weights of utils/params.random_init_; `load_flax_params(tree)` loads a
-flax params tree instead.
+wrapper's `params_ema`; a checkpoint's EMA copy). Without a checkpoint
+they are the seeded random weights of utils/params.random_init_;
+`load_flax_params(tree)` loads a flax params tree instead.
+
+StackedDiffAEWrapper (the two-stage LatentAudioDiffusionAutoencoder):
+encode to stage-2 latents; decode_stage1to2 samples the stage-1 latents
+by v-DDIM over `diffusion_v` (kernel K1 on the card), decode_stage2 is
+the AE decode. DMAE1d: archinet's DiffusionAE around 48 <-> 44.1 kHz
+resampling; its mel front end is K6 at center=False, its decode a 50-step
+v-DDIM. RAVEWrapper: RAVE v2 on PQMF bands, with an export's latent PCA
+applied when its checkpoint carries one.
 
 CLAPDAE. `embed` turns a text prompt or a clip into a (1, 1, 512) CLAP
 embedding (models/clap.py: the HTSAT audio tower on the mel front end,
@@ -39,17 +62,28 @@ the AudioAutoencoder decode.
 """
 from __future__ import annotations
 
+import hashlib
 import inspect
+import os
+import subprocess
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .checkpoint import load_torch_checkpoint
+from .convert import (convert_dmae_state_dict, convert_ldm_state_dict,
+                      convert_rave_state_dict, convert_stacked_state_dict,
+                      extract_rave_latent_transform, load_torchscript_state_dict, pour)
+from .convert_dvae import convert_dvae_state_dict
 from .device import resolve_device
 from .models.blocks import TURBO_MIN_B
 from .models.clap import CLAPModule
+from .models.dmae import DiffusionAE1d
 from .models.dvae import DiffusionDVAE
+from .models.rave import RAVE
 from .models.stacked import LatentAudioDiffusionAutoencoder, StackedAELatentDiffusionCond
 from .models.unet_cfg1d import precompute_rel_biases
 from .samplers.kdiff import kdiff_sample
@@ -57,11 +91,23 @@ from .samplers.vddim import resample_diffusion
 from .samplers.vddim import sample as vddim_sample
 from .ops.mel import inverse_mel_scale, melspectrogram
 from .ops.phase import mag_dphase_decode, mag_dphase_encode
+from .ops.resample import resample
 from .ops.stft import griffin_lim, inverse_spectrogram, spectrogram
 from .utils import params as params_mod
 
 __all__ = ["GivenModelClass", "SpectrogramAE", "MagSpectrogramAE",
-           "MagDPhaseSpectrogramAE", "MelSpectrogramAE", "DVAEWrapper", "CLAPDAE"]
+           "MagDPhaseSpectrogramAE", "MelSpectrogramAE", "DVAEWrapper",
+           "StackedDiffAEWrapper", "DMAE1d", "RAVEWrapper", "CLAPDAE"]
+
+NO_CKPT = {"ckpt_path": "", "ckpt_url": "", "ckpt_hash": "", "gdrive_path": ""}
+
+
+def _sha256(path: str) -> str:
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    return digest.hexdigest()
 
 
 class GivenModelClass:
@@ -71,10 +117,14 @@ class GivenModelClass:
     length."""
 
     def __init__(self, zero_pad: bool = True, make_sizes_match: bool = True,
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 ckpt_info: Optional[dict] = None, seed: int = 0,
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.zero_pad, self.make_sizes_match = zero_pad, make_sizes_match
         self.orig_shape = None
+        self.ckpt_info = dict(ckpt_info or NO_CKPT)
+        self.ckpt_dir = os.path.expanduser("~/checkpoints")
+        self.name = type(self).__name__
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _as_input(self, a) -> torch.Tensor:
@@ -89,9 +139,45 @@ class GivenModelClass:
         return self.zero_pad_po2(x) if self.zero_pad else x
 
     def setup(self, gdrive: bool = True):
-        """JAX's hook for fetching and loading checkpoints. The port reads
-        no checkpoint yet: the weights stay the seeded random ones."""
+        """Fetch and load checkpoints; the spectrogram models have none."""
         return self
+
+    def get_checkpoint(self, gdrive: bool = True):
+        """Make sure the checkpoint file is there (JAX given_models.py:120-160).
+        A present file is checked against `ckpt_info['ckpt_hash']` when one
+        is given: a mismatch raises RuntimeError. A missing file is fetched
+        with curl only when `ckpt_info['ckpt_url']` is set, and removed if
+        it fails its hash; with no URL nothing happens and setup goes on
+        with random weights."""
+        info = self.ckpt_info
+        if not info or all(v == "" for v in info.values()):
+            print("No checkpoint info available.")
+            return
+        ckpt_file = os.path.expanduser(info.get("ckpt_path", ""))
+        if ckpt_file and os.path.exists(ckpt_file):
+            print("Checkpoint found!")
+            if info.get("ckpt_hash"):
+                # a raise, not an assert: `python -O` strips asserts
+                if _sha256(ckpt_file) != info["ckpt_hash"]:
+                    raise RuntimeError("Hashes don't match. STOP. DO NOT EXECUTE.")
+                print("Checkpoint hash checks out.")
+            return
+        url = info.get("ckpt_url", "")
+        if url and ckpt_file:
+            print(f"Downloading to {ckpt_file}")
+            try:
+                os.makedirs(os.path.dirname(ckpt_file) or ".", exist_ok=True)
+                # an argv, not a shell string; --fail keeps an HTTP error
+                # page from being saved as the checkpoint
+                subprocess.run(["curl", "-L", "--fail", "--connect-timeout", "5",
+                                "--max-time", "300", url, "-o", ckpt_file],
+                               check=True, timeout=330)
+                if info.get("ckpt_hash") and _sha256(ckpt_file) != info["ckpt_hash"]:
+                    os.remove(ckpt_file)
+                    print("Downloaded file failed its SHA-256 check; "
+                          "removed. Continuing without checkpoint")
+            except Exception as e:
+                print(f"Download failed ({e}); continuing without checkpoint")
 
     def forward(self, waveform):
         """encode then decode; returns (reps, recons)."""
@@ -223,32 +309,21 @@ class MelSpectrogramAE(GivenModelClass):
             init_angle=init_angle, generator=self.generator))
 
 
-class DVAEWrapper(GivenModelClass):
-    DEFAULT_ARGS = {"num_quantizers": 0, "sample_size": 65536, "demo_steps": 50,
-                    "sample_rate": 48000, "latent_dim": 64, "pqmf_bands": 1}
+class _TorchWrapper(GivenModelClass):
+    """A given model around one torch module, held on `device` in `dtype`,
+    with the seeded random weights until a checkpoint or a flax tree is
+    loaded."""
 
-    def __init__(self, args_dict: Optional[dict] = None,
-                 model_kwargs: Optional[dict] = None, seed: int = 0,
-                 device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32, turbo: bool = False,
-                 turbo_min_b: int = TURBO_MIN_B, **kwargs):
+    def __init__(self, model: torch.nn.Module, seed: int = 0,
+                 device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
+                 **kwargs):
         super().__init__(seed=seed, device=device, **kwargs)
-        self.dtype = dtype
-        self.turbo, self.turbo_min_b = turbo, turbo_min_b
-        args = dict(self.DEFAULT_ARGS)
-        args.update(args_dict or {})
-        self.seed = seed
-        self.model = DiffusionDVAE(
-            latent_dim=args["latent_dim"], pqmf_bands=args["pqmf_bands"],
-            num_quantizers=args["num_quantizers"], **(model_kwargs or {}))
-        self.model.eval()
+        self.seed, self.dtype = seed, dtype
+        self.model = model.eval()
         self._loaded = False
-        self.noise: Optional[torch.Tensor] = None
-        self.demo_steps = args["demo_steps"]
-        self.demo_samples = args["sample_size"]
 
     def load_flax_params(self, tree: dict) -> None:
-        """Load a flax params tree (e.g. the JAX wrapper's params_ema)."""
+        """Load a flax params tree (the JAX wrapper's `params`)."""
         params_mod.load_flax_params(self.model, tree)
         self.model.to(self.device, self.dtype)
         self._loaded = True
@@ -260,22 +335,74 @@ class DVAEWrapper(GivenModelClass):
             self.model.to(self.device, self.dtype)
             self._loaded = True
 
-    def setup(self, gdrive: bool = True) -> "DVAEWrapper":
-        """JAX's checkpoint hook. The port reads no checkpoint yet: it says
-        so and keeps the seeded random weights, as JAX does without a
-        file."""
-        print("DVAEWrapper: no checkpoint is read; going with random weights")
-        self.ensure_params()
-        return self
-
     def _as_input(self, a) -> torch.Tensor:
         if isinstance(a, np.ndarray):
-            a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(self.device, self.dtype)
+            a = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        return torch.as_tensor(a).to(self.device, self.dtype)
+
+    def _noise(self, shape, given) -> torch.Tensor:
+        if given is not None:
+            return self._as_input(given)
+        return torch.randn(shape, generator=self.generator, device=self.device,
+                           dtype=torch.float32).to(self.dtype)
+
+    def _pour_file(self, converter) -> None:
+        """Pour the torch file at ckpt_info['ckpt_path'] through
+        `converter`, or keep the random weights with JAX's message."""
+        self.ensure_params()
+        try:
+            sd = load_torch_checkpoint(os.path.expanduser(self.ckpt_info["ckpt_path"]))
+            print(f"{self.name}: loaded torch state dict ({len(sd)} tensors)")
+            pour(self.model, converter, sd)
+        except Exception as e:
+            print(f"Sorry, exception = {e}. Going with random weights")
+
+
+class DVAEWrapper(_TorchWrapper):
+    """The DiffusionDVAE of the Destructo path: encode to tanh latents,
+    decode by v-DDIM. `setup` pours the reference's checkpoint (its EMA
+    copy)."""
+
+    DEFAULT_ARGS = {"num_quantizers": 0, "sample_size": 65536, "demo_steps": 50,
+                    "sample_rate": 48000, "latent_dim": 64, "pqmf_bands": 1}
+
+    def __init__(self, args_dict: Optional[dict] = None,
+                 model_kwargs: Optional[dict] = None, turbo: bool = False,
+                 turbo_min_b: int = TURBO_MIN_B, **kwargs):
+        args = dict(self.DEFAULT_ARGS)
+        args.update(args_dict or {})
+        super().__init__(DiffusionDVAE(
+            latent_dim=args["latent_dim"], pqmf_bands=args["pqmf_bands"],
+            num_quantizers=args["num_quantizers"], **(model_kwargs or {})), **kwargs)
+        self.turbo, self.turbo_min_b = turbo, turbo_min_b
+        self.noise: Optional[torch.Tensor] = None
+        self.demo_steps = args["demo_steps"]
+        self.demo_samples = args["sample_size"]
+        # the reference checkpoint's path and hash; no URL (see the module
+        # docstring): set ckpt_info["ckpt_url"] to fetch it
+        self.ckpt_info = {"ckpt_url": "", "gdrive_path": "MyDrive/AI/checkpoints/DiffusionDVAE.ckpt",
+                          "ckpt_hash": "6a304c3e89ea3f7ca023f4c9accc5df8de0504595db41961cc7e8b0d07876ef5",
+                          "ckpt_path": "~/checkpoints/dvae_checkpoint.ckpt"}
+
+    def setup(self, gdrive: bool = True) -> "DVAEWrapper":
+        """Pour the torch checkpoint at ckpt_info['ckpt_path'] (its EMA
+        copy, convert_dvae.py); without one the seeded random weights
+        stay."""
+        ckpt_file = os.path.expanduser(self.ckpt_info["ckpt_path"])
+        print(f"DVAE: attempting to load checkpoint {ckpt_file}")
+        self.get_checkpoint(gdrive=gdrive)
+        self.ensure_params()
+        try:
+            hits, misses = pour(self.model, convert_dvae_state_dict,
+                                load_torch_checkpoint(ckpt_file))
+            print(f"DVAE: converted torch checkpoint — {hits} tensors mapped, "
+                  f"{len(misses)} unmapped (kept random)")
+        except Exception as e:
+            print(f"Sorry, exception = {e}. Going with random weights")
+        return self
 
     def _draw_noise(self, batch: int) -> torch.Tensor:
-        return torch.randn((batch, 2, self.demo_samples), generator=self.generator,
-                           device=self.device, dtype=torch.float32).to(self.dtype)
+        return self._noise((batch, 2, self.demo_samples), None)
 
     @torch.inference_mode()
     def encode(self, waveform) -> torch.Tensor:
@@ -312,6 +439,201 @@ class DVAEWrapper(GivenModelClass):
         return fakes.transpose(0, 1).reshape(d, b * n)
 
 
+class StackedDiffAEWrapper(_TorchWrapper):
+    """The two-stage LatentAudioDiffusionAutoencoder (JAX
+    given_models.py:475): `encode` to stage-2 latents, `decode_stage1to2`
+    samples the stage-1 latents by v-DDIM, `decode_stage2` decodes them to
+    audio. The JAX package's turbo route of the stage-1 sampler is not
+    ported."""
+
+    DEFAULT_FIRST_STAGE = {"capacity": 64, "c_mults": [2, 4, 8, 16, 32],
+                           "strides": [2, 2, 2, 2, 2], "latent_dim": 32}
+
+    def __init__(self, debug: bool = True, first_stage_config: Optional[dict] = None,
+                 ckpt_info: Optional[dict] = None, model_kwargs: Optional[dict] = None,
+                 **kwargs):
+        self.first_stage_config = fsc = first_stage_config or self.DEFAULT_FIRST_STAGE
+        super().__init__(LatentAudioDiffusionAutoencoder(
+            latent_dim=fsc["latent_dim"], ae_capacity=fsc["capacity"],
+            ae_c_mults=tuple(fsc["c_mults"]), ae_strides=tuple(fsc["strides"]),
+            **(model_kwargs or {})), **kwargs)
+        self.debug = debug
+        self.latent_dim = self.model.latent_dim
+        self.latent_downsampling_ratio = self.model.latent_downsampling_ratio
+        self.ckpt_info = ckpt_info or {
+            "ckpt_path": "~/checkpoints/stacked-diffae-more-310k.ckpt",
+            "ckpt_hash": "91f33839ecb6e3c41b1e89e1a9e0de0dac2ebe1795efa034797429c202600a58",
+            "ckpt_url": "", "gdrive_path": ""}
+
+    @torch.inference_mode()
+    def encode(self, reals) -> torch.Tensor:
+        """(B, 2, T) audio -> (B, 32, T / 512) stage-2 latents."""
+        self.ensure_params()
+        return self.model.encode(self._as_input(reals))
+
+    @torch.inference_mode()
+    def decode_stage1to2(self, small_reps, steps: int = 100, noise=None) -> torch.Tensor:
+        """Stage-2 latents (B, C, n) -> stage-1 latents (B, 32, n * 16) by
+        v-DDIM from `noise` (drawn from `generator` unless given)."""
+        self.ensure_params()
+        small = self._as_input(small_reps)
+        noise = self._noise((small.shape[0], self.latent_dim,
+                             small.shape[2] * self.latent_downsampling_ratio), noise)
+        return vddim_sample(self.model.diffusion_v, noise, steps, 0, small)
+
+    @torch.inference_mode()
+    def decode_stage2(self, first_stage_sampled, steps: int = 100) -> torch.Tensor:
+        """Stage-1 latents -> audio: the AE decode of the clamped latents.
+        `steps` is unused, as in the reference (no sampling here)."""
+        self.ensure_params()
+        return self.model.decode_first_stage(
+            torch.clamp(self._as_input(first_stage_sampled), -1, 1))
+
+    def decode(self, reps, steps: int = 100, noise=None) -> torch.Tensor:
+        return self.decode_stage2(self.decode_stage1to2(reps, steps=steps, noise=noise),
+                                  steps=steps)
+
+    def setup(self, gdrive: bool = True) -> "StackedDiffAEWrapper":
+        """Pour the torch checkpoint at ckpt_info['ckpt_path'] with the EMA
+        swap (convert_stacked_state_dict)."""
+        print(f"{self.name}: attempting to load checkpoint {self.ckpt_info['ckpt_path']}")
+        self.get_checkpoint(gdrive=gdrive)
+        self._pour_file(convert_stacked_state_dict)
+        print(f"{self.name}: Setup completed.")
+        return self
+
+
+class DMAE1d(_TorchWrapper):
+    """archinet's DiffusionAE (JAX given_models.py:573): 48 kHz audio is
+    resampled to 44.1 kHz and zero-padded to a power of two, encoded by
+    the mel encoder (K6 at center=False on the card); decode is a 50-step
+    v-DDIM, resampled back to 48 kHz."""
+
+    def __init__(self, debug: bool = False, model_kwargs: Optional[dict] = None, **kwargs):
+        super().__init__(DiffusionAE1d(**(model_kwargs or {})), **kwargs)
+        self.debug = debug
+        self.ckpt_info = {
+            "ckpt_url": "", "ckpt_path": "~/checkpoints/dmae1d_checkpoint.ckpt",
+            "ckpt_hash": "a11a9c68e5962830b142202e25b3080f553a3a73cd944225b3c7d21fe8c631e9"}
+        self._cfg = {"downsample": self.model.downsampling_ratio}
+        self.num_steps = 50
+
+    def _pre(self, waveform_in) -> torch.Tensor:
+        w = self._as_input(waveform_in)
+        self.orig_shape = tuple(w.shape)
+        return self.zero_pad_po2(resample(w, 48000, 44100))
+
+    @torch.inference_mode()
+    def encode(self, waveform_in, *args, **kwargs) -> torch.Tensor:
+        """(B, 2, T) at 48 kHz -> (B, 32, T' / 1024) latents in [-1, 1]."""
+        self.ensure_params()
+        return self.model.encode(self._pre(waveform_in))
+
+    @torch.inference_mode()
+    def decode(self, latents, *args, num_steps: Optional[int] = None, noise=None,
+               **kwargs) -> torch.Tensor:
+        """Latents -> 48 kHz audio matched to the encoded input's length,
+        by v-DDIM from `noise` (B, 2, n * 1024) (drawn unless given)."""
+        self.ensure_params()
+        z = self._as_input(latents)
+        noise = self._noise((z.shape[0], 2, z.shape[-1] * self._cfg["downsample"]), noise)
+        out = vddim_sample(lambda x, t, cond: self.model.decode_v(x, t, cond), noise,
+                           num_steps or self.num_steps, 0, z)
+        return self.match_sizes(resample(out, 44100, 48000))
+
+    def forward(self, waveform_in, *args, **kwargs):
+        return self.decode(self.encode(waveform_in))
+
+    def setup(self, gdrive: bool = True) -> "DMAE1d":
+        """Pour the `model_state_dict` checkpoint (convert_dmae_state_dict)."""
+        print(f"{self.name}: attempting to load checkpoint "
+              f"{os.path.expanduser(self.ckpt_info['ckpt_path'])}")
+        self.get_checkpoint(gdrive=gdrive)
+        self._pour_file(convert_dmae_state_dict)
+        return self
+
+
+class RAVEWrapper(_TorchWrapper):
+    """RAVE v2 (JAX given_models.py:659) on mono audio: encode to the
+    posterior mean, decode with the noise head's uniform noise drawn from
+    `generator` (or given). `setup` reads a TorchScript export (.ts) or a
+    Lightning .ckpt; an export's latent PCA rotates the latents."""
+
+    latent_pca = None
+    latent_mean = None
+
+    def __init__(self, pretrained_name: str = "", checkpoint_file: str = "percussion",
+                 config_path: str = "./v2.gin", debug: bool = True,
+                 latent_dim: int = 128, n_bands: int = 16, **model_kwargs):
+        kwargs = {k: model_kwargs.pop(k) for k in
+                  ("zero_pad", "make_sizes_match", "ckpt_info", "seed", "device", "dtype")
+                  if k in model_kwargs}
+        super().__init__(RAVE(latent_dim=latent_dim, n_bands=n_bands, **model_kwargs),
+                         **kwargs)
+        self.config_path, self.debug = config_path, debug
+        if Path(checkpoint_file).suffix == "":
+            checkpoint_file += ".ts"
+        self.ckpt_info = {"ckpt_url": "", "ckpt_hash": "", "gdrive_path": "",
+                          "ckpt_path": f"{self.ckpt_dir}/{checkpoint_file}"}
+
+    def setup(self, gdrive: bool = False) -> "RAVEWrapper":
+        """A TorchScript archive (.ts) through torch.jit.load, a .ckpt
+        through its state dict; both pour by shape signature after the
+        weight-norm fusion."""
+        self.get_checkpoint(gdrive=gdrive)
+        path = os.path.expanduser(self.ckpt_info["ckpt_path"])
+        ext = Path(path).suffix
+        if self.debug:
+            print("extension =", ext)
+        self.ensure_params()
+        sd = None
+        try:
+            if ext in (".ts", "") and os.path.exists(path):
+                sd = load_torchscript_state_dict(path)
+            elif ext == ".ckpt" and os.path.exists(path):
+                sd = load_torch_checkpoint(path)
+            elif os.path.exists(path):
+                print(f"Sorry, we don't know how to load {ext} checkpoint "
+                      "files. Weights will be uninitialized.")
+        except Exception as e:
+            print(f"Sorry, exception = {e}. Going with random weights")
+        if sd:
+            print(f"{self.name}: loaded state dict ({len(sd)} tensors)")
+            pour(self.model, convert_rave_state_dict, sd)
+            pca, mean = extract_rave_latent_transform(sd)
+            if pca is not None and mean is not None and pca.shape[-1] == self.model.latent_dim:
+                self.latent_pca = torch.from_numpy(pca).to(self.device, self.dtype)
+                self.latent_mean = torch.from_numpy(mean).to(self.device, self.dtype)
+                print(f"{self.name}: applying exported latent PCA "
+                      f"({pca.shape[0]} of {pca.shape[1]} dims)")
+        return self
+
+    @torch.inference_mode()
+    def encode(self, waveform, **kwargs) -> torch.Tensor:
+        """(B, 1, T) or (1, T) mono -> (B, latent_dim (or the PCA's rows),
+        T / 2048)."""
+        self.ensure_params()
+        x = self._as_input(waveform)
+        if x.dim() == 2:
+            x = x[None]
+        z = self.model.encode(x)
+        if self.latent_pca is not None:
+            z = torch.einsum("ij,bjt->bit", self.latent_pca, z - self.latent_mean[None, :, None])
+        return z
+
+    @torch.inference_mode()
+    def decode(self, reps, noise=None, **kwargs) -> torch.Tensor:
+        """Latents -> (B, 1, T) audio. The PCA's rows are orthonormal, so
+        its inverse is the transpose plus the mean; a cropped export's
+        missing dims come back as zeros."""
+        self.ensure_params()
+        z = self._as_input(reps)
+        if self.latent_pca is not None:
+            z = torch.einsum("ji,bjt->bit", self.latent_pca, z) + self.latent_mean[None, :, None]
+        return self.model.decode(z, noise=None if noise is None else self._as_input(noise),
+                                 generator=self.generator)
+
+
 def _kwargs_of(cls, exclude=()) -> set:
     return {n for n in inspect.signature(cls.__init__).parameters
             if n not in ("self", *exclude)}
@@ -328,6 +650,7 @@ class CLAPDAE(GivenModelClass):
     `first_stage_config` and `model_kwargs` as in JAX (`factors2` names
     the inner UNet's factors). Without a checkpoint the weights are seeded
     random ones (utils/params.random_init_ with `seed` and `seed + 1`);
+    `setup` pours the checkpoints the environment names, and
     `load_flax_params(diffae_tree, ldm_tree)` loads flax trees instead.
     Noise is drawn from `generator` unless the caller passes it."""
 
@@ -339,10 +662,12 @@ class CLAPDAE(GivenModelClass):
     def __init__(self, clap_fusion: bool = True, clap_amodel: str = "HTSAT-base",
                  first_stage_config: Optional[dict] = None,
                  sample_size: int = SAMPLES_22S, model_kwargs: Optional[dict] = None,
-                 clap_kwargs: Optional[dict] = None,
+                 clap_kwargs: Optional[dict] = None, debug: bool = True,
                  seed: int = 0, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(seed=seed, device=device, **kwargs)
+        self.debug = debug
+        self.latent_diffae_setup = self.clap_setup = False
         self.clap_module = CLAPModule(enable_fusion=clap_fusion, amodel=clap_amodel,
                                       seed=seed + 2, device=self.device,
                                       **(clap_kwargs or {}))
@@ -419,16 +744,52 @@ class CLAPDAE(GivenModelClass):
         return self
 
     def setup(self, gdrive: bool = True, model_len: str = "22s") -> "CLAPDAE":
-        """Set the sample size of a model length: 22 s = 1,048,576 samples,
-        66 s = 3x (unless an explicit sample_size was given). Checkpoints
-        are not read yet (JAX reads them from environment variables): the
-        weights stay the seeded random ones."""
+        """Pour the three checkpoints the environment names (JAX
+        given_models.py:1135-1187): LATENT_DIFFAE_CKPT (the stage-1 stack),
+        CLAP_CKPT (CLAPModule.load_ckpt) and CLAPDAE_CKPT_{model_len} (the
+        generator, whose `latent_ae.*` stage-1 stack is poured too); random
+        weights where a variable is unset or its file absent. Sets the
+        sample size of the model length: 22 s = 1,048,576 samples, 66 s =
+        3x (unless an explicit sample_size was given)."""
         if model_len not in ("22s", "66s"):
             raise ValueError(f"model_len must be '22s' or '66s', got {model_len!r}")
+        print("\n ====== Setting up StackedAELatentCond ======")
+        self.ensure_params()
+        if not self.latent_diffae_setup:
+            path = os.environ.get("LATENT_DIFFAE_CKPT", "")
+            if path and os.path.exists(os.path.expanduser(path)):
+                try:
+                    sd = load_torch_checkpoint(path)
+                    print(f"Loaded Latent DiffAE state dict ({len(sd)} tensors)")
+                    pour(self.latent_diffae, convert_stacked_state_dict, sd)
+                except Exception as e:
+                    print(f"Sorry, exception = {e}. Going with random weights")
+            self.latent_diffae_setup = True
+        if not self.clap_setup:
+            clap_path = os.environ.get("CLAP_CKPT", "")
+            if clap_path:
+                self.clap_module.load_ckpt(ckpt=clap_path, verbose=self.debug)
+            self.clap_setup = True
+        ckpt_path = os.environ.get(f"CLAPDAE_CKPT_{model_len}", "")
         if not self._explicit_sample_size:
             self.sample_size = self.SAMPLES_22S * (3 if model_len == "66s" else 1)
         self.demo_samples = self.sample_size
-        print("CLAPDAE: no checkpoint is read; going with random weights")
+        if ckpt_path and os.path.exists(os.path.expanduser(ckpt_path)):
+            try:
+                sd = load_torch_checkpoint(ckpt_path)
+                print(f"Loaded StackedAELatentDiffusionCond state dict ({len(sd)} tensors)")
+                pour(self.latent_diffusion_model, convert_ldm_state_dict, sd)
+                # the generator checkpoint carries the stage-1 stack under
+                # latent_ae.* too: one file restores the whole generate()
+                latent_ae_sd = {k[len("latent_ae."):]: v for k, v in sd.items()
+                                if k.startswith("latent_ae.")}
+                if latent_ae_sd:
+                    pour(self.latent_diffae, convert_stacked_state_dict, latent_ae_sd)
+            except Exception as e:
+                print(f"Sorry, exception = {e}. Going with random weights")
+        else:
+            print("StackedAELatentDiffusionCond: starting from scratch!")
+        print(f"Success! {self.name} is ready to go.")
         return self
 
     # -- CLAP --

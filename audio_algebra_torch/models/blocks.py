@@ -142,11 +142,11 @@ class Conv1d(nn.Module):
     activations' dtype."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 5,
-                 stride: int = 1, dilation: int = 1):
+                 stride: int = 1, dilation: int = 1, use_bias: bool = True):
         super().__init__()
         self.stride, self.dilation = stride, dilation
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
 
     def _parts(self, parts):
         ofs = 0
@@ -231,6 +231,24 @@ class GroupNorm(nn.Module):
     def forward(self, x, film_scale=None, film_shift=None, silu: bool = True):
         return grouped_gn_film_silu(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                                     self.groups, film_scale, film_shift, silu)
+
+
+class PlainGroupNorm(nn.Module):
+    """flax nn.GroupNorm(num_groups) on (B, C, T) as plain torch group_norm
+    (eps 1e-6), for the models whose JAX code calls flax's GroupNorm and
+    no Pallas kernel (DMAE's UNetV0). `affine=False` is flax's
+    use_scale=use_bias=False: no parameters."""
+
+    def __init__(self, channels: int, groups: int, affine: bool = True):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
+
+    def forward(self, x):
+        w = None if self.weight is None else self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.group_norm(x, self.groups, w, b, eps=1e-6)
 
 
 class ConvTranspose1d(nn.Module):

@@ -24,8 +24,9 @@ windows' seam, -1e9 on padded tokens, the interpolation matrices of JAX
 the JAX package keeps CLAP in f32. Module and parameter names are the
 flax ones, so utils/params.load_flax_params pours a flax tree onto them.
 Without weights the towers take seeded random ones (utils/params.
-random_init_ with `seed` and `seed + 1`); pouring laion_clap or HF
-checkpoints is not ported.
+random_init_ with `seed` and `seed + 1`); `CLAPModule.load_ckpt` pours a
+laion_clap or HF ClapModel checkpoint (convert.convert_clap_state_dict),
+the tower sizes read from its shapes.
 
 Tokenizer: the exact byte-level BPE of utils/bpe.py over vocab.json +
 merges.txt in the asset directory; without them, byte-level ids in the
@@ -692,6 +693,43 @@ class CLAPModule:
         load_flax_params(self.audio_model, audio_tree)
         load_flax_params(self.text_model, text_tree)
         self._place()
+
+    def load_ckpt(self, ckpt=None, model_id=None, verbose: bool = False) -> None:
+        """laion_clap's signature (JAX models/clap.py:818): pour a torch CLAP
+        checkpoint, laion_clap / timm naming with fused qkv or HF
+        ClapModel naming, into the towers. The tower configs are inferred
+        from the checkpoint's shapes first and the towers rebuilt when they
+        differ; the skipped tensors are counted and printed. A file that
+        does not load leaves the seeded random weights, with JAX's
+        message."""
+        if ckpt is None:
+            if verbose:
+                print("CLAPModule: no checkpoint provided, keeping weights")
+            return
+        from ..checkpoint import load_torch_checkpoint
+        from ..convert import convert_clap_state_dict, infer_clap_cfgs
+        from ..utils.params import load_flax_params, to_flax_params
+
+        try:
+            sd = load_torch_checkpoint(ckpt)
+            if verbose:
+                print(f"CLAPModule: loaded {len(sd)} tensors from {ckpt}")
+            a_cfg, t_cfg = infer_clap_cfgs(sd, self.audio_cfg, self.text_cfg)
+            if a_cfg != self.audio_cfg or t_cfg != self.text_cfg:
+                if verbose:
+                    print("CLAPModule: re-instantiating towers to checkpoint "
+                          f"config (audio {a_cfg.patch_embed_hidden}-wide, "
+                          f"text {t_cfg.hidden}-wide)")
+                self.audio_cfg, self.text_cfg = a_cfg, t_cfg
+                self.audio_model = self.text_model = None
+            self.ensure_params()
+            audio, text, _, _ = convert_clap_state_dict(
+                sd, {"params": to_flax_params(self.audio_model)},
+                {"params": to_flax_params(self.text_model)})
+            load_flax_params(self.audio_model, audio)
+            load_flax_params(self.text_model, text)
+        except Exception as e:   # the reference's fallback
+            print(f"CLAPModule: {e}. Going with random weights")
 
     def tokenizer_backend(self) -> tuple:
         return tokenizer_backend(self.text_cfg, self.asset_dir)

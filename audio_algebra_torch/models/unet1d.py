@@ -105,7 +105,10 @@ class DiffusionAttnUnet1D(nn.Module):
         self.timestep_embed = FourierFeatures(timestep_features)
         self.down = Downsample1d()
         self.up = Upsample1d()
-        c_in = n_io + timestep_features + cond_dim
+        # the input is x's io_channels, as the JAX package's params take it
+        # (its template is built from (B, io_channels, T) audio); the
+        # output has n_io = io_channels * pqmf_bands, as JAX's
+        c_in = io_channels + timestep_features + cond_dim
         idx = 0
         for j in range(self.depth):
             setattr(self, f"stack_{idx:03d}",

@@ -1,5 +1,6 @@
-"""Host-side polyphase resampling (numpy), the port's own copy of
-audio_algebra_tpu.ops.resample.resample_np.
+"""Polyphase resampling: on the host (numpy, `resample_np`) and on the
+device (torch, `resample`), the port's own copy of
+audio_algebra_tpu.ops.resample.
 
 A rational resampler (up L, down M) is y[bL + r] = sum_u x[bM + u] K[u, r]:
 every block of L output samples is a linear map of a W-sample input
@@ -13,6 +14,10 @@ import functools
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import full_f32
 
 
 @functools.lru_cache(maxsize=32)
@@ -63,3 +68,24 @@ def resample_np(x: np.ndarray, orig_freq: int, new_freq: int,
     idx = np.arange(n_blocks)[:, None] * M + np.arange(W)[None, :]
     y = xp[..., idx] @ A
     return y.reshape(*x.shape[:-1], n_blocks * L)[..., :t_out]
+
+
+def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
+             lowpass_filter_width: int = 6, rolloff: float = 0.99) -> torch.Tensor:
+    """Resample the last axis of a tensor from orig_freq to new_freq on its
+    device: the same framed product as `resample_np`, in full f32. Output
+    length ceil(T L / M)."""
+    if orig_freq == new_freq:
+        return x
+    halo, W, A, L, M = _block_matrix(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    t_in = x.shape[-1]
+    t_out = int(math.ceil(t_in * L / M))
+    n_blocks = -(-t_out // L)
+    pad_right = max(0, (n_blocks - 1) * M + (W - halo) - t_in)
+    lead = x.shape[:-1]
+    xp = F.pad(x.reshape(-1, t_in), (halo, pad_right))
+    frames = xp.unfold(-1, W, M)[:, :n_blocks]                  # (rows, n_blocks, W)
+    a = torch.from_numpy(A).to(x.device, torch.float32)
+    with full_f32():
+        y = torch.matmul(frames.float(), a)
+    return y.reshape(*lead, n_blocks * L)[..., :t_out].to(x.dtype)

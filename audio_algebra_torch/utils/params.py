@@ -9,7 +9,7 @@ nested dicts of numpy arrays maps onto the torch state by name:
   Conv (2-D) kernel (kh, kw, in, out)  clap.Conv2d.weight (out, in, kh, kw)
   ConvTranspose kernel (K, Cout, Cin)  ConvTranspose1d.weight (Cin, Cout, K)
   Dense     kernel (in, out)           Dense / Linear.weight (out, in)
-  GroupNorm scale (C,)                 GroupNorm1 / GroupNorm.weight
+  GroupNorm scale (C,)                 GroupNorm1 / GroupNorm / PlainGroupNorm.weight
   LayerNorm scale (C,)                 LayerNorm.weight
   FourierFeatures weight (out/2, 1)    FourierFeatures.weight, as is
   Embed     embedding (N, C)           clap.Embed.embedding, as is
@@ -18,7 +18,7 @@ nested dicts of numpy arrays maps onto the torch state by name:
   BatchNorm batch_stats mean, var      aa.BatchNorm's buffers of those names
   rel_pos_bias, fixed_embedding,       the parameter of that name, as is
   token_type_embeddings, bn_scale,
-  bn_bias, bn_mean, bn_var
+  bn_bias, bn_mean, bn_var, codes
   any       bias                       bias
 
 `load_flax_params` raises on any leaf left over or missing. It is the
@@ -45,12 +45,12 @@ from torch import nn
 
 from ..models.aa import BatchNorm
 from ..models.blocks import (Conv1d, ConvTranspose1d, Dense, FourierFeatures, GroupNorm,
-                             GroupNorm1, LayerNorm, Linear)
+                             GroupNorm1, LayerNorm, Linear, PlainGroupNorm)
 from ..models.clap import _BN, Conv2d
 
 # parameters that keep their flax name and layout
 _AS_IS = ("rel_pos_bias", "fixed_embedding", "token_type_embeddings", "embedding",
-          "bn_scale", "bn_bias", "bn_mean", "bn_var")
+          "bn_scale", "bn_bias", "bn_mean", "bn_var", "codes")
 
 
 def _same(a):
@@ -68,7 +68,7 @@ def _flax_leaf(owner: nn.Module, leaf: str) -> tuple[str, Any, Any]:
         return "kernel", lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1)
     if isinstance(owner, (Dense, Linear)):
         return "kernel", lambda a: a.T, lambda a: a.T
-    if isinstance(owner, (GroupNorm1, GroupNorm, LayerNorm)):
+    if isinstance(owner, (GroupNorm1, GroupNorm, PlainGroupNorm, LayerNorm)):
         return "scale", _same, _same
     if isinstance(owner, FourierFeatures):
         return "weight", _same, _same

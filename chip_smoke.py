@@ -48,7 +48,8 @@ Phases, each printing one JSON line:
   kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
-                1024/256 and CLAP's (1, 1048576) 1024/480 (no further from
+                1024/256, CLAP's (1, 1048576) 1024/480 and DMAE's mel (8,
+                66304) 1024/256 at center=False (no further from
                 float64 than the twin), the DFT product at (32, 65536)
                 1000/250; each timed beside the twin, torch.stft (cuFFT),
                 its byte bound and the DFT's operations bound, per call and
@@ -120,6 +121,18 @@ Phases, each printing one JSON line:
                 form, the resumed state against the saved bits, ms a step
                 split into host data, frozen encode and algebra + Adam, peak
                 memory
+
+  checkpoints   the reference's torch checkpoints poured through each
+                wrapper's setup at its default width, from files a
+                reference-layout mirror (tests/torch_mirrors.py) writes:
+                DVAE, the stacked diffusion AE, DMAE, RAVE (.ckpt and .ts)
+                and MIRAGE (CLAPDAE_CKPT_22s, LATENT_DIFFAE_CKPT); every
+                pour without a miss, the port's forward (kernels, f32)
+                against the mirror's EMA copy (rel-RMS < 1e-4, MIRAGE's
+                UNetCFG1d < 1e-3), DMAE's encode through K6 at center=False
+                against the twin, Destructo (bf16, B = 4 x 65536, 35 steps)
+                and a MIRAGE generate (bf16, 10 + 10 steps) from the poured
+                weights; launch counts of K1, K3, K5 and K6 asserted
 
 The phases run in the order above, Destructo's first. Then the `kernels`
 summary line, the card's name and power limit from nvidia-smi, and last
@@ -195,10 +208,30 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL_RMS = 1e-4, 1e-3
 AA_BATCH, AA_FILES, AA_DIMS, AA_FADERS = 128, 256, 64, (1.1, -0.8)
 AA_LOSS_REL, AA_GRAD_REL_RMS, AA_GRAM_REL = 1e-5, 1e-4, 1e-9
 K1_PER_AA_DEMO = 2 * STEPS * GN_CALLS_PER_FORWARD
+# the checkpoints phase: each model's forward against its mirror's, f32
+# (MIRAGE's UNetCFG1d at its own 1e-3); the MIRAGE generate at 10 + 10 steps.
+# DMAE's mel at its default: 48 kHz (4, 2, 65536) -> 44.1 kHz, padded to
+# 65536, reflect-padded by (1024 - 256) / 2 -> 8 rows of 66304, center=False
+CKPT_REL_RMS, CKPT_STEPS = 1e-4, 10
+DMAE_STFT = (8, CHUNK + 1024 - 256)
+DMAE_FULL = dict(channels=(256, 512, 512, 512, 1024, 1024, 1024), factors=(1, 2, 2, 2, 2, 2, 2),
+                 items=(1, 2, 2, 2, 2, 2, 2), linear_attentions=(0, 1, 1, 1, 1, 1, 1),
+                 attention_features=64, attention_heads=8, inject_depth=4, latent_dim=32,
+                 resnet_groups=8, num_filters=128, window_length=128, lt_stride=64,
+                 enc_channels=512, enc_multipliers=(1, 1, 1), enc_factors=(2, 2),
+                 enc_num_blocks=(4, 8), n_mels=80)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -924,44 +957,48 @@ def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
 def phase_kernels_k6() -> dict:
     """K6 on both routes, each against its twin and float64 and timed beside
     the twin, torch.stft and the bounds: the FFT at the spectrogram models'
-    shape and at CLAP's 22 s clip, the DFT product at a non-power-of-two
-    n_fft. Returns the rows by route, the first of each."""
+    shape, at CLAP's 22 s clip and at DMAE's mel (center=False, no reflect
+    pad), the DFT product at a non-power-of-two n_fft. Returns the rows by
+    route, the first of each, and DMAE's row under "center_false"."""
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
 
     dev = torch.device("cuda")
     rows = []
-    for shape, n_fft, hop in [((32, 65536), 1024, 256), ((1, CLAP_LONG), 1024, 480),
-                              ((32, 65536), 1000, 250)]:
+    for shape, n_fft, hop, center in [((32, 65536), 1024, 256, True),
+                                      ((1, CLAP_LONG), 1024, 480, True),
+                                      (DMAE_STFT, 1024, 256, False),
+                                      ((32, 65536), 1000, 250, True)]:
         g = torch.Generator(device=dev).manual_seed(400 + len(rows))
         x = torch.randn(shape, generator=g, device=dev) * 0.5
         route = "fft" if stk.uses_fft(n_fft) else "dft"
         before = (stk.fft_launches, stk.dft_launches)
-        got = stk.stft_fused(x, n_fft, hop)
+        got = stk.stft_fused(x, n_fft, hop, center)
         torch.cuda.synchronize()
         took = {"fft": stk.fft_launches - before[0], "dft": stk.dft_launches - before[1]}
-        want = stk.stft_ref(x, n_fft, hop)
+        want = stk.stft_ref(x, n_fft, hop, center)
         atol, rtol = STFT_TOL
         err = (got - want).abs()
         window = torch.hann_window(n_fft, device=dev)
         # both against the same STFT in float64: how far each is from exact
-        exact = torch.stft(x.double(), n_fft, hop, window=window.double(), center=True,
+        exact = torch.stft(x.double(), n_fft, hop, window=window.double(), center=center,
                            pad_mode="reflect", return_complex=True)
         rows.append({
             "route": route, "route_launches": took,
-            "shape": list(shape), "n_fft": n_fft, "hop": hop, "dtype": "float32",
+            "shape": list(shape), "n_fft": n_fft, "hop": hop, "center": center,
+            "dtype": "float32",
             "out_shape": list(got.shape), "max_abs_err": float(err.max()), "atol": atol,
             "rtol": rtol, "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
             "kernel_max_abs_err_vs_f64": float((got - exact).abs().max()),
             "plain_max_abs_err_vs_f64": float((want - exact).abs().max()),
-            "kernel_ms": cuda_ms(lambda: stk.stft_fused(x, n_fft, hop), 20),
-            "plain_ms": cuda_ms(lambda: stk.stft_ref(x, n_fft, hop), 20),
+            "kernel_ms": cuda_ms(lambda: stk.stft_fused(x, n_fft, hop, center), 20),
+            "plain_ms": cuda_ms(lambda: stk.stft_ref(x, n_fft, hop, center), 20),
             "library_ms": cuda_ms(lambda: torch.stft(
-                x, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                x, n_fft, hop, window=window, center=center, pad_mode="reflect",
                 return_complex=True), 20),
-            "kernel_device_ms": device_ms(lambda: stk.stft_fused(x, n_fft, hop), 20),
+            "kernel_device_ms": device_ms(lambda: stk.stft_fused(x, n_fft, hop, center), 20),
             "library_device_ms": device_ms(lambda: torch.stft(
-                x, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                x, n_fft, hop, window=window, center=center, pad_mode="reflect",
                 return_complex=True), 20),
             **stft_bounds(shape[0], shape[1], n_fft, got.shape[-1])})
         del x, got, want, err, exact
@@ -975,7 +1012,9 @@ def phase_kernels_k6() -> dict:
                and r["kernel_max_abs_err_vs_f64"] > r["plain_max_abs_err_vs_f64"]]
     if farther:
         raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
-    return {route: next(r for r in rows if r["route"] == route) for route in ("fft", "dft")}
+    out = {route: next(r for r in rows if r["route"] == route) for route in ("fft", "dft")}
+    out["center_false"] = next(r for r in rows if not r["center"])
+    return out
 
 
 def _synced_s(fn):
@@ -1930,6 +1969,341 @@ def phase_train_aa() -> dict:
     return mixer["counts"]["k1"] + effects["counts"]["k1"]
 
 
+def _test_module(name: str):
+    """A torch-only helper of tests/ (torch_mirrors, torch_export), loaded by
+    path: the reference-layout models whose files the checkpoints phase
+    writes."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Tee:
+    """stdout to the terminal and to a buffer, to read a setup's report."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+POUR_LINE = re.compile(r"([\w ]+): converted (\d+) tensors \((\d+) unmatched torch tensors, "
+                       r"(\d+) flax params left at init\)")
+
+
+def _setup(name: str, fn, files) -> dict:
+    """Run a wrapper's setup with its printed report kept: seconds, the
+    file sizes and every pour's hits and misses. Fails on a fallback to
+    random weights or on any miss; the forward check after it is the proof
+    that the weights landed."""
+    import contextlib
+    import io
+
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        fn()
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    pours = [{"model": m[0].strip(), "hits": int(m[1]), "unmatched": int(m[2]),
+              "left_at_init": int(m[3])} for m in POUR_LINE.findall(text)]
+    report = {"setup_s": time.time() - t0, "pours": pours,
+              "file_mb": {Path(f).name: Path(f).stat().st_size / 1e6 for f in files}}
+    if "Going with random weights" in text or not pours or \
+            any(p["unmatched"] or p["left_at_init"] or not p["hits"] for p in pours):
+        raise AssertionError(f"checkpoints: {name} did not pour whole: {report}")
+    return report
+
+
+def _ckpt_info(path) -> dict:
+    """ckpt_info for a local file: its path and SHA-256 (checked by
+    get_checkpoint), no URL, so no fetch is ever tried."""
+    from audio_algebra_torch.given_models import _sha256
+    return {"ckpt_path": str(path), "ckpt_hash": _sha256(path), "ckpt_url": "",
+            "gdrive_path": ""}
+
+
+def _perturb(module, seed: int) -> None:
+    """Move a main copy away from its EMA twin, so the pour must take the
+    EMA copy to agree with it."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=p.device))
+
+
+def _finite(x) -> bool:
+    import torch
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("checkpoints: a non-finite output")
+    return True
+
+
+def _against_mirror(got, want, bound) -> dict:
+    err = rel_rms(got.float(), want.float())
+    if not err < bound:
+        raise AssertionError(f"checkpoints: rel-RMS {err} against the mirror, bound {bound}")
+    return {"rel_rms": err, "bound": bound, "shape": list(got.shape), "finite": _finite(got),
+            "mirror_rms": float(want.float().square().mean().sqrt())}
+
+
+def phase_checkpoints() -> dict:
+    """The reference's torch checkpoints poured through each wrapper's
+    `setup`, at each wrapper's default width. For each model a
+    reference-layout mirror (tests/torch_mirrors.py) is built, its main
+    copy perturbed away from its EMA twin, saved with torch.save in the
+    reference's layout, read by setup (no URL), and the port's forward
+    (kernels on, f32) held against the mirror's EMA copy (plain torch,
+    f32) on the same seeded input. DVAE (Lightning state_dict): encode and
+    decode_v, K1 191 a forward, then Destructo from the poured weights in
+    bf16 (B = 4 x 65536, 35 steps); stacked (the MIRAGE stage-1 stack):
+    encode, diffusion_v (K1 119), decode_first_stage; DMAE
+    (model_state_dict): encode_mel and decode_v, then the wrapper's whole
+    encode of (4, 2, 65536) through K6 at center=False against the STFT
+    twin; RAVE (.ckpt and TorchScript .ts): encode_bands and decode_bands
+    with the same noise; MIRAGE (CLAPDAE through CLAPDAE_CKPT_22s and
+    LATENT_DIFFAE_CKPT): one UNetCFG1d forward through K3 and K5, then a
+    bf16 generate at 10 + 10 steps. CLAP's pour is host numpy, held on the
+    CPU by tests/test_torch_convert.py against a transformers ClapModel:
+    the script needs no transformers, and the repository has no torch
+    CLAP mirror. Returns the phase's kernel launch counts."""
+    import torch
+    from audio_algebra_torch.destructo import mathemangle
+    from audio_algebra_torch.given_models import (CLAPDAE, DMAE1d, DVAEWrapper, RAVEWrapper,
+                                                  StackedDiffAEWrapper)
+    from audio_algebra_torch.models.unet_cfg1d import precompute_rel_biases
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    mirrors, export = _test_module("torch_mirrors"), _test_module("torch_export")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    counts = {"k1": 0, "k3": 0, "k5": 0, "k6": 0}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def launches():
+        return {"k1": gn.launches, "k3": fa.launches, "k5": ggn.launches, "k6": stk.launches}
+
+    def counted(fn):
+        """fn()'s result and the kernel launches it made (added to counts)."""
+        before = launches()
+        out = fn()
+        torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in launches().items()}
+        for k, v in took.items():
+            counts[k] += v
+        return out, took
+
+    def build(make, seed):
+        torch.manual_seed(seed)
+        with torch.device(dev):
+            return make().eval()
+
+    def done(name, row):
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit({"phase": "checkpoints", "model": name, **row})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- DVAE: DiffusionDVAE() defaults, a Lightning checkpoint
+        tm = build(mirrors.DiffusionDVAE, 100)
+        _perturb(tm.encoder, 101)
+        _perturb(tm.diffusion, 102)
+        path = tmp / "dvae.ckpt"
+        torch.save({"state_dict": tm.state_dict(), "epoch": 0}, path)
+        w = DVAEWrapper(device="cuda")
+        w.ckpt_info = _ckpt_info(path)
+        row = _setup("DVAE", lambda: w.setup(gdrive=False), [path])
+        x, t = randn(2, 2, CHUNK, scale=0.3), torch.rand((2,), generator=g, device=dev)
+        with torch.inference_mode():
+            lat_ref = tm.encoder_ema(x)
+            cond = torch.tanh(lat_ref)
+            (lat, v), took = counted(lambda: (w.model.encode(x), w.model.decode_v(x, t, cond)))
+            row["encode"] = _against_mirror(lat, lat_ref, CKPT_REL_RMS)
+            row["decode_v"] = _against_mirror(v, tm.diffusion_ema(x, t, cond), CKPT_REL_RMS)
+            row["decode_v_ms"] = cuda_ms(lambda: w.model.decode_v(x, t, cond), 3)
+        row["launches"] = took
+        if took["k1"] != GN_CALLS_PER_FORWARD:
+            raise AssertionError(f"checkpoints: the poured DVAE launched K1 {took} times")
+        del tm, w, lat, v, lat_ref, cond
+        wb = DVAEWrapper(args_dict={"sample_size": CHUNK, "demo_steps": STEPS}, device="cuda",
+                         dtype=torch.bfloat16)
+        wb.ckpt_info = _ckpt_info(path)
+        row["bf16_setup"] = _setup("DVAE bf16", lambda: wb.setup(gdrive=False), [path])
+        audio = randn(4, 2, CHUNK, scale=0.3)
+        start = time.perf_counter()
+        with torch.inference_mode():
+            out, took = counted(lambda: wb.decode(mathemangle(wb.encode(audio), "destructo")))
+        row["destructo"] = {"batch": [4, 2, CHUNK], "steps": STEPS, "dtype": "bfloat16",
+                            "seconds": time.perf_counter() - start, "out_shape": list(out.shape),
+                            "finite": _finite(out), "launches": took}
+        if tuple(out.shape) != (2, 4 * CHUNK) or took["k1"] != STEPS * GN_CALLS_PER_FORWARD:
+            raise AssertionError(f"checkpoints: Destructo from the poured weights {row}")
+        del wb, out, audio
+        path.unlink()
+        done("DVAE", row)
+
+        # ---- the stacked diffusion AE: StackedDiffAEWrapper() defaults
+        sm = build(mirrors.LatentAudioDiffusionAutoencoder, 110)
+        _perturb(sm.latent_encoder, 111)
+        _perturb(sm.diffusion, 112)
+        stacked_path = tmp / "stacked.ckpt"
+        torch.save({"state_dict": sm.state_dict()}, stacked_path)
+        w = StackedDiffAEWrapper(device="cuda", ckpt_info=_ckpt_info(stacked_path))
+        row = _setup("stacked", lambda: w.setup(gdrive=False), [stacked_path])
+        x, t = randn(2, 2, CHUNK, scale=0.3), torch.rand((2,), generator=g, device=dev)
+        with torch.inference_mode():
+            first = sm.autoencoder.encode(x)
+            z_ref = sm.encode(x)
+            (z, v, dec), took = counted(lambda: (
+                w.encode(x), w.model.diffusion_v(first, t, z_ref),
+                w.model.decode_first_stage(first)))
+            row["encode"] = _against_mirror(z, z_ref, CKPT_REL_RMS)
+            row["diffusion_v"] = _against_mirror(v, sm.diffusion_ema(first, t, z_ref),
+                                                 CKPT_REL_RMS)
+            row["decode_first_stage"] = _against_mirror(dec, sm.autoencoder.decode(first),
+                                                        CKPT_REL_RMS)
+            row["diffusion_v_ms"] = cuda_ms(lambda: w.model.diffusion_v(first, t, z_ref), 3)
+        row["launches"] = took
+        if took["k1"] != K1_PER_OUTER or not took["k5"]:
+            raise AssertionError(f"checkpoints: the poured stacked AE launched {took}")
+        del sm, w, first, z_ref, z, v, dec
+        done("stacked", row)
+
+        # ---- DMAE: DMAE1d() defaults (DiffusionAE1d), a model_state_dict file
+        dm = build(lambda: mirrors.TorchDMAE(**DMAE_FULL), 120)
+        path = tmp / "dmae.ckpt"
+        torch.save({"model_state_dict": dm.state_dict()}, path)
+        w = DMAE1d(device="cuda")
+        w.ckpt_info = _ckpt_info(path)
+        row = _setup("DMAE", lambda: w.setup(gdrive=False), [path])
+        logmel = randn(2, 2 * 80, 256)
+        x, t = randn(2, 2, CHUNK, scale=0.5), torch.rand((2,), generator=g, device=dev)
+        lat = torch.tanh(randn(2, 32, CHUNK // 1024))
+        audio = randn(4, 2, CHUNK, scale=0.3)
+        with torch.inference_mode():
+            row["encode_mel"] = _against_mirror(w.model.encoder.encode_mel(logmel),
+                                                dm.encode_mel(logmel), CKPT_REL_RMS)
+            row["decode_v"] = _against_mirror(w.model.decode_v(x, t, lat),
+                                              dm.decode_v(x, t, lat), CKPT_REL_RMS)
+            row["decode_v_ms"] = cuda_ms(lambda: w.model.decode_v(x, t, lat), 3)
+            z, took = counted(lambda: w.encode(audio))
+            z_twin = _with_twin_stft(lambda: w.encode(audio))
+        row["encode_k6_vs_twin"] = {"rel_rms": rel_rms(z, z_twin), "bound": CKPT_REL_RMS,
+                                    "shape": list(z.shape), "stft_rows": DMAE_STFT}
+        row["launches"] = took
+        if took["k6"] != 1 or not row["encode_k6_vs_twin"]["rel_rms"] < CKPT_REL_RMS:
+            raise AssertionError(f"checkpoints: DMAE's encode through K6 {row}")
+        del dm, w, z, z_twin
+        path.unlink()
+        done("DMAE", row)
+
+        # ---- RAVE: RAVEWrapper() defaults (RaveV2, weight-normed), .ckpt and .ts
+        rm = build(mirrors.RaveV2, 130)
+        sd = {k: v.detach().cpu() for k, v in rm.state_dict().items()}
+        files = {".ckpt": tmp / "rave.ckpt", ".ts": tmp / "rave.ts"}
+        torch.save({"state_dict": sd}, files[".ckpt"])
+        torch.jit.save(export.script_state_dict(sd), str(files[".ts"]))
+        bands = randn(2, 16, 4096, scale=0.3)
+        with torch.inference_mode(), torch.device(dev):   # the mirror's bare factories
+            z_ref = rm.encode_bands(bands)
+            noise = torch.rand((2, 4096 // 64, 16, 64), generator=g, device=dev) * 2 - 1
+            bands_ref = rm.decode_bands(z_ref, noise=noise)
+        for ext, path in files.items():
+            w = RAVEWrapper(checkpoint_file=str(path), device="cuda")
+            w.ckpt_info = _ckpt_info(path)
+            row = _setup(f"RAVE {ext}", lambda: w.setup(), [path])
+            with torch.inference_mode():
+                row["encode_bands"] = _against_mirror(w.model.encode_bands(bands)[:, :128],
+                                                      z_ref, CKPT_REL_RMS)
+                row["decode_bands"] = _against_mirror(w.model.decode_bands(z_ref, noise=noise),
+                                                      bands_ref, CKPT_REL_RMS)
+                row["decode_bands_ms"] = cuda_ms(lambda: w.model.decode_bands(z_ref, noise=noise), 3)
+            done(f"RAVE{ext}", row)
+        del rm, w
+
+        # ---- MIRAGE: CLAPDAE() defaults from CLAPDAE_CKPT_22s and LATENT_DIFFAE_CKPT
+        lm = build(mirrors.StackedAELatentDiffusionCondLDM, 140)
+        _perturb(lm.diffusion_ema.ema_model, 141)
+        path = tmp / "clapdae_22s.ckpt"
+        torch.save({"state_dict": lm.state_dict()}, path)
+        ref = lm.diffusion_ema.ema_model
+        del lm
+        saved = {k: os.environ.get(k) for k in ("CLAPDAE_CKPT_22s", "LATENT_DIFFAE_CKPT",
+                                                  "CLAP_CKPT")}
+        os.environ.update({"CLAPDAE_CKPT_22s": str(path), "LATENT_DIFFAE_CKPT": str(stacked_path)})
+        os.environ.pop("CLAP_CKPT", None)
+        try:
+            model = CLAPDAE(device="cuda", seed=0)
+            row = _setup("MIRAGE", lambda: model.setup(model_len="22s"), [path, stacked_path])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if len(row["pours"]) != 2:
+            raise AssertionError(f"checkpoints: MIRAGE poured {row['pours']}")
+        unet, t_len = model.latent_diffusion_model.diffusion, MIRAGE_SAMPLES // 512
+        x, t = randn(1, 32, t_len), torch.rand((1,), generator=g, device=dev)
+        emb = randn(1, 1, 512)
+        emb = emb / emb.norm()
+        with torch.inference_mode():
+            rb = precompute_rel_biases(unet, t_len)
+            kw = dict(embedding=emb, embedding_scale=4.0)
+            v, took = counted(lambda: unet(x, t, rel_biases=rb, **kw))
+            with torch.device(dev):               # the mirror's bare factories: on the card
+                v_ref = ref(x, t, **kw)
+            row["unet_cfg1d"] = _against_mirror(v, v_ref, MIRAGE_REL_RMS_BOUND["float32"])
+            row["unet_cfg1d_ms"] = cuda_ms(lambda: unet(x, t, rel_biases=rb, **kw), 3)
+        row["launches"] = took
+        if took["k3"] != K3_PER_INNER or took["k5"] != K5_PER_INNER:
+            raise AssertionError(f"checkpoints: the poured UNetCFG1d launched {took}")
+        del ref, v, v_ref
+        torch.cuda.empty_cache()
+        model.half()
+        start = time.perf_counter()
+        (fakes, latents), took = counted(lambda: model.generate(
+            emb, cfg_scales=4, demo_steps=CKPT_STEPS, outer_steps=CKPT_STEPS, batch_size=1))
+        in_range = bool((latents.abs() <= 1).all())
+        row["generate"] = {"steps": [CKPT_STEPS, CKPT_STEPS], "dtype": "bfloat16",
+                           "seconds": time.perf_counter() - start,
+                           "out_shape": list(fakes.shape), "finite": _finite(fakes),
+                           "latents_in_range": in_range, "launches": took}
+        want = {"k1": CKPT_STEPS * K1_PER_OUTER, "k3": CKPT_STEPS * K3_PER_INNER,
+                "k5": CKPT_STEPS * K5_PER_INNER}
+        if tuple(fakes.shape) != (2, MIRAGE_SAMPLES) or not in_range or \
+                any(took[k] != n for k, n in want.items()):
+            raise AssertionError(f"checkpoints: MIRAGE from the poured weights {row}")
+        del model, fakes, latents
+        done("MIRAGE", row)
+    emit({"phase": "checkpoints", "seconds": time.time() - t_phase, "launches": counts,
+          "card": card(),
+          "clap": "poured on the CPU only (tests/test_torch_convert.py, against a "
+                  "transformers ClapModel): no torch CLAP mirror in the repository"})
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1978,6 +2352,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_aa_model()
     train_aa = phase_train_aa()
+    ckpt = phase_checkpoints()
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -1991,7 +2366,8 @@ def main() -> int:
         entry("groupnorm1_gelu", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
               launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
-                                "mirage": counts["k1"], "train_aa": train_aa}),
+                                "mirage": counts["k1"], "train_aa": train_aa,
+                                "checkpoints": ckpt["k1"]}),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
@@ -2001,6 +2377,7 @@ def main() -> int:
               k2["res_amax_q"]),
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3,
+              launches_by_path={"mirage": counts["k3"], "checkpoints": ckpt["k3"]},
               device_ms=k3["kernel_device_ms"]),
         entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"],
@@ -2015,28 +2392,27 @@ def main() -> int:
               bound_f32_cuda_cores_ms=k4["k4c"]["bound_f32_cuda_cores_ms"]),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
-              launches_by_path={"mirage": counts["k5"], "train": train["k5"]},
+              launches_by_path={"mirage": counts["k5"], "train": train["k5"],
+                                "checkpoints": ckpt["k5"]},
               launches_by_route={"cluster": counts["k5"] + train["k5_cluster"],
                                  "two_pass": train["k5_two_pass"]},
               device_ms=k5["kernel_device_ms"], host_us=k5["host_us"],
               planner_route=k5["route"]),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
-              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"], k6["fft"],
+              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"] + ckpt["k6"], k6["fft"],
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
-                                "serve": serve_k6, "train": train["k6"]},
+                                "serve": serve_k6, "train": train["k6"],
+                                "checkpoints": ckpt["k6"]},
               dft_operations_ms=k6["fft"]["dft_operations_ms"],
-              routes={route: {key: row[key] for key in (
-                  "shape", "n_fft", "hop", "max_abs_err", "kernel_ms", "plain_ms",
-                  "library_ms", "kernel_device_ms", "library_device_ms", "bound_ms",
-                  "bound_by", "dft_operations_ms", "kernel_max_abs_err_vs_f64",
+              cases={case: {key: row[key] for key in (
+                  "route", "shape", "n_fft", "hop", "center", "max_abs_err", "kernel_ms",
+                  "plain_ms", "library_ms", "kernel_device_ms", "library_device_ms",
+                  "bound_ms", "bound_by", "dft_operations_ms", "kernel_max_abs_err_vs_f64",
                   "plain_max_abs_err_vs_f64")}
-                  for route, row in k6.items()},
+                  for case, row in k6.items()},
               route_rule="fft: power-of-two n_fft from 16 to 4096 (every caller on "
                          "the main paths); dft: any other n_fft")]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -76,5 +76,16 @@ def test_random_init_draws_the_jax_weights():
 
 @pytest.mark.parametrize("kwargs", [dict(num_quantizers=1), dict(pqmf_bands=4)])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        DiffusionDVAE(**CFG, **kwargs)
+    """The options num_quantizers and pqmf_bands build: the module takes
+    JAX's params tree for them, and encode_it (PQMF analysis, encoder,
+    Memcodes, tanh) matches JAX's."""
+    jmod = JaxDVAE(**CFG, **kwargs)
+    tree = rand_tree(jmod, 0, jnp.zeros((1, 2, T)), jnp.zeros((1,)))
+    tmod = load_flax_params(DiffusionDVAE(**CFG, **kwargs), tree)
+    audio = np.random.default_rng(3).standard_normal((2, 2, T)).astype(np.float32)
+    want = jax.jit(lambda p, a: jmod.apply({"params": p}, a, method=JaxDVAE.encode_it))(
+        tree, jnp.asarray(audio))
+    with torch.no_grad():
+        got = tmod.encode_it(torch.from_numpy(audio))
+    assert got.shape == (2, 8, T // 8 // kwargs.get("pqmf_bands", 1))
+    _close(got.numpy(), want)

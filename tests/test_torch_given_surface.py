@@ -1,9 +1,14 @@
-"""The call surface of the port's DVAEWrapper and CLAPDAE against the JAX
-package's: both are GivenModelClasses with JAX's public method names and
+"""The call surface of the port's model wrappers (DVAEWrapper,
+StackedDiffAEWrapper, DMAE1d, RAVEWrapper, CLAPDAE) against the JAX
+package's: each is a GivenModelClass with JAX's public method names and
 `setup` signatures, `setup(gdrive=False)` runs (the root trainer's call),
-and `DVAEWrapper()(x)` returns (reps, recons) with recons matched to the
-input's length. Tiny configs on the CPU."""
+`DVAEWrapper()(x)` returns (reps, recons) with recons matched to the
+input's length, and `get_checkpoint` checks a file's SHA-256 and fetches
+only from a URL it is given. Tiny configs on the CPU; subprocess.run is
+replaced in the tests that could reach it, so no test fetches anything."""
+import hashlib
 import inspect
+import subprocess
 
 import numpy as np
 import pytest
@@ -26,16 +31,21 @@ CLAPDAE_KWARGS = dict(sample_size=4096, first_stage_config=FIRST_STAGE,
 # JAX-only names, each for a reason the port states: `next_key` splits
 # JAX's PRNG key (the port draws from the torch.Generator `generator`);
 # `decode_seqpar` / `generate_seqpar` are the multi-chip sequence-parallel
-# decodes, not ported; `get_checkpoint` downloads a checkpoint, and the port
-# reads none yet.
-JAX_ONLY = {"next_key", "decode_seqpar", "generate_seqpar", "get_checkpoint"}
+# decodes, not ported.
+JAX_ONLY = {"next_key", "decode_seqpar", "generate_seqpar"}
+TINY_DMAE = dict(channels=(8, 16), factors=(1, 2), items=(1, 1), linear_attentions=(0, 1),
+                 attention_features=4, attention_heads=2, inject_depth=1, latent_dim=4,
+                 resnet_groups=4, num_filters=8, window_length=32, lt_stride=16,
+                 enc_channels=16, enc_multipliers=(1, 1), enc_factors=(2,),
+                 enc_num_blocks=(1,), n_mels=16, mel_n_fft=64, mel_hop=16)
+WRAPPERS = ["DVAEWrapper", "StackedDiffAEWrapper", "DMAE1d", "RAVEWrapper", "CLAPDAE"]
 
 
 def _public(cls) -> set:
     return {n for n, _ in inspect.getmembers(cls, callable) if not n.startswith("_")}
 
 
-@pytest.mark.parametrize("name", ["DVAEWrapper", "CLAPDAE"])
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_port_class_has_jax_surface(name):
     jcls, tcls = getattr(jgm, name), getattr(tgm, name)
     assert issubclass(tcls, tgm.GivenModelClass)
@@ -87,3 +97,87 @@ def test_clapdae_decode_is_generate():
     assert fakes.shape == (2, 4096)
     torch.testing.assert_close(fakes, want)
     torch.testing.assert_close(lat, want_lat)
+
+
+def _file(tmp_path, data: bytes = b"weights"):
+    path = tmp_path / "model.ckpt"
+    path.write_bytes(data)
+    return path, hashlib.sha256(data).hexdigest()
+
+
+@pytest.fixture
+def no_fetch(monkeypatch):
+    """subprocess.run replaced by a recorder: a test that reaches it
+    fetches nothing."""
+    calls = []
+
+    def run(argv, **kwargs):
+        calls.append((argv, kwargs))
+        raise subprocess.CalledProcessError(22, argv)
+    monkeypatch.setattr(subprocess, "run", run)
+    return calls
+
+
+def test_get_checkpoint_raises_on_a_hash_mismatch(tmp_path, no_fetch):
+    path, digest = _file(tmp_path)
+    w = tgm.GivenModelClass(device="cpu", ckpt_info={
+        "ckpt_path": str(path), "ckpt_hash": "0" * 64, "ckpt_url": "", "gdrive_path": ""})
+    with pytest.raises(RuntimeError, match="Hashes don't match"):
+        w.get_checkpoint()
+    assert not no_fetch
+
+
+def test_get_checkpoint_passes_a_file_with_its_hash(tmp_path, no_fetch, capsys):
+    path, digest = _file(tmp_path)
+    w = tgm.GivenModelClass(device="cpu", ckpt_info={
+        "ckpt_path": str(path), "ckpt_hash": digest, "ckpt_url": "", "gdrive_path": ""})
+    w.get_checkpoint()
+    assert "Checkpoint hash checks out." in capsys.readouterr().out
+    assert not no_fetch
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_setup_without_a_url_never_fetches(name, tmp_path, no_fetch, monkeypatch, capsys):
+    """The wrappers carry no URL: a missing file leaves the random weights
+    and subprocess.run is never called."""
+    for var in ("LATENT_DIFFAE_CKPT", "CLAP_CKPT", "CLAPDAE_CKPT_22s"):
+        monkeypatch.delenv(var, raising=False)
+    kwargs = {"DVAEWrapper": DVAE_KWARGS, "CLAPDAE": CLAPDAE_KWARGS,
+              "StackedDiffAEWrapper": dict(first_stage_config=FIRST_STAGE,
+                                           model_kwargs=dict(
+                                               second_stage_latent_dim=4, factors=(2, 2),
+                                               latent_channels=8, latent_multipliers=(1, 2, 2),
+                                               latent_num_blocks=(1, 1),
+                                               diffusion_c_mults=(8, 16), diffusion_depth=2)),
+              "DMAE1d": dict(model_kwargs=TINY_DMAE),
+              "RAVEWrapper": dict(capacity=4, strides=(2, 2))}[name]
+    w = getattr(tgm, name)(device="cpu", **kwargs)
+    assert not w.ckpt_info.get("ckpt_url")
+    if name != "CLAPDAE":
+        w.ckpt_info["ckpt_path"] = str(tmp_path / "missing.ckpt")
+        w.get_checkpoint()
+    if name in ("DVAEWrapper", "CLAPDAE"):
+        w.setup(gdrive=False)
+    assert not no_fetch
+
+
+def test_get_checkpoint_fetches_from_a_given_url_and_drops_a_bad_file(tmp_path, monkeypatch,
+                                                                      capsys):
+    """With a URL, the fetch is JAX's curl argv; a file failing its hash
+    is removed."""
+    calls = []
+
+    def run(argv, **kwargs):
+        calls.append((argv, kwargs))
+        (tmp_path / "sub" / "model.ckpt").write_bytes(b"not the weights")
+    monkeypatch.setattr(subprocess, "run", run)
+    target = tmp_path / "sub" / "model.ckpt"
+    w = tgm.GivenModelClass(device="cpu", ckpt_info={
+        "ckpt_path": str(target), "ckpt_hash": "0" * 64,
+        "ckpt_url": "https://example.invalid/model.ckpt", "gdrive_path": ""})
+    w.get_checkpoint()
+    assert calls == [(["curl", "-L", "--fail", "--connect-timeout", "5", "--max-time", "300",
+                       "https://example.invalid/model.ckpt", "-o", str(target)],
+                      {"check": True, "timeout": 330})]
+    assert not target.exists()
+    assert "failed its SHA-256 check; removed" in capsys.readouterr().out
