@@ -4,7 +4,7 @@ Port of audio_algebra_tpu/datasets.py's core (numpy on the host, as there):
 file scanning, random-crop chunking with silence redraw, the PadCrop /
 Stereo / PhaseFlipper augmentations, `AudioDataset`, and a batching
 `DataLoader` with a seeded shuffle and background-thread prefetch. Files
-are read with the port's utils/audio_io.load_audio (WAV and MP3) and
+are read with the port's utils/audio_io.load_audio (WAV, MP3, FLAC, OGG) and
 resampled with ops/resample.resample_np.
 
 The effects trainer's bank: `Gain` and the Butterworth `LowPassFilter`,
@@ -34,7 +34,7 @@ __all__ = ['get_audio_filenames', 'is_silence', 'PadCrop', 'Stereo',
            'DualEffectsDataset', 'DataLoader']
 
 AUDIO_EXTS = ('.wav', '.mp3', '.flac', '.ogg', '.aif', '.aiff')
-LOADABLE = ('.wav', '.wave', '.mp3')        # what utils/audio_io decodes
+LOADABLE = ('.wav', '.wave', '.mp3', '.flac', '.ogg', '.oga')   # what utils/audio_io decodes
 AUGMENTATIONS = {}                          # name -> class, for the `augs` string
 
 
@@ -254,7 +254,7 @@ class AudioDataset:
         if skipped:
             print(f"AudioDataset: skipping {len(skipped)} files in formats "
                   f"the port does not decode yet "
-                  f"(supported: wav/mp3), e.g. {skipped[0]}")
+                  f"(supported: wav, mp3, flac, ogg), e.g. {skipped[0]}")
             self.filenames = [f for f in self.filenames
                               if Path(f).suffix.lower() in LOADABLE]
         print(f"AudioDataset:{len(self.filenames)} files found.")

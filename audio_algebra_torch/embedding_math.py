@@ -1,18 +1,53 @@
-"""CLAP-embedding combination math of the MIRAGE app.
+"""CLAP-embedding combination math of the MIRAGE app, and its warm model
+cache.
 
 Port of audio_algebra_tpu/embedding_math.py (lerp, slerp,
 interp_embeddings, weighted_algebra; reference mirage.py:156-179 and
-:375-381). Inputs may be torch tensors or numpy arrays; results are torch
-tensors. The model cache of the JAX module lives in serve.py here.
+:375-381; `get_model_ready`, the cache that the MIRAGE CLI and the service
+share). Inputs may be torch tensors or numpy arrays; results are torch
+tensors.
 """
 from __future__ import annotations
 
+import json
 from typing import Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["lerp", "slerp", "interp_embeddings", "weighted_algebra"]
+__all__ = ["lerp", "slerp", "interp_embeddings", "weighted_algebra", "get_model_ready",
+           "model_cache_key"]
+
+_model_cache: dict = {}
+
+
+def model_cache_key(model_choice: str = "22s", half: bool = True, device="cuda",
+                    **model_kwargs) -> tuple:
+    """The key of get_model_ready's cache: the model length, the bf16 switch,
+    the resolved device and the model's configuration."""
+    from .device import resolve_device
+    return (model_choice, half, str(resolve_device(device)),
+            json.dumps(model_kwargs, sort_keys=True))
+
+
+def get_model_ready(model_choice: str = "22s", device="cuda", verbose: bool = True,
+                    half: bool = True, **model_kwargs):
+    """The warm CLAPDAE of a model length, keyed by model_cache_key: built
+    on `device` with `model_kwargs` (seeded random weights unless its setup
+    finds checkpoints) at its first request; `half` casts the diffusion
+    stages to bf16, the reference app's default (CLAP stays f32). A request
+    on another device or with another configuration builds its own model."""
+    key = model_cache_key(model_choice, half, device, **model_kwargs)
+    if key not in _model_cache:
+        from .given_models import CLAPDAE
+        if verbose:
+            print(f"get_model_ready: instantiating CLAPDAE ({model_choice})")
+        model = CLAPDAE(device=device, **model_kwargs)
+        model.setup(gdrive=False, model_len=model_choice)
+        if half:
+            model.half()
+        _model_cache[key] = model
+    return _model_cache[key]
 
 
 def _tensor(a) -> torch.Tensor:

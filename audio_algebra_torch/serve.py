@@ -1,16 +1,26 @@
 """MIRAGE serving: a dependency-free HTTP endpoint around the port's CLAPDAE.
 
     python -m audio_algebra_torch.serve [--host 127.0.0.1] [--port 8950]
-        [--model 22s|66s] [--no-half] [--max-batch 8] [--strict-text]
+        [--model 22s|66s] [--no-half] [--batch-window 0.05] [--max-batch 8]
+        [--warmup] [--strict-text]
 
 Port of audio_algebra_tpu/serve.py: a stdlib ThreadingHTTPServer wrapping
-one warm CLAPDAE on the card, with requests serialised onto it by a lock.
+one warm CLAPDAE on the card (embedding_math.get_model_ready's), with
+requests serialised onto it by a lock. Concurrent single-variation
+requests whose (steps, outer_steps, cfg_scale) agree are coalesced into one
+generate call by a micro-batcher (`--batch-window` seconds; 0 turns it
+off). With MIRAGE_USERNAME and MIRAGE_PASSWORD set, every route but
+/health asks for basic auth (401 without it). JAX's `--turbo` (the int8
+fold route, ROADMAP A8) and `--mesh` (the sequence-parallel outer stage,
+ROADMAP A7) are not ported and raise NotImplementedError.
 
 Endpoints:
+  GET  /          -> the HTML GUI (prompts, slerp / algebra, init audio)
   GET  /health    -> {"ok": true, "model": "22s", "sample_size": N, ...}
   POST /generate  -> JSON spec -> 16-bit PCM WAV bytes (48 kHz stereo)
   POST /embed     -> {"embedding": [[...512 floats]]} for a JSON
-                     {"text": "..."} or for posted WAV / MP3 bytes
+                     {"text": "..."} or for posted WAV / FLAC / OGG / MP3
+                     bytes (the format from their magic bytes)
 
 Generate spec (at least one prompt):
   {"text": ["a prompt", ...],          # CLAP text prompts
@@ -20,14 +30,13 @@ Generate spec (at least one prompt):
    "interp": 0.5,                      # slerp t between prompts
    "cfg_scale": 4.0, "steps": 150, "outer_steps": 100,
    "batch_size": 1, "seed": -1,
-   "init_audio_b64": "<base64 WAV/MP3>",   # img2img init (loop-repeated)
+   "init_audio_b64": "<base64 audio>",     # img2img init (loop-repeated)
    "init_strength": 0.4}
 
 Without RoBERTa's tokenizer files (models/clap.tokenize) text prompts use
 byte-level fallback ids: the answers then carry a `tokenizer_warning`,
 and with --strict-text text prompts are refused with 409 before any work
-on the card. The request micro-batcher, the HTML GUI, basic auth and the
-multi-chip mesh of the JAX service are not ported.
+on the card.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import json
 import os
 import tempfile
 import threading
+import time
 import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -45,8 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .embedding_math import interp_embeddings, weighted_algebra
-from .given_models import CLAPDAE
+from .embedding_math import get_model_ready, interp_embeddings, weighted_algebra
 from .utils.audio_io import crossfade_flatten, load_audio
 
 __all__ = ["MirageService", "TokenizerUnavailable", "encode_wav", "make_server", "main"]
@@ -74,10 +83,24 @@ def encode_wav(audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> bytes:
     return buf.getvalue()
 
 
+def _sniff_suffix(data: bytes) -> str:
+    """The loader's extension from the magic bytes: RIFF -> .wav, fLaC ->
+    .flac, OggS -> .ogg, anything else (an ID3 tag or a bare MPEG sync)
+    -> .mp3."""
+    magic = data[:4]
+    if magic == b"RIFF":
+        return ".wav"
+    if magic == b"fLaC":
+        return ".flac"
+    if magic == b"OggS":
+        return ".ogg"
+    return ".mp3"
+
+
 def _decode_audio_bytes(data: bytes) -> np.ndarray:
-    """Posted WAV or MP3 bytes -> (C, N) float32 at 48 kHz."""
-    suffix = ".wav" if data[:4] == b"RIFF" else ".mp3"
-    with tempfile.NamedTemporaryFile(suffix=suffix, delete=False) as f:
+    """Posted audio bytes -> (C, N) float32 at 48 kHz through
+    utils/audio_io.load_audio, the format from the magic bytes."""
+    with tempfile.NamedTemporaryFile(suffix=_sniff_suffix(data), delete=False) as f:
         f.write(data)
         path = f.name
     try:
@@ -86,21 +109,179 @@ def _decode_audio_bytes(data: bytes) -> np.ndarray:
         os.unlink(path)
 
 
+_GUI_HTML = """<!doctype html>
+<html><head><meta charset="utf-8"><title>MIRAGE</title>
+<style>
+ body{font-family:system-ui,sans-serif;max-width:680px;margin:2rem auto;
+      padding:0 1rem;color:#222}
+ h1{font-weight:600} fieldset{border:1px solid #ccc;border-radius:8px;
+      margin:0 0 1rem;padding:.75rem 1rem}
+ label{display:block;margin:.4rem 0 .15rem;font-size:.85rem;color:#555}
+ input[type=text],input[type=number]{width:100%;box-sizing:border-box;
+      padding:.4rem;border:1px solid #bbb;border-radius:6px}
+ .row{display:flex;gap:.75rem}.row>div{flex:1}
+ button{padding:.55rem 1.4rem;border:0;border-radius:8px;background:#333;
+      color:#fff;font-size:1rem;cursor:pointer}
+ button:disabled{background:#999}
+ audio{width:100%;margin-top:1rem}
+ #status{margin-left:1rem;color:#777;font-size:.9rem}
+</style></head><body>
+<h1>MIRAGE &mdash; text-to-audio algebra</h1>
+<p>Browser front-end for the <code>/generate</code> endpoint (the
+reference app's Gradio GUI, rebuilt dependency-free).</p>
+<fieldset><legend>Prompts</legend>
+ <label>Prompt A</label><input type="text" id="pa" value="low brass">
+ <label>Prompt B (optional; slerp or algebra)</label>
+ <input type="text" id="pb" value="">
+ <div class="row">
+  <div><label>Interp t (slerp)</label>
+   <input type="number" id="interp" value="0.5" step="0.05" min="0" max="1"></div>
+  <div><label><input type="checkbox" id="algebra"> weighted algebra</label>
+   <label>Weights (comma-sep)</label>
+   <input type="text" id="weights" value="1.0, -0.5"></div>
+ </div>
+</fieldset>
+<fieldset><legend>Sampler</legend>
+ <div class="row">
+  <div><label>Inner steps</label><input type="number" id="steps" value="150"></div>
+  <div><label>Outer steps</label><input type="number" id="outer" value="100"></div>
+  <div><label>CFG scale</label><input type="number" id="cfg" value="4.0" step="0.5"></div>
+  <div><label>Variations</label><input type="number" id="bs" value="1" min="1" max="8"></div>
+ </div>
+ <label>Init audio (optional, img2img)</label>
+ <input type="file" id="init" accept="audio/*">
+ <label>Init strength</label>
+ <input type="number" id="strength" value="0.4" step="0.05" min="0" max="1">
+</fieldset>
+<button id="go">Generate</button><span id="status"></span>
+<audio id="out" controls></audio>
+<script>
+const $=id=>document.getElementById(id);
+$('go').onclick=async()=>{
+ const spec={text:[$('pa').value], steps:+$('steps').value,
+   outer_steps:+$('outer').value, cfg_scale:+$('cfg').value,
+   batch_size:+$('bs').value, interp:+$('interp').value};
+ if($('pb').value) spec.text.push($('pb').value);
+ if($('algebra').checked){spec.algebra=true;
+   spec.weights=$('weights').value.split(',').map(Number);}
+ const f=$('init').files[0];
+ if(f){const u=new Uint8Array(await f.arrayBuffer());let s='';
+   for(let i=0;i<u.length;i+=0x8000)
+     s+=String.fromCharCode.apply(null,u.subarray(i,i+0x8000));
+   spec.init_audio_b64=btoa(s);
+   spec.init_strength=+$('strength').value;}
+ $('go').disabled=true;$('status').textContent='generating\\u2026';
+ try{
+  const r=await fetch('/generate',{method:'POST',body:JSON.stringify(spec)});
+  if(!r.ok){throw new Error((await r.json()).error)}
+  $('out').src=URL.createObjectURL(await r.blob());$('out').play();
+  $('status').textContent='done ('+(r.headers.get('X-Generate-Info')||'')+')';
+ }catch(e){$('status').textContent='error: '+e.message}
+ $('go').disabled=false;
+};
+</script></body></html>"""
+
+
+class _Pending:
+    """One queued generate request waiting for its micro-batch."""
+
+    __slots__ = ("emb", "key", "event", "result", "error")
+
+    def __init__(self, emb, key):
+        self.emb = emb
+        self.key = key
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class _MicroBatcher:
+    """Coalesce concurrent single-variation /generate requests into one
+    generate call. Requests arriving within `window_s` of the first whose
+    (steps, outer_steps, cfg_scale) agree run together, up to `max_batch`;
+    each slot draws its own noise inside generate, so the requests get
+    independent samples. The group runs at its own size: JAX pads it to a
+    power of two only to bound its jit programs, a TPU trick that eager
+    torch does not need."""
+
+    def __init__(self, service: "MirageService", window_s: float = 0.05, max_batch: int = 8):
+        self.service = service
+        self.window_s = window_s
+        self.max_batch = max_batch
+        self.queue: "list[_Pending]" = []
+        self.cv = threading.Condition()
+        self.batched_runs = 0
+        self.coalesced_requests = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def submit(self, emb, key: tuple) -> np.ndarray:
+        """Queue one embedding (1, 1, 512); returns its (2, N) audio."""
+        emb = emb.float().cpu().numpy() if isinstance(emb, torch.Tensor) else emb
+        p = _Pending(np.asarray(emb, np.float32).reshape(1, 1, -1), key)
+        with self.cv:
+            self.queue.append(p)
+            self.cv.notify()
+        p.event.wait()
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    def _take_group(self) -> "list[_Pending]":
+        """Block for work, linger `window_s` for arrivals that can join it,
+        then take the first request's key's group."""
+        with self.cv:
+            while not self.queue:
+                self.cv.wait()
+            deadline = time.monotonic() + self.window_s
+            while len(self.queue) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or not self.cv.wait(timeout=remaining):
+                    break
+            key = self.queue[0].key
+            group = [p for p in self.queue if p.key == key][: self.max_batch]
+            for p in group:
+                self.queue.remove(p)
+            return group
+
+    def _loop(self):
+        while True:
+            group = self._take_group()
+            steps, outer_steps, cfg_scale = group[0].key
+            try:
+                with self.service.lock:
+                    fakes, _ = self.service.model.generate(
+                        np.concatenate([p.emb for p in group], axis=0), cfg_scales=cfg_scale,
+                        demo_steps=steps, outer_steps=outer_steps, batch_size=len(group),
+                        flatten=False)
+                    fakes = fakes.float().cpu().numpy()
+                    self.batched_runs += 1
+                    self.coalesced_requests += len(group)
+                for i, p in enumerate(group):
+                    p.result = fakes[i]
+            except Exception as e:             # handed to each waiting request
+                for p in group:
+                    p.error = e
+            finally:
+                for p in group:
+                    p.event.set()
+
+
 class MirageService:
     """One warm model and a lock. `model` is injectable (any object with
     .generate, .embed, .encode_audio_latents, .clap_module, .generator and
-    .sample_size); by default a CLAPDAE with seeded random weights, set up
-    for `model_choice` and cast to bf16 unless `half` is False (CLAP stays
-    f32). `strict_text` refuses text prompts while the tokenizer falls
-    back to byte ids."""
+    .sample_size); by default get_model_ready's CLAPDAE for `model_choice`
+    on `device` (bf16 unless `half` is False; CLAP stays f32).
+    `batch_window_s` > 0 turns the micro-batcher on. `strict_text` refuses
+    text prompts while the tokenizer falls back to byte ids. Basic auth is
+    asked for when MIRAGE_USERNAME and MIRAGE_PASSWORD are both set."""
 
     def __init__(self, model=None, model_choice: str = "22s", half: bool = True,
                  verbose: bool = True, max_batch: int = 8,
-                 device: str | torch.device = "cuda", strict_text: bool = False):
+                 device: str | torch.device = "cuda", strict_text: bool = False,
+                 batch_window_s: float = 0.0):
         if model is None:
-            model = CLAPDAE(device=device).setup(model_len=model_choice)
-            if half:
-                model.half()
+            model = get_model_ready(model_choice, device=device, verbose=verbose, half=half)
         self.model = model
         self.model_choice = model_choice
         self.verbose = verbose
@@ -108,6 +289,11 @@ class MirageService:
         self.lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.requests_served = 0
+        user = os.environ.get("MIRAGE_USERNAME", "")
+        password = os.environ.get("MIRAGE_PASSWORD", "")
+        self.auth: Optional[tuple] = (user, password) if user and password else None
+        self.batcher = (_MicroBatcher(self, batch_window_s, max_batch)
+                        if batch_window_s > 0 else None)
         self.strict_text = strict_text
         self.tokenizer_backend, self._tok_reason = model.clap_module.tokenizer_backend()
         if self.tokenizer_backend == "byte-fallback" and verbose:
@@ -195,14 +381,19 @@ class MirageService:
         if spec.get("init_audio_b64"):
             init_latents = self._init_latents_from_bytes(
                 base64.b64decode(spec["init_audio_b64"]))
-        with self.lock:
-            if seed >= 0:
-                self.model.generator.manual_seed(seed)
-            fakes, _ = self.model.generate(
-                emb, cfg_scales=cfg_scale, demo_steps=steps, outer_steps=outer_steps,
-                batch_size=batch_size, init_audio_latents=init_latents,
-                init_strength=float(spec.get("init_strength", 0.4)), flatten=False)
-            fakes = fakes.float().cpu().numpy()
+        if (self.batcher is not None and batch_size == 1 and seed < 0
+                and init_latents is None):
+            # one variation and no pinned seed: it may share a generate call
+            fakes = self.batcher.submit(emb, (steps, outer_steps, cfg_scale))[None]
+        else:
+            with self.lock:
+                if seed >= 0:
+                    self.model.generator.manual_seed(seed)
+                fakes, _ = self.model.generate(
+                    emb, cfg_scales=cfg_scale, demo_steps=steps, outer_steps=outer_steps,
+                    batch_size=batch_size, init_audio_latents=init_latents,
+                    init_strength=float(spec.get("init_strength", 0.4)), flatten=False)
+                fakes = fakes.float().cpu().numpy()
         with self._stats_lock:
             self.requests_served += 1
         out = crossfade_flatten(fakes, sr=SAMPLE_RATE)
@@ -213,12 +404,16 @@ class MirageService:
         return encode_wav(out, SAMPLE_RATE), info
 
     def health(self) -> dict:
-        return {"ok": True, "model": self.model_choice,
-                "sample_size": int(getattr(self.model, "sample_size", 0)),
-                "requests_served": self.requests_served,
-                "device": str(getattr(self.model, "device", "")),
-                "text_tokenizer": self.tokenizer_backend,
-                "strict_text": self.strict_text}
+        h = {"ok": True, "model": self.model_choice,
+             "sample_size": int(getattr(self.model, "sample_size", 0)),
+             "requests_served": self.requests_served,
+             "device": str(getattr(self.model, "device", "")),
+             "text_tokenizer": self.tokenizer_backend,
+             "strict_text": self.strict_text}
+        if self.batcher is not None:
+            h["batched_runs"] = self.batcher.batched_runs
+            h["coalesced_requests"] = self.batcher.coalesced_requests
+        return h
 
 
 def _make_handler(service: MirageService):
@@ -239,21 +434,46 @@ def _make_handler(service: MirageService):
         def _send_json(self, code: int, obj) -> None:
             self._send(code, json.dumps(obj).encode(), "application/json")
 
+        def _authorized(self) -> bool:
+            """Basic auth when the service has credentials; /health stays
+            open for probes. Answers 401 itself when refused."""
+            if service.auth is None or self.path.rstrip("/") == "/health":
+                return True
+            header = self.headers.get("Authorization") or ""
+            if header.startswith("Basic "):
+                try:
+                    user, _, password = base64.b64decode(header[6:]).decode().partition(":")
+                except ValueError:
+                    user = password = None
+                if (user, password) == service.auth:
+                    return True
+            self._send(401, b'{"error": "unauthorized"}', "application/json",
+                       [("WWW-Authenticate", 'Basic realm="MIRAGE"')])
+            return False
+
         def do_GET(self):
-            if self.path.rstrip("/") == "/health":
+            if not self._authorized():
+                return
+            if self.path.rstrip("/") == "":
+                self._send(200, _GUI_HTML.encode(), "text/html; charset=utf-8")
+            elif self.path.rstrip("/") == "/health":
                 self._send_json(200, service.health())
             else:
                 self._send_json(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
+            if not self._authorized():
+                return
             data = self.rfile.read(int(self.headers.get("Content-Length") or 0))
             ctype = (self.headers.get("Content-Type") or "").lower()
             try:
                 if self.path == "/embed":
-                    # audio/* or, unless declared JSON, WAV / ID3-tagged MP3 bytes
+                    # audio/* or, unless declared JSON, bytes whose magic is
+                    # WAV, FLAC, OGG or an ID3-tagged MP3; the decoder is
+                    # picked from the magic bytes
+                    has_magic = data[:4] in (b"RIFF", b"fLaC", b"OggS") or data[:3] == b"ID3"
                     is_audio = ctype.startswith("audio/") or (
-                        not ctype.startswith("application/json")
-                        and (data[:4] == b"RIFF" or data[:3] == b"ID3"))
+                        not ctype.startswith("application/json") and has_magic)
                     if is_audio:
                         body = {"embedding": service.embed_audio_bytes(data).tolist()}
                     else:
@@ -296,14 +516,39 @@ def main(argv: Optional[list] = None):
     p.add_argument("--port", type=int, default=8950)
     p.add_argument("--model", choices=["22s", "66s"], default="22s")
     p.add_argument("--no-half", action="store_true", help="serve in f32 (default bf16)")
-    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--batch-window", type=float, default=0.05,
+                   help="micro-batching window in seconds (0 turns it off): concurrent "
+                        "requests of one sampler config run as one generate")
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="the largest micro-batch and batch_size")
+    p.add_argument("--warmup", action="store_true",
+                   help="run one default-config generate before binding")
     p.add_argument("--strict-text", action="store_true",
                    help="refuse text prompts (409) while the tokenizer falls back to "
                         "byte-level ids")
+    p.add_argument("--turbo", action="store_true",
+                   help="the int8 turbo route of the JAX service: not ported (ROADMAP A8)")
+    p.add_argument("--mesh", type=str, default=None, metavar="seq=N",
+                   help="the sequence-parallel outer stage of the JAX service: not "
+                        "ported (ROADMAP A7)")
     args = p.parse_args(argv)
+    if args.turbo:
+        raise NotImplementedError("--turbo (MIRAGE's int8 fold route) is not ported: "
+                                  "ROADMAP item A8")
+    if args.mesh:
+        raise NotImplementedError("--mesh (the sequence-parallel outer stage) is not "
+                                  "ported: ROADMAP item A7")
     service = MirageService(model_choice=args.model, half=not args.no_half,
-                            max_batch=args.max_batch, strict_text=args.strict_text)
+                            batch_window_s=args.batch_window, max_batch=args.max_batch,
+                            strict_text=args.strict_text)
+    if args.warmup:
+        print("serve: warmup generate...", flush=True)
+        service.generate_wav({"embeddings": [[1.0] + [0.0] * 511], "steps": 150,
+                              "outer_steps": 100, "batch_size": 1, "seed": 0})
     server = make_server(service, args.host, args.port)
+    if service.auth is None and args.host not in ("127.0.0.1", "localhost", "::1"):
+        print("serve: WARNING: listening on a non-loopback interface with no auth; set "
+              "MIRAGE_USERNAME and MIRAGE_PASSWORD to require basic auth", flush=True)
     print(f"serve: MIRAGE ({args.model}) listening on "
           f"http://{args.host}:{server.server_address[1]}", flush=True)
     try:

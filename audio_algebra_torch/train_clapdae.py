@@ -22,7 +22,7 @@ f32 parameters and activations, no autocast, as in JAX. The step's noise
 and CFG-dropout mask come from a torch.Generator seeded per step from
 (seed, step) on the host; `train_step` takes them as arguments. Data
 parallelism (`--num_gpus` > 1) and state sharding (`--fsdp 1`) are not
-ported: ROADMAP item 15.
+ported: ROADMAP item A7.
 """
 from __future__ import annotations
 
@@ -182,13 +182,13 @@ def _refuse_parallel(args, device: torch.device, name: str = "train_clapdae") ->
     fsdp = int(getattr(args, "fsdp", 0) or 0)
     if fsdp:
         print(f"{name}: --fsdp {fsdp} asks for a sharded train state, which is "
-              "not ported (ROADMAP item 15)")
-        raise NotImplementedError("--fsdp is not ported yet: ROADMAP item 15 "
+              "not ported (ROADMAP item A7)")
+        raise NotImplementedError("--fsdp is not ported yet: ROADMAP item A7 "
                                   "(DDP / FSDP mapping of the JAX package's parallel/)")
     if min(asked, available) > 1:
         print(f"{name}: --num_gpus {asked} with {available} devices asks for data "
-              "parallelism, which is not ported (ROADMAP item 15); pass --num_gpus 1")
-        raise NotImplementedError("--num_gpus > 1 is not ported yet: ROADMAP item 15 "
+              "parallelism, which is not ported (ROADMAP item A7); pass --num_gpus 1")
+        raise NotImplementedError("--num_gpus > 1 is not ported yet: ROADMAP item A7 "
                                   "(DDP / FSDP mapping of the JAX package's parallel/)")
     if asked > available:
         print(f"{name}: --num_gpus {asked}, {available} device available: "

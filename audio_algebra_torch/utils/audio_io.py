@@ -1,12 +1,16 @@
 """Audio IO and chunking (host side, numpy), the port's own copy of
-audio_algebra_tpu/utils/audio_io.py's Destructo subset.
+audio_algebra_tpu/utils/audio_io.py.
 
-WAV (PCM 8/16/24/32-bit and float32) goes through a numpy codec. MP3 goes
-through the repository's C++ decoder `native/libaacodec.so` over a ctypes
-binding of this module, when that library has been built
-(`make -C native`). Other rates are resampled with ops.resample.resample_np.
-`batch_it_crazy` chops a signal into a zero-padded batch of chunks;
-`crossfade_flatten` stitches a batch of generations into one take.
+WAV (PCM 8/16/24/32-bit and float32) goes through a numpy codec; MP3, FLAC
+and OGG/Vorbis through the repository's C++ codec `native/libaacodec.so`
+(`make -C native`) over a ctypes binding of this module: MP3 by mpg123 and
+OGG by the system's libvorbisfile / libvorbisenc, both opened at run time
+by the library, FLAC by its own decoder. FLAC is written by the numpy
+encoder of utils/flac_write.py. `decode_batch` decodes many files in one
+native call on a C++ thread pool, each by its magic bytes. Other rates are
+resampled with ops.resample.resample_np. `batch_it_crazy` chops a signal
+into a zero-padded batch of chunks; `crossfade_flatten` stitches a batch of
+generations into one take.
 """
 from __future__ import annotations
 
@@ -19,6 +23,52 @@ from pathlib import Path
 import numpy as np
 
 NATIVE_LIB = Path(__file__).resolve().parents[2] / "native" / "libaacodec.so"
+_FLOAT_P = ctypes.POINTER(ctypes.c_float)
+_DECODE_ENTRIES = ("aa_decode_mp3", "aa_read_flac", "aa_decode_ogg", "aa_decode_any")
+_LIB: list = []
+_NO_VORBIS = -1   # the native codec's return when libvorbis* fail to open
+
+
+class VorbisUnavailable(ValueError):
+    """The running machine's libvorbisfile / libvorbisenc did not open (the
+    native codec reaches them with dlopen at run time)."""
+
+
+def native_lib() -> ctypes.CDLL:
+    """The loaded native codec with every entry's argument types declared;
+    raises when it has not been built."""
+    if _LIB:
+        return _LIB[0]
+    if not NATIVE_LIB.exists():
+        raise RuntimeError("MP3, FLAC and OGG decoding need the native codec: run "
+                           "`make -C native` to build libaacodec.so")
+    lib = ctypes.CDLL(str(NATIVE_LIB))
+    for name in _DECODE_ENTRIES:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(_FLOAT_P),
+                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.aa_free.argtypes = [_FLOAT_P]
+    lib.aa_free.restype = None
+    lib.aa_decode_batch.restype = ctypes.c_int
+    lib.aa_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_FLOAT_P), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.aa_encode_ogg.restype = ctypes.c_int
+    lib.aa_encode_ogg.argtypes = [ctypes.c_char_p, _FLOAT_P, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    _LIB.append(lib)
+    return lib
+
+
+def _take(lib, buf, frames: int, channels: int) -> np.ndarray:
+    """Copy an interleaved native buffer out as (C, N) float32 and free it."""
+    try:
+        arr = np.ctypeslib.as_array(buf, shape=(frames * channels,))
+        return arr.reshape(frames, channels).T.astype(np.float32)
+    finally:
+        lib.aa_free(buf)
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -90,41 +140,93 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int,
         raise ValueError(f"unknown subtype {subtype!r}")
 
 
-def decode_mp3(path: str) -> tuple[np.ndarray, int]:
-    """Decode an MP3 with native/libaacodec.so -> ((C, N) float32, sr)."""
-    if not NATIVE_LIB.exists():
-        raise RuntimeError("MP3 decoding requires the native codec: run "
-                           "`make -C native` to build libaacodec.so")
-    lib = ctypes.CDLL(str(NATIVE_LIB))
-    fn = lib.aa_decode_mp3
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.aa_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
-    lib.aa_free.restype = None
-    buf = ctypes.POINTER(ctypes.c_float)()
+def _native_decode(entry: str, path: str, kind: str) -> tuple[np.ndarray, int]:
+    """Call a native `(path, float**, int*, int*) -> frames` decode entry."""
+    lib = native_lib()
+    buf = _FLOAT_P()
     ch, sr = ctypes.c_int(0), ctypes.c_int(0)
-    n = fn(str(path).encode(), ctypes.byref(buf), ctypes.byref(ch), ctypes.byref(sr))
+    n = getattr(lib, entry)(str(path).encode(), ctypes.byref(buf), ctypes.byref(ch),
+                            ctypes.byref(sr))
+    if n == _NO_VORBIS and entry == "aa_decode_ogg":
+        raise VorbisUnavailable(f"OGG decode needs libvorbisfile.so.3: {path}")
     if n <= 0:
-        raise ValueError(f"MP3 decode failed ({n}): {path}")
-    try:
-        arr = np.ctypeslib.as_array(buf, shape=(int(n) * ch.value,))
-        arr = arr.reshape(int(n), ch.value).T.astype(np.float32)
-    finally:
-        lib.aa_free(buf)
-    return arr, sr.value
+        raise ValueError(f"{kind} decode failed ({n}): {path}")
+    return _take(lib, buf, int(n), ch.value), sr.value
+
+
+def decode_mp3(path: str) -> tuple[np.ndarray, int]:
+    """Decode an MP3 with the native codec -> ((C, N) float32, sr)."""
+    return _native_decode("aa_decode_mp3", path, "MP3")
+
+
+def decode_flac(path: str) -> tuple[np.ndarray, int]:
+    """Decode a FLAC file with the native decoder -> ((C, N) float32, sr)."""
+    return _native_decode("aa_read_flac", path, "FLAC")
+
+
+def decode_ogg(path: str) -> tuple[np.ndarray, int]:
+    """Decode OGG/Vorbis with the native codec (libvorbisfile)."""
+    return _native_decode("aa_decode_ogg", path, "OGG")
+
+
+def encode_ogg(path: str, audio: np.ndarray, sample_rate: int, quality: float = 0.4) -> None:
+    """Encode (C, N) float32 in [-1, 1] as OGG/Vorbis (libvorbisenc)."""
+    lib = native_lib()
+    audio = np.asarray(audio, dtype=np.float32)
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    interleaved = np.ascontiguousarray(audio.T, dtype=np.float32)
+    rc = lib.aa_encode_ogg(str(path).encode(), interleaved.ctypes.data_as(_FLOAT_P),
+                           interleaved.shape[0], audio.shape[0], sample_rate, quality)
+    if rc == _NO_VORBIS:
+        raise VorbisUnavailable(f"OGG encode needs libvorbisenc.so.2: {path}")
+    if rc != 0:
+        raise ValueError(f"ogg encode failed ({rc}): {path}")
+
+
+def decode_batch(paths, num_threads: int = 0) -> list:
+    """Decode many files in one native call on a C++ thread pool (the GIL
+    released for the whole batch), each by its magic bytes: RIFF -> WAV,
+    fLaC -> FLAC, OggS -> Vorbis, else MP3. Returns a list aligned with
+    `paths` of ((C, N) float32, sr), or None for a file that failed."""
+    paths = [os.path.expanduser(str(p)) for p in paths]
+    lib = native_lib()
+    n = len(paths)
+    c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    bufs = (_FLOAT_P * n)()
+    frames = (ctypes.c_longlong * n)()
+    chans = (ctypes.c_int * n)()
+    rates = (ctypes.c_int * n)()
+    lib.aa_decode_batch(c_paths, n, num_threads, bufs, frames, chans, rates)
+    out = []
+    for i in range(n):
+        if frames[i] <= 0 or not bufs[i]:
+            out.append(None)
+        else:
+            out.append((_take(lib, bufs[i], int(frames[i]), chans[i]), rates[i]))
+    return out
+
+
+def load_audio_raw(path: str) -> tuple[np.ndarray, int]:
+    """Read a file at its own rate, by extension -> ((C, N) float32, sr)."""
+    ext = Path(str(path)).suffix.lower()
+    if ext == ".mp3":
+        return decode_mp3(str(path))
+    if ext == ".flac":
+        return decode_flac(str(path))
+    if ext in (".ogg", ".oga"):
+        return decode_ogg(str(path))
+    return read_wav(str(path))
 
 
 def load_audio(path: str, sr: int = 48000) -> np.ndarray:
-    """Read a .wav or .mp3 file and resample it to `sr` -> (C, N) float32."""
+    """Read a .wav, .mp3, .flac or .ogg file and resample it to `sr` ->
+    (C, N) float32."""
     path = os.path.expanduser(str(path))
     ext = Path(path).suffix.lower()
-    if ext == ".mp3":
-        audio, in_sr = decode_mp3(path)
-    elif ext in (".wav", ".wave"):
-        audio, in_sr = read_wav(path)
-    else:
+    if ext not in (".mp3", ".wav", ".wave", ".flac", ".ogg", ".oga"):
         raise ValueError(f"unsupported audio format: {ext}")
+    audio, in_sr = load_audio_raw(path)
     if in_sr != sr:
         from ..ops.resample import resample_np
         audio = resample_np(audio, in_sr, sr)
@@ -132,8 +234,16 @@ def load_audio(path: str, sr: int = 48000) -> np.ndarray:
 
 
 def save_audio(path: str, audio, sample_rate: int) -> None:
-    """Write audio as 16-bit PCM WAV."""
-    write_wav(path, np.asarray(audio), sample_rate, subtype="pcm16")
+    """Write audio, the format by extension: .flac through the numpy FLAC
+    encoder, .ogg / .oga through Vorbis, anything else as 16-bit PCM WAV."""
+    ext = Path(str(path)).suffix.lower()
+    if ext == ".flac":
+        from .flac_write import write_flac
+        write_flac(path, np.asarray(audio), sample_rate)
+    elif ext in (".ogg", ".oga"):
+        encode_ogg(path, np.asarray(audio), sample_rate)
+    else:
+        write_wav(path, np.asarray(audio), sample_rate, subtype="pcm16")
 
 
 def batch_it_crazy(x, chunk_size: int, max_batch_size: int | None = None) -> np.ndarray:

@@ -69,11 +69,26 @@ Phases, each printing one JSON line:
                 texts embedded through CLAPDAE.embed: (1, 1, 512), unit norm,
                 finite; the audio embeddings through K6 against the same
                 through the twin (rel diff < 1e-4); one K6 launch per clip
+  io            a seeded 30 s stereo 44.1 kHz signal written as FLAC by the
+                port's encoder and as OGG (where the machine's libvorbis
+                opens), read back through load_audio (resampled to 48 kHz)
+                and decode_batch; FLAC bit-exact at 16 bits; ms a file
   serve         the port's HTTP service in-process on localhost: /health,
                 two /generate requests with embeddings (slerp, algebra) and
                 one with a text prompt at full width and reduced steps,
                 /embed with a text (512 floats and the tokenizer warning)
-                and with WAV bytes, and a strict-text service answering 409
+                and with WAV, FLAC and OGG bytes, GET / (the GUI), 4
+                concurrent requests through the micro-batcher (one generate:
+                batched_runs 1, coalesced_requests 4; wall s against 4
+                serial requests, at 20 + 10 steps), basic auth (401 without
+                credentials, 200 with them, /health open), and a
+                strict-text service answering 409
+  mirage_cli    `python -m audio_algebra_torch.mirage`'s main at full width
+                on the warm model (get_model_ready's cache), 50 + 25 steps
+                (cut from 150 + 100): two text prompts slerped with
+                --init-audio (the io phase's FLAC), and with the FLAC as an
+                audio prompt at --batch-size 2; the WAVs, the PCA .npy /
+                .html, the launches of K1, K3, K5 and K6
   kernels (K4)  the differentiable flash attention: K4a's (o, l, m), K4b's
                 (dk, dv) and K4c's (dq, dbT) against the twins at the
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
@@ -134,7 +149,25 @@ Phases, each printing one JSON line:
                 and a MIRAGE generate (bf16, 10 + 10 steps) from the poured
                 weights; launch counts of K1, K3, K5 and K6 asserted
 
-The phases run in the order above, Destructo's first. Then the `kernels`
+  recurrence    the effects bank's kernels against their twins and float64
+                at the xae path's shapes: R1 (biquad cascade) at (128,
+                262144) one section a row, (1024, 32768) the phaser's two,
+                (2, 1440000) loudness's K-weighting; R2 (the compressor's
+                envelope) at (4, 262144), its twin at 16384 samples; R3
+                (Freeverb's impulse response) 64 responses of 262144, its
+                twin at 4096; each timed beside its bound (bytes or the
+                serial chain at the SM clock)
+  effects       every effect of the bank swept over 32 knobs on (2, 2,
+                262144) f32: s a sweep, peak memory, R1 / R2 / R3 / K6
+                launches
+  xae           audio_algebra_torch.xae_dataset.main on two generated 6 s
+                files (FLAC and OGG, or two FLACs without libvorbis),
+                chunk 262144, 32 knobs, all 12 effects, loudness
+                normalised, encoded through DVAEWrapper() at full width;
+                shapes, finite values, launches
+
+The phases run in the order above, Destructo's first (io, serve and
+mirage_cli right after clap, on the warm model). Then the `kernels`
 summary line, the card's name and power limit from nvidia-smi, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -454,7 +487,9 @@ def host_us(fn, iters: int = 300) -> float:
 def phase_kernels_k5() -> dict:
     """K5 at the MIRAGE inner UNet's shapes (8 groups, SiLU): the widest
     level with FiLM, the widest up-level input without FiLM, the deepest
-    level; one f32 row and the trainer's (8, 512, 2048) f32. Each row by
+    level; one f32 row and the trainer's (8, 512, 2048) f32; bf16 rows at
+    the batches of the MIRAGE CLI (4) and of the service's 4-request
+    micro-batch (8). Each row by
     CUDA events, on the device alone, and the wrapper's host microseconds
     a call, with the route the planner chose; two launches give the same
     bits."""
@@ -465,7 +500,10 @@ def phase_kernels_k5() -> dict:
     dev = torch.device("cuda")
     cases = [((2, 512, 2048), torch.bfloat16, True), ((2, 1536, 2048), torch.bfloat16, False),
              ((2, 1024, 32), torch.bfloat16, True), ((2, 512, 2048), torch.float32, True),
-             ((8, 512, 2048), torch.float32, True)]
+             ((8, 512, 2048), torch.float32, True),
+             # the MIRAGE CLI at --batch-size 2 and the service's 4-request micro-batch
+             ((4, 512, 2048), torch.bfloat16, True), ((8, 512, 2048), torch.bfloat16, True),
+             ((8, 1536, 2048), torch.bfloat16, False), ((8, 1024, 32), torch.bfloat16, True)]
     rows = []
     for shape, dt, film in cases:
         g = torch.Generator(device=dev).manual_seed(200 + len(rows))
@@ -957,9 +995,12 @@ def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
 def phase_kernels_k6() -> dict:
     """K6 on both routes, each against its twin and float64 and timed beside
     the twin, torch.stft and the bounds: the FFT at the spectrogram models'
-    shape, at CLAP's 22 s clip and at DMAE's mel (center=False, no reflect
-    pad), the DFT product at a non-power-of-two n_fft. Returns the rows by
-    route, the first of each, and DMAE's row under "center_false"."""
+    shape, at CLAP's 22 s clip, at DMAE's mel (center=False, no reflect
+    pad) and at PitchShift's (2 clips x 2 channels, 262144; n_fft 2048,
+    hop 512) on the effects and xae paths, the DFT product at a
+    non-power-of-two n_fft. Returns the rows by
+    route, the first of each, DMAE's row under "center_false" and
+    PitchShift's under "pitch_shift"."""
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
 
@@ -968,6 +1009,7 @@ def phase_kernels_k6() -> dict:
     for shape, n_fft, hop, center in [((32, 65536), 1024, 256, True),
                                       ((1, CLAP_LONG), 1024, 480, True),
                                       (DMAE_STFT, 1024, 256, False),
+                                      (PITCH_STFT, 2048, 512, True),
                                       ((32, 65536), 1000, 250, True)]:
         g = torch.Generator(device=dev).manual_seed(400 + len(rows))
         x = torch.randn(shape, generator=g, device=dev) * 0.5
@@ -1014,6 +1056,7 @@ def phase_kernels_k6() -> dict:
         raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
     out = {route: next(r for r in rows if r["route"] == route) for route in ("fft", "dft")}
     out["center_false"] = next(r for r in rows if not r["center"])
+    out["pitch_shift"] = next(r for r in rows if r["n_fft"] == 2048)
     return out
 
 
@@ -1158,10 +1201,12 @@ def phase_clap(model) -> int:
     return launches
 
 
-def phase_serve(model) -> int:
+def phase_serve(model, io_files: dict) -> int:
     """The HTTP service in-process on localhost, around the warm model; a
-    second service over the same model in strict-text mode. Returns K6's
-    launches over the requests."""
+    second service over the same model in strict-text mode; a third with
+    the micro-batcher (4 concurrent requests, one generate) and a fourth
+    with basic auth. Returns K6's launches over the requests."""
+    import base64
     import io
     import threading
     import urllib.error
@@ -1178,11 +1223,19 @@ def phase_serve(model) -> int:
         thread.start()
         return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
 
-    def post(base, path, body, ctype="application/json", timeout=600):
+    def post(base, path, body, ctype="application/json", timeout=600, headers=()):
         data = json.dumps(body).encode() if ctype == "application/json" else body
         req = urllib.request.Request(f"{base}{path}", data=data,
-                                     headers={"Content-Type": ctype})
+                                     headers={"Content-Type": ctype, **dict(headers)})
         return urllib.request.urlopen(req, timeout=timeout)
+
+    def get(base, path, headers=()):
+        req = urllib.request.Request(f"{base}{path}", headers=dict(headers))
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.headers.get("Content-Type", ""), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("WWW-Authenticate", ""), e.read()
 
     rng = np.random.default_rng(1)
     embs = [(v / np.linalg.norm(v)).tolist() for v in rng.standard_normal((2, 512))]
@@ -1220,8 +1273,13 @@ def phase_serve(model) -> int:
                 "tokenizer_warning": "tokenizer_warning" in info,
                 "seconds": time.perf_counter() - start_s, "rms": float(np.sqrt(
                     np.mean((pcm / 32767.0) ** 2)))}
-        for name, body, ctype in (("embed_text", {"text": "low brass"}, "application/json"),
-                                  ("embed_wav", clip.getvalue(), "audio/wav")):
+        bodies = [("embed_text", {"text": "low brass"}, "application/json"),
+                  ("embed_wav", clip.getvalue(), "audio/wav"),
+                  ("embed_flac", io_files["flac"].read_bytes(), "application/octet-stream")]
+        if io_files["ogg"]:
+            bodies.append(("embed_ogg", io_files["ogg_path"].read_bytes(),
+                           "application/octet-stream"))
+        for name, body, ctype in bodies:
             start_s = time.perf_counter()
             with post(base, "/embed", body, ctype) as r:
                 answer = json.loads(r.read())
@@ -1231,6 +1289,54 @@ def phase_serve(model) -> int:
                 "tokenizer_warning": "tokenizer_warning" in answer,
                 "seconds": time.perf_counter() - start_s}
         launches = stk.launches
+        code, ctype, page = get(base, "/")
+        result["gui"] = {"status": code, "content_type": ctype, "bytes": len(page),
+                         "title": b"<title>MIRAGE</title>" in page}
+        # 4 concurrent single-variation requests, one sampler config: one
+        # generate on the batched service; the same 4 one after another on
+        # the plain one
+        inner, outer = SERVE_BATCH_STEPS
+        batch_specs = [{"embeddings": [embs[i % 2]], "interp": 0.5, "steps": inner,
+                        "outer_steps": outer} for i in range(4)]
+        server, thread, bbase = start(serve.MirageService(model=model, verbose=False,
+                                                          batch_window_s=0.5))
+        servers.append((server, thread))
+        answers = [None] * 4
+
+        def one(i):
+            with post(bbase, "/generate", batch_specs[i]) as r:
+                answers[i] = (r.status, len(r.read()))
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        batched_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{bbase}/health", timeout=60) as r:
+            bhealth = json.loads(r.read())
+        t0 = time.perf_counter()
+        for spec in batch_specs:
+            with post(base, "/generate", spec) as r:
+                r.read()
+        serial_s = time.perf_counter() - t0
+        result["batching"] = {"steps": [inner, outer], "window_s": 0.5,
+                              "answers": answers, "batched_runs": bhealth["batched_runs"],
+                              "coalesced_requests": bhealth["coalesced_requests"],
+                              "wall_s_4_concurrent": batched_s, "wall_s_4_serial": serial_s}
+        # basic auth from the environment: /health open, the rest 401 without
+        os.environ["MIRAGE_USERNAME"], os.environ["MIRAGE_PASSWORD"] = "alice", "s3cret"
+        try:
+            server, thread, abase = start(serve.MirageService(model=model, verbose=False))
+        finally:
+            del os.environ["MIRAGE_USERNAME"], os.environ["MIRAGE_PASSWORD"]
+        servers.append((server, thread))
+        token = base64.b64encode(b"alice:s3cret").decode()
+        result["auth"] = {"health": get(abase, "/health")[0],
+                          "gui_without": get(abase, "/")[:2],
+                          "gui_with": get(abase, "/", [("Authorization", f"Basic {token}")])[0],
+                          "gui_wrong": get(abase, "/", [("Authorization", "Basic eDp5")])[0]}
         server, thread, base = start(serve.MirageService(model=model, verbose=False,
                                                          strict_text=True))
         servers.append((server, thread))
@@ -1256,7 +1362,8 @@ def phase_serve(model) -> int:
     fallback = result["health"]["text_tokenizer"] == "byte-fallback"
     if result["requests"]["text"]["tokenizer_warning"] != fallback:
         raise AssertionError(f"text prompt's tokenizer warning: {result['requests']['text']}")
-    for name, warned in (("embed_text", fallback), ("embed_wav", False)):
+    audio_embeds = ["embed_wav", "embed_flac"] + (["embed_ogg"] if io_files["ogg"] else [])
+    for name, warned in [("embed_text", fallback)] + [(n, False) for n in audio_embeds]:
         r = result["requests"][name]
         if r["status"] != 200 or r["floats"] != 512 or abs(r["norm"] - 1) > 1e-4 \
                 or r["tokenizer_warning"] != warned:
@@ -1264,9 +1371,21 @@ def phase_serve(model) -> int:
     if fallback and result["strict_text"] != {"code": 409,
                                               "error": "text_tokenizer_unavailable"}:
         raise AssertionError(f"strict-text service answered {result['strict_text']}")
-    if launches != 1:
-        raise AssertionError(f"the requests launched K6 {launches} times, expected 1 "
-                             "(the WAV posted to /embed)")
+    if launches != len(audio_embeds):
+        raise AssertionError(f"the requests launched K6 {launches} times, expected "
+                             f"{len(audio_embeds)} (the audio posted to /embed)")
+    if not (result["gui"]["status"] == 200 and result["gui"]["title"]
+            and result["gui"]["content_type"].startswith("text/html")):
+        raise AssertionError(f"GET / answered {result['gui']}")
+    b = result["batching"]
+    if b["batched_runs"] != 1 or b["coalesced_requests"] != 4 \
+            or any(a is None or a[0] != 200 for a in b["answers"]):
+        raise AssertionError(f"micro-batcher: {b}")
+    a = result["auth"]
+    if a["health"] != 200 or a["gui_without"][0] != 401 \
+            or not a["gui_without"][1].startswith("Basic") or a["gui_with"] != 200 \
+            or a["gui_wrong"] != 401:
+        raise AssertionError(f"basic auth: {a}")
     if any(thread.is_alive() for _, thread in servers):
         raise AssertionError("a server thread did not stop")
     return launches
@@ -2304,6 +2423,451 @@ def phase_checkpoints() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------------
+# The effects bank's recurrences (R1-R3), its sweep, IO, the XAE corpus
+# builder and the MIRAGE CLI.
+
+FMA_LATENCY_CYCLES = 4         # a dependent f32 FMA (or select) on the SM
+XAE_CHUNK, XAE_KNOBS, XAE_CLIPS = 262144, 32, 2
+IO_FX_CLI_PHASES = ("io", "mirage_cli", "recurrence", "effects", "xae")   # budget ~90 s together
+PITCH_STFT = (XAE_CLIPS * 2, XAE_CHUNK)   # PitchShift's stft rows: clips x stereo
+REC_TWIN_T = {"envelope": 16384, "freeverb_ir": 4096}    # the loop twins' lengths
+REC_REL_RMS = 1e-4             # R1-R3 vs twin and vs float64 (filters, compressor, reverb)
+IO_SECONDS, IO_SR = 30, 44100
+MIRAGE_CLI_STEPS = (50, 25)    # inner, outer: cut from 150 + 100 for the time limit
+SERVE_BATCH_STEPS = (20, 10)   # the micro-batcher's requests, cut likewise
+
+
+def sm_clock_hz() -> float:
+    """The SM's maximum clock, from nvidia-smi."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def rec_bound(rows: int, t_len: int, steps_per_sample: int, io_tensors: int = 2) -> dict:
+    """A recurrence's least time: its bytes (each f32 input read once, each
+    output written once) over the HBM rate, or its serial chain (t_len
+    samples x the dependent steps a sample x one FMA's latency) at the SM's
+    clock, whichever is larger."""
+    t_bytes = io_tensors * rows * t_len * 4 / HBM_BYTES_PER_S * 1e3
+    t_chain = t_len * steps_per_sample * FMA_LATENCY_CYCLES / sm_clock_hz() * 1e3
+    return {"bound_ms": max(t_bytes, t_chain), "bytes_ms": t_bytes, "chain_ms": t_chain,
+            "bound_by": "bytes" if t_bytes >= t_chain else "operations",
+            "bound_kind": "bytes" if t_bytes >= t_chain else
+            f"serial chain: {t_len} samples x {steps_per_sample} dependent op(s) x "
+            f"{FMA_LATENCY_CYCLES} cycles"}
+
+
+def _envelope_f64(x, a_att, a_rel):
+    import numpy as np
+    env, out = 0.0, np.empty(x.shape[-1])
+    for t, l in enumerate(np.abs(np.asarray(x, np.float64))):
+        c = a_att if l > env else a_rel
+        env = c * env + (1 - c) * l
+        out[t] = env
+    return out
+
+
+def _freeverb_ir_f64(feedback, damp, n, sr, spread):
+    """JUCE's comb / allpass recurrence in float64 (tests/test_effects.py's)."""
+    import numpy as np
+    from audio_algebra_torch.ops.recurrence import delay_sizes
+    combs, aps = delay_sizes(sr, spread)
+    bufs = [np.zeros(s) for s in combs]
+    lasts = [0.0] * len(combs)
+    apbufs = [np.zeros(s) for s in aps]
+    ir = np.zeros(n)
+    for i in range(n):
+        inp = 1.0 if i == 0 else 0.0
+        acc = 0.0
+        for j, s in enumerate(combs):
+            o = bufs[j][i % s]
+            lasts[j] = o * (1 - damp) + lasts[j] * damp
+            bufs[j][i % s] = inp + lasts[j] * feedback
+            acc += o
+        for k, s in enumerate(aps):
+            bo = apbufs[k][i % s]
+            apbufs[k][i % s] = acc + bo * 0.5
+            acc = bo - acc
+        ir[i] = acc
+    return ir
+
+
+def _rel_rms_np(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(((a - b) ** 2).mean() / max((b ** 2).mean(), 1e-30)))
+
+
+def phase_recurrence() -> dict:
+    """R1, R2 and R3 on the card at the xae path's shapes: each against its
+    twin (R1 at full length; R2 and R3, whose twins loop, at
+    REC_TWIN_T), at full length against a float64 recurrence on a subset
+    of rows, and timed beside its twin and its bound."""
+    import numpy as np
+    import scipy.signal
+    import torch
+    from audio_algebra_torch.ops import effects as fx
+    from audio_algebra_torch.ops import recurrence as rec
+    from audio_algebra_torch.ops.loudness import _k_weighting_sos
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows_xae = XAE_CLIPS * XAE_KNOBS * 2
+    out = {}
+
+    def randn(*shape):
+        return 0.3 * torch.randn(shape, generator=gen, device=dev)
+
+    def held(name, got, want, pick, full, f64, ms, plain_ms, plain_shape, bound, **extra):
+        """`got` / `want`: kernel / twin on the same inputs (the twin's
+        length); `full`: the kernel at full length; `f64`: the float64
+        recurrence of rows `pick` at full length. The kernel must be as
+        close to float64 as the twin (or within REC_REL_RMS), and as close
+        to the twin as twice the twin's own distance from float64."""
+        n = want.shape[-1]
+        row = {"max_abs_err": (got - want).abs().max().item(),
+               "rel_rms_vs_twin": rel_rms(got.double(), want.double()),
+               "rel_rms_vs_f64": _rel_rms_np(full[pick].cpu().numpy(), f64),
+               "twin_rel_rms_vs_f64": _rel_rms_np(want[pick].cpu().numpy(), f64[:, :n]),
+               "kernel_ms": ms["call"], "kernel_device_ms": ms["device"],
+               "plain_ms": plain_ms, "plain_shape": plain_shape, "library_ms": None,
+               "library": "chain: no PyTorch call computes a recurrence", **bound, **extra}
+        out.setdefault(name, []).append(row)
+        emit({"phase": "recurrence", "kernel": name, **row})
+        if not (row["rel_rms_vs_f64"] <= max(REC_REL_RMS, row["twin_rel_rms_vs_f64"])
+                and row["rel_rms_vs_twin"] <= max(REC_REL_RMS, 2 * row["twin_rel_rms_vs_f64"])):
+            raise AssertionError(f"{name}: {row}")
+
+    def times(fn, iters):
+        return {"call": cuda_ms(fn, iters), "device": device_ms(fn, iters)}
+
+    # R1 at its three xae-path shapes: the TPT filters' one section a row,
+    # the phaser's 8 segments x 2 sections a row, loudness's 2 shared
+    # sections over a whole 30 s track
+    knobs = torch.tensor(fx.knob_sweep("LowpassFilter", XAE_KNOBS), dtype=torch.float32,
+                         device=dev)
+    tpt = fx._tpt_first_order_sos(knobs, 48000, "lowpass")                 # (K, 1, 6)
+    cases = {
+        "tpt": (tpt.repeat_interleave(rows_xae // XAE_KNOBS, 0), randn(rows_xae, XAE_CHUNK)),
+        "phaser": (None, randn(rows_xae * 8, XAE_CHUNK // 8)),
+        "loudness": (_k_weighting_sos(48000).to(dev)[None], randn(2, IO_SECONDS * 48000)),
+    }
+    f = 1300.0 * (1.0 + 0.4 * torch.sin(torch.rand(rows_xae * 8, generator=gen, device=dev)))
+    b, a = fx.biquad_coeffs("notch", f, 48000, q=0.7)
+    cases["phaser"] = (torch.cat([b, a], -1)[:, None, :].expand(-1, 2, 6).contiguous(),
+                       cases["phaser"][1])
+    for case, (sos, x) in cases.items():
+        y = rec.sosfilt_rows(sos, x)
+        torch.cuda.synchronize()
+        want = rec.sosfilt_rows_ref(sos, x)
+        pick = [0, x.shape[0] - 1]
+        f64 = [scipy.signal.sosfilt(sos[min(r, sos.shape[0] - 1)].double().cpu().numpy(),
+                                    x[r].double().cpu().numpy()) for r in pick]
+        held("sosfilt", y, want, pick, y, np.stack(f64),
+             times(lambda: rec.sosfilt_rows(sos, x), 10),
+             cuda_ms(lambda: rec.sosfilt_rows_ref(sos, x), 2), list(x.shape),
+             rec_bound(x.shape[0], x.shape[1], 2), case=case, shape=list(x.shape),
+             sections=sos.shape[1], coefficients_per_row=sos.shape[0] != 1)
+
+    # R2 at the compressor's (2 clips x 2 channels, 262144): against the twin
+    # at REC_TWIN_T, at full length against float64 on one row
+    a_att, a_rel = math.exp(-1.0 / 48.0), math.exp(-1.0 / 4800.0)
+    x = randn(XAE_CLIPS * 2, XAE_CHUNK)
+    env = rec.envelope(x, a_att, a_rel)
+    t_short = REC_TWIN_T["envelope"]
+    short = rec.envelope(x[:, :t_short].contiguous(), a_att, a_rel)
+    t0 = time.perf_counter()
+    want = rec.envelope_ref(x[:, :t_short], a_att, a_rel)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    held("envelope", short, want, [0], env,
+         _envelope_f64(x[0].cpu().numpy(), a_att, a_rel)[None],
+         times(lambda: rec.envelope(x, a_att, a_rel), 10), plain_ms, [x.shape[0], t_short],
+         rec_bound(x.shape[0], XAE_CHUNK, 2), shape=list(x.shape))
+
+    # R3 at the reverb sweep's 32 knobs x 2 spreads, n = 262144
+    room = torch.tensor(fx.knob_sweep("Reverb", XAE_KNOBS), dtype=torch.float32, device=dev)
+    fb = torch.cat([room * 0.28 + 0.7] * 2)
+    dm = torch.full_like(fb, float(np.float32(0.5) * np.float32(0.4)))
+    spreads = [0] * XAE_KNOBS + [fx.FREEVERB_STEREO_SPREAD] * XAE_KNOBS
+    ir = rec.freeverb_irs(fb, dm, spreads, XAE_CHUNK)
+    n_short = REC_TWIN_T["freeverb_ir"]
+    short = rec.freeverb_irs(fb, dm, spreads, n_short)
+    t0 = time.perf_counter()
+    want = rec.freeverb_irs_ref(fb, dm, spreads, n_short)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    last = 2 * XAE_KNOBS - 1
+    held("freeverb_ir", short, want, [last], ir,
+         _freeverb_ir_f64(float(fb[last]), float(dm[last]), XAE_CHUNK, 48000,
+                          spreads[last])[None],
+         times(lambda: rec.freeverb_irs(fb, dm, spreads, XAE_CHUNK), 5), plain_ms,
+         [2 * XAE_KNOBS, n_short], rec_bound(2 * XAE_KNOBS, XAE_CHUNK, 1, io_tensors=1),
+         shape=[2 * XAE_KNOBS, XAE_CHUNK], prefix_equal=bool(torch.equal(ir[:, :n_short], short)))
+    if not out["freeverb_ir"][0]["prefix_equal"]:
+        raise AssertionError("R3: a shorter response is not the longer one's prefix")
+    emit({"phase": "recurrence", "card": card()})
+    return out
+
+
+def _ensure_native_codec() -> dict:
+    """Build native/libaacodec.so (make, g++) when the checkout has none."""
+    from audio_algebra_torch.utils import audio_io
+    built = False
+    if not audio_io.NATIVE_LIB.exists():
+        subprocess.run(["make", "-C", str(ROOT / "native")], check=True,
+                       capture_output=True, timeout=300)
+        built = True
+    return {"native_lib": str(audio_io.NATIVE_LIB.relative_to(ROOT)), "built": built}
+
+
+def _ogg_available(tmp: Path) -> tuple[bool, str]:
+    """Whether the running machine's libvorbis / libvorbisenc open: the native
+    codec reaches them with dlopen at run time. Only that case reads as no
+    OGG; any other failure of the binding raises."""
+    import numpy as np
+    from audio_algebra_torch.utils import audio_io
+    try:
+        audio_io.encode_ogg(str(tmp / "probe.ogg"), np.zeros((2, 4096), np.float32), 44100)
+        audio_io.decode_ogg(str(tmp / "probe.ogg"))
+        return True, ""
+    except audio_io.VorbisUnavailable as e:
+        return False, str(e)
+
+
+def _music(rng, channels: int, n: int, sr: int):
+    """A seeded stand-in for music: three tones a channel, a slow tremolo
+    and noise, peak under 1."""
+    import numpy as np
+    t = np.arange(n) / sr
+    x = np.zeros((channels, n))
+    for c in range(channels):
+        for f in rng.uniform(80, 2000, 3):
+            x[c] += 0.18 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.283))
+        x[c] *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.2, 2.0) * t)
+    x += 0.03 * rng.standard_normal(x.shape)
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+def phase_io(tmp: Path) -> dict:
+    """A 30 s stereo 44.1 kHz signal written as FLAC by the port's encoder
+    and as OGG, read back through load_audio (resampled to 48 kHz) and
+    through decode_batch; FLAC round-trips bit-exactly at 16 bits. Returns
+    the FLAC's path and whether OGG works on the running machine."""
+    import numpy as np
+    from audio_algebra_torch.utils import audio_io
+    from audio_algebra_torch.utils.flac_write import write_flac
+
+    build = _ensure_native_codec()
+    ogg, ogg_reason = _ogg_available(tmp)
+    x = _music(np.random.default_rng(11), 2, IO_SECONDS * IO_SR, IO_SR)
+    pcm = np.clip(np.round(x * 32768.0), -32768, 32767)
+    paths = {"flac": tmp / "io.flac", "ogg": tmp / "io.ogg"}
+    row = {"phase": "io", **build, "seconds_of_audio": IO_SECONDS, "sample_rate": IO_SR,
+           "ogg_available": ogg, "ogg_unavailable_reason": ogg_reason or None, "ms": {}}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        row["ms"][key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    timed("write_flac", lambda: write_flac(str(paths["flac"]), x, IO_SR))
+    raw, sr = timed("decode_flac", lambda: audio_io.decode_flac(str(paths["flac"])))
+    row["flac_bytes"] = paths["flac"].stat().st_size
+    row["flac_bit_exact"] = bool(sr == IO_SR and raw.shape == x.shape
+                                 and np.array_equal(raw * 32768.0, pcm))
+    y48 = timed("load_audio_flac_48k", lambda: audio_io.load_audio(str(paths["flac"]), 48000))
+    row["flac_48k_shape"] = list(y48.shape)
+    files = [paths["flac"]]
+    if ogg:
+        timed("encode_ogg", lambda: audio_io.encode_ogg(str(paths["ogg"]), x, IO_SR))
+        o48 = timed("load_audio_ogg_48k", lambda: audio_io.load_audio(str(paths["ogg"]), 48000))
+        row["ogg_bytes"] = paths["ogg"].stat().st_size
+        row["ogg_48k_shape"] = list(o48.shape)
+        n = min(o48.shape[1], y48.shape[1])
+        row["ogg_corr"] = float(np.dot(o48[0, :n], y48[0, :n])
+                                / (np.linalg.norm(o48[0, :n]) * np.linalg.norm(y48[0, :n])))
+        files.append(paths["ogg"])
+    batch = timed("decode_batch", lambda: audio_io.decode_batch([str(p) for p in files]))
+    row["decode_batch"] = [None if b is None else [list(b[0].shape), b[1]] for b in batch]
+    row["decode_batch_flac_equal"] = bool(batch[0] is not None
+                                          and np.array_equal(batch[0][0], raw))
+    emit(row)
+    want_48k = [2, int(math.ceil(IO_SECONDS * IO_SR * 48000 / IO_SR))]
+    if not (row["flac_bit_exact"] and row["flac_48k_shape"] == want_48k
+            and row["decode_batch_flac_equal"] and all(b is not None for b in batch)):
+        raise AssertionError(f"io: {row}")
+    if ogg and not (row["ogg_48k_shape"][0] == 2 and row["ogg_corr"] > 0.9):
+        raise AssertionError(f"io (ogg): {row}")
+    return {"flac": paths["flac"], "ogg": ogg, "ogg_path": paths["ogg"],
+            "ogg_reason": ogg_reason}
+
+
+def _effect_counts() -> dict:
+    from audio_algebra_torch.ops import recurrence as rec
+    from audio_algebra_torch.ops import stft_kernel as stk
+    return {"r1": rec.launches["sosfilt"], "r2": rec.launches["envelope"],
+            "r3": rec.launches["freeverb_ir"], "k6": stk.launches}
+
+
+def _zero_effect_counts() -> None:
+    from audio_algebra_torch.ops import recurrence as rec
+    from audio_algebra_torch.ops import stft_kernel as stk
+    for key in rec.launches:
+        rec.launches[key] = 0
+    stk.launches = stk.fft_launches = stk.dft_launches = 0
+
+
+def phase_effects() -> dict:
+    """Every effect of EFFECTS swept over 32 knobs on (2, 2, 262144) f32
+    (PitchShift's static knob looping on the host): seconds of a first
+    sweep and of a second (plans and tables built), peak memory, launches
+    of R1, R2, R3 and K6 in the second, finite outputs of (K, 2, 2, T)."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch.ops import effects as fx
+
+    x = torch.from_numpy(np.stack([_music(np.random.default_rng(20 + i), 2, XAE_CHUNK, 48000)
+                                   for i in range(XAE_CLIPS)])).cuda()
+    rows, total = {}, {"r1": 0, "r2": 0, "r3": 0, "k6": 0}
+    for name, (_, knob_name, *_) in fx.EFFECTS.items():
+        knobs = fx.knob_sweep(name, XAE_KNOBS) if knob_name != "none" else np.asarray([0.0])
+        sweep = knobs if name in fx.STATIC_KNOB else torch.tensor(knobs, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fx.apply_effect(name, x, sweep)      # first call: FFT plans, resampling tables
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        _zero_effect_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        y = fx.apply_effect(name, x, sweep)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = _effect_counts()
+        rows[name] = {"sweep_s": s, "sweep_s_first_call": cold_s, "knobs": len(knobs),
+                      "shape": list(y.shape),
+                      "finite": bool(torch.isfinite(y).all()),
+                      "peak_gb_over_input": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                      "launches": counts}
+        for key in total:
+            total[key] += counts[key]
+        del y
+        emit({"phase": "effects", "effect": name, **rows[name]})
+    emit({"phase": "effects", "shape": list(x.shape), "knob_steps": XAE_KNOBS,
+          "launches": total, "sweep_s_total": sum(r["sweep_s"] for r in rows.values())})
+    bad = {n: r for n, r in rows.items()
+           if not r["finite"] or r["shape"] != [r["knobs"], *x.shape]}
+    if bad:
+        raise AssertionError(f"effects: {bad}")
+    for name, key in (("LowpassFilter", "r1"), ("Phaser", "r1"), ("Compressor", "r2"),
+                      ("Reverb", "r3"), ("PitchShift", "k6")):
+        if rows[name]["launches"][key] < 1:
+            raise AssertionError(f"effects: {name} launched no {key}: {rows[name]}")
+    return total
+
+
+def phase_xae(tmp: Path, ogg: bool) -> dict:
+    """audio_algebra_torch.xae_dataset.main on two generated ~6 s source
+    files (a FLAC and an OGG; a second FLAC where the machine has no
+    libvorbis) at --chunk-size 262144, --knob-steps 32, all 12 effects,
+    --normalize loudness, --encode through DVAEWrapper() at its default
+    width with seeded random weights; the arrays' and the manifest's shapes,
+    finite values, and the launches of R1, R2, R3 and K6."""
+    import numpy as np
+    from audio_algebra_torch import xae_dataset
+    from audio_algebra_torch.ops import effects as fx
+    from audio_algebra_torch.utils import audio_io
+    from audio_algebra_torch.utils.flac_write import write_flac
+
+    src, out = tmp / "xae_src", tmp / "xae_out"
+    src.mkdir()
+    n = 6 * IO_SR
+    write_flac(str(src / "a.flac"), _music(np.random.default_rng(31), 2, n, IO_SR), IO_SR)
+    second = src / ("b.ogg" if ogg else "b.flac")
+    audio = _music(np.random.default_rng(32), 2, n, IO_SR)
+    (audio_io.encode_ogg if ogg else write_flac)(str(second), audio, IO_SR)
+    names = list(fx.EFFECTS)
+    _zero_effect_counts()
+    t0 = time.perf_counter()
+    xae_dataset.main(["--source-dir", str(src), "--out-dir", str(out),
+                      "--chunk-size", str(XAE_CHUNK), "--knob-steps", str(XAE_KNOBS),
+                      "--effects", ",".join(names), "--normalize", "loudness",
+                      "--encode", "--encode-batch", "16", "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = _effect_counts()
+    manifest = json.loads((out / "manifest.json").read_text())
+    clips = np.load(out / "clips.npy")
+    arrays = {p.name: np.load(p) for p in sorted(out.glob("*.npy"))}
+    finite = {k: bool(np.isfinite(v).all()) for k, v in arrays.items()}
+    want_rows = XAE_CLIPS * sum(1 if fx.EFFECTS[e][1] == "none" else XAE_KNOBS for e in names)
+    row = {"phase": "xae", "seconds": seconds, "sources": [p.name for p in sorted(src.iterdir())],
+           "clips": list(clips.shape), "rows": len(manifest["rows"]), "rows_expected": want_rows,
+           "shapes": {k: list(v.shape) for k, v in arrays.items()}, "launches": counts,
+           "all_finite": all(finite.values()), "card": card()}
+    emit(row)
+    ok = (list(clips.shape) == [XAE_CLIPS, 2, XAE_CHUNK] and row["all_finite"]
+          and len(manifest["rows"]) == want_rows and manifest["effects"] == names
+          and manifest["chunk_size"] == XAE_CHUNK)
+    for e in names:
+        k = 1 if fx.EFFECTS[e][1] == "none" else XAE_KNOBS
+        ok &= list(arrays[f"fx_{e}.npy"].shape) == [XAE_CLIPS, k, 2, XAE_CHUNK]
+        ok &= arrays[f"emb_{e}.npy"].shape[:2] == (XAE_CLIPS, k)
+    if not ok or min(counts.values()) < 1:
+        raise AssertionError(f"xae: {row}")
+    return counts
+
+
+def phase_mirage_cli(model, flac: Path, tmp: Path) -> dict:
+    """`python -m audio_algebra_torch.mirage`'s main at full width on the
+    warm 22 s model (get_model_ready's cache seeded with it), twice at
+    MIRAGE_CLI_STEPS: two text prompts slerped with --init-audio from the io
+    phase's FLAC (the img2img path generates one take a clip, as the
+    reference's does), and two text prompts and the FLAC as an audio prompt
+    at --batch-size 2. Checks the WAVs, the PCA .npy / .html and the
+    launches of K1, K3, K5 and K6."""
+    import numpy as np
+    from audio_algebra_torch import embedding_math, mirage
+    from audio_algebra_torch.utils.audio_io import read_wav
+
+    embedding_math._model_cache[embedding_math.model_cache_key("22s", True, "cuda")] = model
+    inner, outer = MIRAGE_CLI_STEPS
+    runs = {"init_audio": ["--init-audio", str(flac), "--batch-size", "2"],
+            "audio_prompt": ["--audio", str(flac), "--batch-size", "2"]}
+    want_samples = {"init_audio": MIRAGE_SAMPLES, "audio_prompt": 2 * MIRAGE_SAMPLES - 72000}
+    out, counts = {}, {}
+    for name, extra in runs.items():
+        out_dir = tmp / f"mirage_{name}"
+        _zero_all_counts()
+        t0 = time.perf_counter()
+        result = mirage.main(["--text", "low brass", "--text", "warm pad", *extra,
+                              "--steps", str(inner), "--outer-steps", str(outer), "--seed", "0",
+                              "--output-dir", str(out_dir)])
+        s = time.perf_counter() - t0
+        counts[name] = dict(_all_counts())
+        wav, sr = read_wav(result["wav"])
+        cloud = np.load(result["pca"])
+        html = (out_dir / "mirage_latents_pca.html").read_text()
+        out[name] = {"seconds": s, "wav": [*wav.shape, sr], "finite": bool(np.isfinite(wav).all()),
+                     "rms": float(np.sqrt((wav ** 2).mean())), "pca": list(cloud.shape),
+                     "html_bytes": len(html), "launches": counts[name]}
+        emit({"phase": "mirage_cli", "run": name, "steps": [inner, outer], **out[name]})
+        ok = (out[name]["wav"] == [2, want_samples[name], 48000] and out[name]["finite"]
+              and cloud.shape[1] == 3 and np.isfinite(cloud).all() and "<canvas" in html
+              and min(counts[name][k] for k in ("k1", "k3", "k5")) > 0)
+        if not ok:
+            raise AssertionError(f"mirage_cli ({name}): {out[name]}")
+    if counts["audio_prompt"]["k6"] != 1:
+        raise AssertionError(f"mirage_cli: the audio prompt launched K6 "
+                             f"{counts['audio_prompt']['k6']} times, expected 1")
+    return {k: sum(c[k] for c in counts.values()) for k in ("k1", "k3", "k5", "k6")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2319,40 +2883,63 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": {"matmul": False, "cudnn": False}})
-    only = None
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
     if "--only" in sys.argv[1:]:
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         for name in only:
-            if name in ("clap", "serve"):
+            if name in ("clap", "serve", "mirage_cli"):
                 raise SystemExit(f"--only: phase {name} needs the served model")
-            globals()[f"phase_{name}"](*([None] if name == "train" else []))
+            if name == "io":
+                phase_io(tmp)
+            elif name == "xae":
+                _ensure_native_codec()
+                phase_xae(tmp, _ogg_available(tmp)[0])
+            else:
+                globals()[f"phase_{name}"](*([None] if name == "train" else []))
+        tmp_dir.cleanup()
         emit({"partial": True, "phases": only})
         return 0
-    phase_build()
-    k1 = phase_kernels()
-    k3 = phase_kernels_k3()
-    k5 = phase_kernels_k5()
-    phase_model()
-    destructo_k1 = phase_destructo()
-    k2 = phase_kernels_k2()
-    turbo = phase_destructo_turbo()
-    phase_mirage_model()
-    model, counts = phase_mirage()
-    k6 = phase_kernels_k6()
-    spectrogram_k6 = phase_spectrogram()
-    clap_k6 = phase_clap(model)
-    serve_k6 = phase_serve(model)
+    seconds = {}
+
+    def run(phase, *args):
+        """Run a phase and keep its seconds of wall time."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        return out
+
+    run(phase_build)
+    k1 = run(phase_kernels)
+    k3 = run(phase_kernels_k3)
+    k5 = run(phase_kernels_k5)
+    run(phase_model)
+    destructo_k1 = run(phase_destructo)
+    k2 = run(phase_kernels_k2)
+    turbo = run(phase_destructo_turbo)
+    run(phase_mirage_model)
+    model, counts = run(phase_mirage)
+    k6 = run(phase_kernels_k6)
+    spectrogram_k6 = run(phase_spectrogram)
+    clap_k6 = run(phase_clap, model)
+    io_files = run(phase_io, tmp)
+    serve_k6 = run(phase_serve, model, io_files)
+    cli = run(phase_mirage_cli, model, io_files["flac"], tmp)
     clap_module = model.clap_module
     del model
     torch.cuda.empty_cache()
-    k4 = phase_kernels_k4()
-    phase_train_model()
-    train = phase_train(clap_module)
+    k4 = run(phase_kernels_k4)
+    run(phase_train_model)
+    train = run(phase_train, clap_module)
     del clap_module
     torch.cuda.empty_cache()
-    phase_train_aa_model()
-    train_aa = phase_train_aa()
-    ckpt = phase_checkpoints()
+    run(phase_train_aa_model)
+    train_aa = run(phase_train_aa)
+    ckpt = run(phase_checkpoints)
+    rec = run(phase_recurrence)
+    fx_counts = run(phase_effects)
+    xae = run(phase_xae, tmp, io_files["ogg"])
+    tmp_dir.cleanup()
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -2362,12 +2949,29 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"], **extra}
 
+    def rec_entry(name, replaces, key, rows, **extra):
+        """A recurrence kernel of the summary line: its first row is its
+        xae-path shape; `launches` the xae run's, beside the effects
+        phase's sweep of every effect."""
+        row = rows[0]
+        return {"name": name, "route": "cuda", "source": "audio_algebra_torch/csrc/recurrence.cu",
+                "replaces": replaces, "launches": xae[key], "max_abs_err": row["max_abs_err"],
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "launches_by_path": {"xae": xae[key], "effects": fx_counts[key]},
+                "device_ms": row["kernel_device_ms"], "plain_shape": row["plain_shape"],
+                "bound_kind": row["bound_kind"],
+                "cases": [{k: r.get(k) for k in ("case", "shape", "kernel_ms", "kernel_device_ms",
+                                                  "bound_ms", "max_abs_err", "rel_rms_vs_f64",
+                                                  "twin_rel_rms_vs_f64", "plain_ms")}
+                          for r in rows], **extra}
+
     emit({"kernels": [
         entry("groupnorm1_gelu", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
               launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
                                 "mirage": counts["k1"], "train_aa": train_aa,
-                                "checkpoints": ckpt["k1"]}),
+                                "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"]}),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
@@ -2377,7 +2981,8 @@ def main() -> int:
               k2["res_amax_q"]),
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3,
-              launches_by_path={"mirage": counts["k3"], "checkpoints": ckpt["k3"]},
+              launches_by_path={"mirage": counts["k3"], "checkpoints": ckpt["k3"],
+                                "mirage_cli": cli["k3"]},
               device_ms=k3["kernel_device_ms"]),
         entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"],
@@ -2393,16 +2998,18 @@ def main() -> int:
         entry("grouped_gn_film_silu", "grouped_gn.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
               launches_by_path={"mirage": counts["k5"], "train": train["k5"],
-                                "checkpoints": ckpt["k5"]},
+                                "checkpoints": ckpt["k5"], "mirage_cli": cli["k5"]},
               launches_by_route={"cluster": counts["k5"] + train["k5_cluster"],
                                  "two_pass": train["k5_two_pass"]},
               device_ms=k5["kernel_device_ms"], host_us=k5["host_us"],
               planner_route=k5["route"]),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
-              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"] + ckpt["k6"], k6["fft"],
+              spectrogram_k6 + clap_k6 + serve_k6 + train["k6"] + ckpt["k6"] + cli["k6"]
+              + fx_counts["k6"] + xae["k6"], k6["fft"],
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
                                 "serve": serve_k6, "train": train["k6"],
-                                "checkpoints": ckpt["k6"]},
+                                "checkpoints": ckpt["k6"], "mirage_cli": cli["k6"],
+                                "effects": fx_counts["k6"], "xae": xae["k6"]},
               dft_operations_ms=k6["fft"]["dft_operations_ms"],
               cases={case: {key: row[key] for key in (
                   "route", "shape", "n_fft", "hop", "center", "max_abs_err", "kernel_ms",
@@ -2411,7 +3018,15 @@ def main() -> int:
                   "plain_max_abs_err_vs_f64")}
                   for case, row in k6.items()},
               route_rule="fft: power-of-two n_fft from 16 to 4096 (every caller on "
-                         "the main paths); dft: any other n_fft")]})
+                         "the main paths); dft: any other n_fft"),
+        rec_entry("sosfilt", "audio_algebra_tpu/ops/filters.py:189", "r1", rec["sosfilt"],
+                  replaces_also="audio_algebra_tpu/ops/filters.py:219 (sosfilt), :170 "
+                                "(_biquad_scan)"),
+        rec_entry("envelope", "audio_algebra_tpu/ops/effects.py:97", "r2", rec["envelope"]),
+        rec_entry("freeverb_ir", "audio_algebra_tpu/ops/effects.py:178", "r3",
+                  rec["freeverb_ir"])]})
+    emit({"phase_seconds": seconds,
+          "io_fx_cli_phases_s": sum(seconds[k] for k in IO_FX_CLI_PHASES)})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

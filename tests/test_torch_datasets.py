@@ -69,7 +69,7 @@ def corpus(tmp_path):
         clip = np.stack([tone, 0.5 * tone]) + 0.02 * rng.standard_normal((2, 9000))
         write_wav(tmp_path / f"clip{i}.wav", clip.astype(np.float32), 48000)
     (tmp_path / "notes.txt").write_text("not audio")
-    (tmp_path / "take.flac").write_bytes(b"fLaC")
+    (tmp_path / "take.aiff").write_bytes(b"FORM")     # scanned, but not decoded
     return tmp_path
 
 

@@ -14,8 +14,12 @@ autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
 at other n_fft, against its twin and float64; the attention site of a
-training UNet at T = 1024 without the training kernels; and the turbo int8 conv (int8 tensor cores) against the
-same integer arithmetic on the CPU. These tests need a
+training UNet at T = 1024 without the training kernels; the turbo int8 conv (int8 tensor cores) against the
+same integer arithmetic on the CPU; and the effects bank's recurrences R1
+(the biquad cascade, 1-12 sections, per-row or shared coefficients, ragged
+lengths), R2 (the compressor's envelope) and R3 (Freeverb's impulse
+responses, both spreads, at 48 and 44.1 kHz) against their twins and
+float64, with the effects that run on them. These tests need a
 CUDA device (marker `cuda`) and skip without one. The file imports no
 JAX, so it runs on a machine without it:
 
@@ -30,6 +34,7 @@ from audio_algebra_torch.models.stacked import v_objective_loss
 from audio_algebra_torch.ops import flash_attention as fa
 from audio_algebra_torch.ops import groupnorm as gn
 from audio_algebra_torch.ops import groupnorm_grouped as ggn
+from audio_algebra_torch.ops import recurrence as rec
 from audio_algebra_torch.ops import stft as st
 from audio_algebra_torch.ops import stft_kernel as stk
 from audio_algebra_torch.utils.params import random_init_
@@ -731,3 +736,76 @@ def test_untrained_attention_site_backward_at_t1024_on_card(cuda_device):
     grads = [x.grad] + [p.grad for p in mod.parameters()]
     assert all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads)
     assert bool(mod.rel_pos_bias.grad.any())
+
+
+# ---------------------------------------------------------------- R1-R3 ---
+
+def _rel_rms(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).square().mean() / b.square().mean().clamp_min(1e-30)).sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t_len", [(1, 1), (3, 31), (33, 1000), (128, 4096)])
+@pytest.mark.parametrize("n_sec", [1, 2, 5, 12])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_sosfilt_kernel_matches_twin_and_f64(cuda_device, rows, t_len, n_sec, per_row):
+    import numpy as np
+    import scipy.signal
+    from audio_algebra_torch.ops.filters import butter_sos
+    g = torch.Generator(device=cuda_device).manual_seed(rows + n_sec)
+    x = 0.3 * torch.randn((rows, t_len), generator=g, device=cuda_device)
+    cut = torch.linspace(2000.0, 12000.0, rows if per_row else 1, device=cuda_device)
+    sos = torch.cat([butter_sos(2, cut, 48000, "lowpass")] * n_sec, 1)   # (R|1, n_sec, 6)
+    before = rec.launches["sosfilt"]
+    got = rec.sosfilt_rows(sos, x)
+    torch.cuda.synchronize()
+    assert rec.launches["sosfilt"] - before == -(-n_sec // rec.MAX_SECTIONS)
+    want = rec.sosfilt_rows_ref(sos, x)
+    assert _rel_rms(got, want) < 1e-4
+    f64 = scipy.signal.sosfilt(sos[-1].double().cpu().numpy(), x[-1].double().cpu().numpy())
+    assert _rel_rms(got[-1], torch.from_numpy(np.asarray(f64))) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t_len", [(1, 5), (4, 16384), (40, 2000)])
+def test_envelope_kernel_matches_twin(cuda_device, rows, t_len):
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = 0.3 * torch.randn((rows, t_len), generator=g, device=cuda_device)
+    x[:, t_len // 3: t_len // 2] *= 6.0
+    before = rec.launches["envelope"]
+    got = rec.envelope(x, 0.97938, 0.99979)
+    torch.cuda.synchronize()
+    assert rec.launches["envelope"] == before + 1
+    assert _rel_rms(got, rec.envelope_ref(x, 0.97938, 0.99979)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [48000, 44100])
+def test_freeverb_kernel_matches_twin(cuda_device, sr):
+    fb = torch.tensor([0.703, 0.85, 0.977], device=cuda_device).repeat(2)
+    dm = torch.full_like(fb, 0.2)
+    spreads = [0, 0, 0, 23, 23, 23]
+    before = rec.launches["freeverb_ir"]
+    got = rec.freeverb_irs(fb, dm, spreads, 3000, sr)
+    torch.cuda.synchronize()
+    assert rec.launches["freeverb_ir"] == before + 1
+    assert _rel_rms(got, rec.freeverb_irs_ref(fb, dm, spreads, 3000, sr)) < 1e-6
+    assert torch.equal(rec.freeverb_irs(fb, dm, spreads, 1000, sr), got[:, :1000])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Reverb", "Compressor", "Phaser", "LowpassFilter",
+                                  "HighpassFilter", "PitchShift"])
+def test_effect_sweeps_on_the_card_match_the_cpu(cuda_device, name):
+    import numpy as np
+    from audio_algebra_torch.ops import effects as fx
+    x = torch.from_numpy((0.3 * np.random.default_rng(0).standard_normal((2, 2, 8192)))
+                         .astype(np.float32))
+    knobs = fx.knob_sweep(name, 3)
+    sweep = knobs if name in fx.STATIC_KNOB else torch.tensor(knobs, dtype=torch.float32)
+    got = fx.apply_effect(name, x.to(cuda_device), sweep).cpu()
+    want = fx.apply_effect(name, x, sweep)
+    assert got.shape == (3, 2, 2, 8192)
+    assert _rel_rms(got, want) < (1e-3 if name == "PitchShift" else 1e-4)
+

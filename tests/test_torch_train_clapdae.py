@@ -285,7 +285,7 @@ def test_build_state_freezes_the_encoders(tmp_path):
 
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
         ttrain.main(_argv(tmp_path, "--fsdp", "1"))
     assert "--fsdp 1" in capsys.readouterr().out
 
