@@ -33,11 +33,16 @@ def do_mixing(batch: dict, given_model, aa_model: AABundle, device=None, debug=F
     return {'ys': ys, 'zs': zs, 'yrecons': yrecons}
 
 
-def effects_loss(aa_module: AudioAlgebra, y_all: torch.Tensor):
+def effects_loss(aa_module: AudioAlgebra, y_all: torch.Tensor,
+                 gather: Optional[Callable] = None):
     """(loss, logs) of an effects step from the frozen latents of the
     stacked (a1, b1, a2, b2) clips: the two algebra guesses, VICReg and the
-    four-way recon."""
+    four-way recon. `gather` as in aa_mixer.mixer_loss: each of the four
+    blocks becomes the global batch's."""
     z_all, yrec_all = aa_module(y_all)
+    if gather is not None:
+        z_all, yrec_all, y_all = (torch.cat([gather(c) for c in torch.chunk(t, 4, dim=0)])
+                                  for t in (z_all, yrec_all, y_all))
     za1, zb1, za2, zb2 = torch.chunk(z_all, 4, dim=0)
 
     za2_guess = za1 + (zb2 - zb1)
@@ -57,8 +62,8 @@ def make_effects_loss_fn(aa_module: AudioAlgebra, encode_fn: Callable):
     """loss_fn(a1, b1, a2, b2) -> (loss, logs): one frozen encode of the
     four clips stacked, then `effects_loss`."""
 
-    def loss_fn(a1, b1, a2, b2):
-        return effects_loss(aa_module, encode_fn(torch.cat([a1, b1, a2, b2], dim=0)))
+    def loss_fn(a1, b1, a2, b2, gather=None):
+        return effects_loss(aa_module, encode_fn(torch.cat([a1, b1, a2, b2], dim=0)), gather)
 
     return loss_fn
 

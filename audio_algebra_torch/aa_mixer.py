@@ -23,6 +23,7 @@ running statistics in training too.
 from __future__ import annotations
 
 import inspect
+from types import SimpleNamespace
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .models.aa import AudioAlgebra, EmbedBlock  # noqa: F401 (the JAX module's surface)
+from .parallel.train import MultiSteps
 from .train_clapdae import onecycle_lr
 from .utils.params import random_init_
 
@@ -177,21 +179,25 @@ def encode_mixer_inputs(encode_fn: Callable, stems: torch.Tensor, faders: torch.
 
 
 def mixer_loss(aa_module: AudioAlgebra, y_all: torch.Tensor, y_batch: torch.Tensor,
-               nstems: int):
+               nstems: int, gather: Optional[Callable] = None):
     """(loss, logs) of a mixer step from its frozen latents: zsum / zmix
-    VICReg and recon losses."""
+    VICReg and recon losses. `gather` (parallel.World.gather) makes this
+    rank's rows the global batch's before any batch statistic, so that the
+    loss is the global batch's (parallel.train)."""
     b = y_all.shape[0] // (nstems + 1)
     d, n = y_all.shape[-2], y_all.shape[-1]
     z_all, yrec_all = aa_module(y_all)
+    _, yrecon = aa_module(y_batch)
     zsum = z_all[: nstems * b].reshape(nstems, b, d, n).sum(dim=0)
     zmix = z_all[nstems * b:]
     ymix, ymix_recon = y_all[nstems * b:], yrec_all[nstems * b:]
+    if gather is not None:
+        zsum, zmix, ymix, ymix_recon, y_batch, yrecon = map(
+            gather, (zsum, zmix, ymix, ymix_recon, y_batch, yrecon))
 
     mix_loss = mseloss(zsum, zmix)
     var_loss = (vicreg_var_loss(zsum) + vicreg_var_loss(zmix)) / 2
     cov_loss = (vicreg_cov_loss(zsum) + vicreg_cov_loss(zmix)) / 2
-
-    _, yrecon = aa_module(y_batch)
     aa_recon_loss = mseloss(y_batch, yrecon) + mseloss(ymix, ymix_recon)
 
     loss = mix_loss + var_loss + cov_loss + aa_recon_loss
@@ -201,13 +207,13 @@ def mixer_loss(aa_module: AudioAlgebra, y_all: torch.Tensor, y_batch: torch.Tens
 
 
 def make_mixer_loss_fn(aa_module: AudioAlgebra, encode_fn: Callable):
-    """loss_fn(stems (S, B, C, T), faders (S,), batch (B, C, T)) ->
-    (loss, logs): the whole training step's loss, gradients reaching the
-    algebra model only."""
+    """loss_fn(stems (S, B, C, T), faders (S,), batch (B, C, T), gather=None)
+    -> (loss, logs): the whole training step's loss, gradients reaching the
+    algebra model only (`gather` as in mixer_loss)."""
 
-    def loss_fn(stems, faders, batch):
+    def loss_fn(stems, faders, batch, gather=None):
         y_all, y_batch = encode_mixer_inputs(encode_fn, stems, faders, batch)
-        return mixer_loss(aa_module, y_all, y_batch, stems.shape[0])
+        return mixer_loss(aa_module, y_all, y_batch, stems.shape[0], gather)
 
     return loss_fn
 
@@ -237,10 +243,10 @@ def aa_demo(given_model, aa_model, log_dict, zsum, zmix, step: int,
 class OneCycleAdam:
     """optax.adam(optax.cosine_onecycle_schedule(total_steps, max_lr)) over
     `module`'s parameters, in optax.MultiSteps(every_k_schedule=accum) when
-    accum > 1: gradients are averaged over `accum` calls of `step` (as
-    MultiSteps does, acc += (g - acc) / (k + 1)) and Adam steps once for
-    them. The schedule counts Adam's updates. torch.optim.Adam is optax's
-    (eps outside the square root, eps_root 0)."""
+    accum > 1 (parallel.train.MultiSteps: gradients averaged over `accum`
+    calls of `step`, Adam stepping once for them). The schedule counts
+    Adam's updates. torch.optim.Adam is optax's (eps outside the square
+    root, eps_root 0)."""
 
     def __init__(self, module: torch.nn.Module, total_steps: int, max_lr: float = 1e-3,
                  accum: int = 1):
@@ -250,32 +256,20 @@ class OneCycleAdam:
         self.opt = torch.optim.Adam(self.params, lr=self.max_lr, betas=(0.9, 0.999),
                                     eps=1e-8, weight_decay=0.0)
         self.updates = 0           # optax's inner count: the schedule's clock
-        self.mini_step = 0         # MultiSteps' position in the window
-        self.acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
+        self.multi = MultiSteps(SimpleNamespace(params=self.params, step=self._update),
+                                self.accum) if self.accum > 1 else None
 
     def lr(self, count: Optional[int] = None) -> float:
         """The learning rate of update `count` (the next one by default)."""
         return onecycle_lr(self.updates if count is None else count, self.total_steps,
                            self.max_lr)
 
-    def step(self) -> bool:
-        """Take the gradients of the last backward() and clear them; returns
-        whether Adam stepped."""
-        if self.acc is not None:
-            with torch.no_grad():
-                for p, a in zip(self.params, self.acc):
-                    if p.grad is not None:
-                        a.add_((p.grad - a) / (self.mini_step + 1))
-                    else:
-                        a.mul_(self.mini_step / (self.mini_step + 1))
-            if self.mini_step < self.accum - 1:
-                self.mini_step += 1
-                self.opt.zero_grad(set_to_none=True)
-                return False
-            for p, a in zip(self.params, self.acc):
-                p.grad = a.clone()
-                a.zero_()
-            self.mini_step = 0
+    @property
+    def mini_step(self) -> int:
+        """MultiSteps' position in its window (0 without accumulation)."""
+        return 0 if self.multi is None else self.multi.mini_step
+
+    def _update(self) -> bool:
         for group in self.opt.param_groups:
             group["lr"] = self.lr()
         self.opt.step()
@@ -283,17 +277,23 @@ class OneCycleAdam:
         self.updates += 1
         return True
 
+    def step(self) -> bool:
+        """Take the gradients of the last backward() and clear them; returns
+        whether Adam stepped."""
+        return self.multi.step() if self.multi is not None else self._update()
+
     def state_dict(self) -> dict:
         return {"adam": self.opt.state_dict(), "updates": self.updates,
                 "mini_step": self.mini_step,
-                "acc_grads": None if self.acc is None else [a.clone() for a in self.acc]}
+                "acc_grads": None if self.multi is None else [a.clone() for a in self.multi.acc]}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["adam"])
-        self.updates, self.mini_step = int(state["updates"]), int(state["mini_step"])
-        if self.acc is not None and state["acc_grads"] is not None:
+        self.updates = int(state["updates"])
+        if self.multi is not None and state["acc_grads"] is not None:
+            self.multi.mini_step = int(state["mini_step"])
             with torch.no_grad():
-                for a, saved in zip(self.acc, state["acc_grads"]):
+                for a, saved in zip(self.multi.acc, state["acc_grads"]):
                     a.copy_(saved)
 
 

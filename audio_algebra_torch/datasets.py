@@ -344,10 +344,19 @@ class DualEffectsDataset(AudioDataset):
 class DataLoader:
     """Batching iterator with optional background-thread prefetch, a seeded
     shuffle and numpy collation. With `drop_last` (the default) a ragged
-    tail batch is dropped, and said so once."""
+    tail batch is dropped, and said so once. `shard=(rank, size)` yields
+    rank's rows of each global batch of `batch_size` (the same shuffle on
+    every rank, so the ranks' rows make up the batch one process would
+    take), and raises where a batch (a corpus smaller than one, a kept
+    tail) does not split evenly; len() still counts global batches."""
 
     def __init__(self, dataset, batch_size: int = 4, shuffle: bool = True,
-                 num_workers: int = 0, drop_last: bool = True, seed: int = 0):
+                 num_workers: int = 0, drop_last: bool = True, seed: int = 0,
+                 shard: tuple = (0, 1)):
+        rank, size = shard
+        if batch_size % size:
+            raise ValueError(f"batch_size {batch_size} does not split over {size} ranks")
+        self.shard = (int(rank), int(size))
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -385,6 +394,14 @@ class DataLoader:
                    for i in range(max(n_full, 1))]
         if not self.drop_last and len(idx) % self.batch_size and n_full >= 1:
             batches.append(idx[n_full * self.batch_size :])
+        rank, size = self.shard
+        if size > 1:
+            uneven = [len(b) for b in batches if len(b) % size]
+            if uneven:
+                raise ValueError(f"DataLoader: a batch of {uneven[0]} items does not split "
+                                 f"over {size} ranks ({len(idx)} items, batch "
+                                 f"{self.batch_size})")
+            batches = [b.reshape(size, -1)[rank] for b in batches]
         return batches
 
     def __iter__(self):

@@ -16,7 +16,7 @@ random weights:
                 attention) at --sample-size / 32 first-stage latents (a
                 v-DDIM step)
   mirage_train  one optimiser step of the MIRAGE trainer
-                (train_clapdae.train_step: v_objective_loss forward and
+                (train_clapdae.make_train_step: v_objective_loss forward and
                 backward of the songs UNetCFG1d through K4 and K5, Adam, EMA)
                 in f32 on --batch x (32, --sample-size / 512) latents, the
                 frozen encoders left out; TF32 off unless --tf32
@@ -86,7 +86,7 @@ def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False)
         raise SystemExit("--turbo profiles the destructo model only")
     if model == "mirage_train":
         from .models.stacked import StackedAELatentDiffusionCond
-        from .train_clapdae import make_state, train_step
+        from .train_clapdae import make_state, make_train_step
         state = make_state(random_init_(StackedAELatentDiffusionCond(), 0).to(dev))
         shape = (b, 32, n // 512)
         latents = torch.tanh(torch.randn(shape, generator=g, device=dev))
@@ -95,7 +95,8 @@ def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False)
             torch.randn((b, 1, 512), generator=g, device=dev), dim=-1)
         steps = torch.rand((b,), generator=g, device=dev)
         keep = torch.arange(b, device=dev) != 1            # one row's embedding dropped
-        return lambda: train_step(state, latents, emb, steps, noise, keep)
+        step = make_train_step(state)
+        return lambda: step(latents, emb, steps, noise, keep)
     if model == "mirage_inner":
         from .models.unet_cfg1d import UNetCFG1d, precompute_rel_biases
         unet = random_init_(UNetCFG1d(), 0).to(dev, bf16).eval()

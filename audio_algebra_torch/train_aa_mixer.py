@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Train the AudioAlgebra mixer model (zsum ≈ zmix) on one card.
+"""Train the AudioAlgebra mixer model (zsum ≈ zmix).
 
     python -m audio_algebra_torch.train_aa_mixer --training_dir DIR \\
         --batch_size 128 --num_gpus 1 [--ckpt_path RUN/ckpt]
+    torchrun --nproc_per_node N -m audio_algebra_torch.train_aa_mixer \\
+        --training_dir DIR --batch_size 1024 --num_gpus N
 
 Port of the repository's train_aa_mixer.py (same flags, through
 config.get_all_args; `--device cpu` runs it off the card):
@@ -22,8 +24,11 @@ config.get_all_args; `--device cpu` runs it off the card):
     a checkpoint without an optimiser state); the loop then takes every
     epoch's batches again, as the reference's does
 
-f32, no autocast. Data parallelism (`--num_gpus` > 1) is not ported.
-`main` returns the run's record.
+f32, no autocast. `--num_gpus N` > 1 trains over N processes (torchrun,
+parallel.multihost.data_parallel_world), each encoding its rows of every
+global batch, through parallel.train's step: the mixer loss's VICReg
+terms read the global batch's statistics, as the JAX step's do. Rank 0 logs, runs
+the demos and writes the checkpoints. `main` returns the run's record.
 """
 from __future__ import annotations
 
@@ -42,7 +47,9 @@ from .config import get_all_args, load_model_config
 from .datasets import AudioDataset, DataLoader
 from .device import resolve_device
 from .given_models import DVAEWrapper
-from .train_clapdae import _refuse_parallel, onecycle_lr
+from .parallel.multihost import Shard, data_parallel_world
+from .parallel.train import make_data_parallel_step, replicate_state
+from .train_clapdae import onecycle_lr
 from .utils.logging import RunLogger
 
 LOG_EVERY = 25
@@ -153,8 +160,8 @@ def main(argv=None) -> dict:
     state's digests at the start and the end."""
     args = get_all_args(argv=argv)
     print(f"args = {args}")
-    device = resolve_device(args.device)
-    _refuse_parallel(args, device, "train_aa_mixer")
+    world = data_parallel_world(args, resolve_device(args.device), "train_aa_mixer")
+    device = world.device
     seed = args.seed
 
     train_set = AudioDataset([args.training_dir], sample_rate=args.sample_rate,
@@ -162,15 +169,22 @@ def main(argv=None) -> dict:
                              load_frac=args.load_frac,
                              cache_training_data=args.cache_training_data)
     train_dl = DataLoader(train_set, batch_size=args.batch_size, shuffle=True,
-                          num_workers=min(args.num_workers, 8), seed=seed)
+                          num_workers=min(args.num_workers, 8), seed=seed,
+                          shard=(world.rank, world.size))
     given_model = build_given_model(args, device)
     encode_fn = given_model_encode_fn(given_model)
     aa, state, total = build_state(args, device, len(train_dl), args.max_epochs)
     accum = state.opt.accum
     resume(state, args.ckpt_path)
+    replicate_state(aa.module, world)
     start_step, start_digest = state.step, state.digest()
+    step_fn = make_data_parallel_step(
+        lambda y_all, y_batch, nstems, gather: mixer_loss(aa.module, y_all, y_batch, nstems,
+                                                          gather), state.opt, world)
 
-    logger = RunLogger(project='aa-mixer-vicreg', name=args.name, config=args.to_dict())
+    main_rank = world.rank == 0
+    logger = RunLogger(project='aa-mixer-vicreg', name=args.name, config=args.to_dict()) \
+        if main_rank else None
     rng = np.random.default_rng(seed)
     demo_every = getattr(args, 'demo_every', 0)
     records, demo_s, demo_errors = [], [], []
@@ -187,8 +201,11 @@ def main(argv=None) -> dict:
             print(f"demo error (non-fatal): {e}")
             demo_errors.append(f"step {step}: {type(e).__name__}: {e}")
 
-    def save() -> str:
-        return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+    def save():
+        """Rank 0 writes the checkpoint; returns its path (None elsewhere)."""
+        if main_rank:
+            return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+        return None
 
     for epoch in range(args.max_epochs):
         train_iter = iter(train_dl)
@@ -198,7 +215,7 @@ def main(argv=None) -> dict:
             batch = np.asarray(batch)
             stems, faders, train_iter = get_stems_faders(batch, train_iter, train_dl, rng=rng)
             data_ms = clock.lap()
-            if demo_every and step and step % demo_every == 0:
+            if demo_every and step and step % demo_every == 0 and main_rank:
                 demo(step, stems, faders)
                 demo_s.append(clock.lap() / 1e3)
             stems_t, faders_t, batch_t = as_tensors(device, stems, faders, batch)
@@ -206,9 +223,8 @@ def main(argv=None) -> dict:
             y_all, y_batch = encode_mixer_inputs(encode_fn, stems_t, faders_t, batch_t)
             encode_ms = clock.lap()
             lr = state.opt.lr()
-            loss, logs = mixer_loss(aa.module, y_all, y_batch, stems.shape[0])
-            loss.backward()
-            updated = state.opt.step()
+            logs = step_fn(Shard(y_all), Shard(y_batch), stems.shape[0])
+            updated = step_fn.updated
             state.step += 1
             step_ms = clock.lap()
             rec = {k: float(v) for k, v in logs.items()}
@@ -217,7 +233,7 @@ def main(argv=None) -> dict:
             rec.update(step=step, epoch=epoch, lr=lr, updated=updated, data_ms=data_ms,
                        encode_ms=encode_ms, step_ms=step_ms)
             records.append(rec)
-            if step % LOG_EVERY == 0:
+            if step % LOG_EVERY == 0 and main_rank:
                 out = {k: rec[k] for k in logs}
                 out.update(epoch=epoch, learning_rate=onecycle_lr(
                     min(step // accum, total - 1), total, state.opt.max_lr))
@@ -226,13 +242,15 @@ def main(argv=None) -> dict:
                 save()
             clock.lap()
     ckpt = save()
-    logger.finish()
+    if main_rank:
+        logger.finish()
     print("training done.")
     return {"records": records, "demo_s": demo_s, "demo_errors": demo_errors,
             "start_step": start_step,
             "end_step": state.step, "total_updates": total, "ckpt": ckpt,
-            "run_dir": str(logger.dir),
-            "start_digest": start_digest, "end_digest": state.digest(), "state": state}
+            "run_dir": str(logger.dir) if main_rank else None,
+            "start_digest": start_digest, "end_digest": state.digest(), "state": state,
+            "world": world}
 
 
 if __name__ == "__main__":

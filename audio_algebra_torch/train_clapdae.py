@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Train the MIRAGE generator (StackedAELatentDiffusionCond) on one card.
+"""Train the MIRAGE generator (StackedAELatentDiffusionCond).
 
     python -m audio_algebra_torch.train_clapdae --training_dir DIR \\
         --batch_size 8 --sample_size 1048576 --num_gpus 1 [--ckpt_path RUN/ckpt]
+    torchrun --nproc_per_node N -m audio_algebra_torch.train_clapdae \\
+        --training_dir DIR --batch_size 8N ... --num_gpus N
 
 Port of the repository's train_clapdae.py (same flags, through
 config.get_all_args; `--device cpu` runs it off the card):
@@ -20,9 +22,12 @@ config.get_all_args; `--device cpu` runs it off the card):
 
 f32 parameters and activations, no autocast, as in JAX. The step's noise
 and CFG-dropout mask come from a torch.Generator seeded per step from
-(seed, step) on the host; `train_step` takes them as arguments. Data
-parallelism (`--num_gpus` > 1) and state sharding (`--fsdp 1`) are not
-ported: ROADMAP item A7.
+(seed, step) on the host, for the global batch (`step_draws`); the step
+of `make_train_step` takes them as arguments. `--num_gpus N` > 1 runs
+parallel.train's data-parallel step over N processes
+(parallel.multihost.data_parallel_world): each loads its rows of every
+global batch, and the loss is the global batch's mean. State sharding
+(`--fsdp 1`) is not ported: ROADMAP item A7.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import math
 import pickle
 import time
 from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -42,6 +48,9 @@ from .device import resolve_device
 from .given_models import CLAPDAE
 from .models.ema import EMASchedule
 from .models.stacked import v_objective_loss
+from .parallel.mesh import World
+from .parallel.multihost import Shard, data_parallel_world
+from .parallel.train import make_data_parallel_step, replicate_state
 from .utils.logging import RunLogger
 from .utils.qmc import SobolSampler
 
@@ -149,22 +158,48 @@ def build_state(args, device, clap_module=None):
     return clapdae, state
 
 
+def clapdae_loss_fn(model: torch.nn.Module):
+    """loss_fn(latents, emb, t, noise, keep, gather=None) -> (loss, logs) for
+    parallel.train: the v-objective of this rank's rows, averaged over the
+    ranks' equal shards through `gather` (the global batch's mean)."""
+    def loss_fn(latents, emb, t, noise, keep, gather=None):
+        loss = v_objective_loss(model, latents, emb, t, noise, embedding_mask_proba=0.0,
+                                keep=keep)
+        if gather is not None:
+            loss = gather(loss[None]).mean()
+        return loss, {"train_loss": loss.detach()}
+    return loss_fn
+
+
+def make_train_step(state: TrainState, world: Optional[World] = None) -> Callable:
+    """`step(latents, emb, t, noise, keep=None) -> loss`: one optimiser step
+    on (latents (B, 32, n), emb (B, 1, 512), t (B,), noise like latents,
+    keep (B, 1, 1) bool or None: no CFG dropout), this rank's rows of the
+    global batch where `world` (parallel.World) has more than one:
+    parallel.train's step, built once. Each call updates the parameters,
+    the optimiser's state and the EMA in place, advances `state.step`, and
+    returns the loss of the global batch (before the update)."""
+    device = next(state.model.parameters()).device
+    dp_step = make_data_parallel_step(clapdae_loss_fn(state.model), state.opt,
+                                      world or World(1, 0, device))
+
+    def step(latents, emb, t, noise, keep=None) -> torch.Tensor:
+        for group in state.opt.param_groups:
+            group["lr"] = state.current_lr()
+        state.opt.zero_grad(set_to_none=True)
+        # the arguments are this rank's own rows already
+        logs = dp_step(*(x if x is None else Shard(x) for x in (latents, emb, t, noise, keep)))
+        state.ema_sched.update(dict(state.model.named_parameters()), state.ema_params,
+                               state.step)
+        state.step += 1
+        return logs["train_loss"]
+
+    return step
+
+
 def train_step(state: TrainState, latents, emb, t, noise, keep=None) -> torch.Tensor:
-    """One optimiser step on (latents (B, 32, n), emb (B, 1, 512), t (B,),
-    noise like latents, keep (B, 1, 1) bool or None: no CFG dropout).
-    Updates the parameters, Adam's state and the EMA in place, advances
-    `state.step`, and returns the loss (before the update)."""
-    for group in state.opt.param_groups:
-        group["lr"] = state.current_lr()
-    state.opt.zero_grad(set_to_none=True)
-    loss = v_objective_loss(state.model, latents, emb, t, noise,
-                            embedding_mask_proba=0.0, keep=keep)
-    loss.backward()
-    state.opt.step()
-    state.ema_sched.update(dict(state.model.named_parameters()), state.ema_params,
-                           state.step)
-    state.step += 1
-    return loss.detach()
+    """One step of make_train_step's in one process."""
+    return make_train_step(state)(latents, emb, t, noise, keep)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -174,25 +209,24 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s % (1 << 63))
 
 
-def _refuse_parallel(args, device: torch.device, name: str = "train_clapdae") -> None:
-    """Say so and raise where the flags ask for more than one card or a
-    sharded state (the trainers `name`d run on one)."""
-    available = torch.cuda.device_count() if device.type == "cuda" else 1
-    asked = args.num_gpus if args.num_gpus > 0 else 1
-    fsdp = int(getattr(args, "fsdp", 0) or 0)
-    if fsdp:
-        print(f"{name}: --fsdp {fsdp} asks for a sharded train state, which is "
-              "not ported (ROADMAP item A7)")
-        raise NotImplementedError("--fsdp is not ported yet: ROADMAP item A7 "
-                                  "(DDP / FSDP mapping of the JAX package's parallel/)")
-    if min(asked, available) > 1:
-        print(f"{name}: --num_gpus {asked} with {available} devices asks for data "
-              "parallelism, which is not ported (ROADMAP item A7); pass --num_gpus 1")
-        raise NotImplementedError("--num_gpus > 1 is not ported yet: ROADMAP item A7 "
-                                  "(DDP / FSDP mapping of the JAX package's parallel/)")
-    if asked > available:
-        print(f"{name}: --num_gpus {asked}, {available} device available: "
-              "training on one")
+def step_draws(sobol: SobolSampler, seed: int, step: int, latents: torch.Tensor,
+               world: World, cfg_dropout: float):
+    """(t, noise, keep) of a step for this rank's rows `latents`: drawn for
+    the global batch (latents.shape[0] x world.size rows), the same on every
+    rank, and cut to the rank's rows, so that any world takes the draws of
+    one process. t from the scrambled Sobol sequence, noise and the CFG
+    keep mask (kept with probability 1 - cfg_dropout) from
+    step_generator(seed, step)."""
+    device = latents.device
+    n_global = latents.shape[0] * world.size
+    rows = world.rows(n_global)
+    t = torch.from_numpy(sobol.draw(n_global)).to(device)[rows]
+    gen = step_generator(seed, step, device)
+    noise = torch.randn((n_global, *latents.shape[1:]), generator=gen, device=device,
+                        dtype=latents.dtype)[rows]
+    keep = (torch.rand((n_global, 1, 1), generator=gen, device=device)
+            < 1.0 - cfg_dropout)[rows]
+    return t, noise, keep
 
 
 def main(argv=None, clap_module=None) -> dict:
@@ -201,8 +235,8 @@ def main(argv=None, clap_module=None) -> dict:
     the end, and the state's digests at the start and the end."""
     args = get_all_args(argv=argv)
     print(f"args = {args}")
-    device = resolve_device(args.device)
-    _refuse_parallel(args, device)
+    world = data_parallel_world(args, resolve_device(args.device), "train_clapdae")
+    device = world.device
     seed = args.seed
 
     train_set = AudioDataset([args.training_dir], sample_rate=args.sample_rate,
@@ -210,7 +244,8 @@ def main(argv=None, clap_module=None) -> dict:
                              load_frac=args.load_frac,
                              cache_training_data=args.cache_training_data)
     train_dl = DataLoader(train_set, batch_size=args.batch_size, shuffle=True,
-                          num_workers=args.num_workers, seed=seed)
+                          num_workers=args.num_workers, seed=seed,
+                          shard=(world.rank, world.size))
     clapdae, state = build_state(args, device, clap_module)
     cfg_dropout = getattr(args, "cfg_dropout", 0.1)
 
@@ -221,9 +256,13 @@ def main(argv=None, clap_module=None) -> dict:
             print(f"Resumed from {ck} at step {state.step}")
         except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) as e:
             print(f"Resume failed ({e}); starting fresh")
+    replicate_state(state.model, world)
     start_step, start_digest = state.step, state.digest()
+    step_fn = make_train_step(state, world)
 
-    logger = RunLogger(project="clapdae", name=args.name, config=args.to_dict())
+    main_rank = world.rank == 0
+    logger = RunLogger(project="clapdae", name=args.name, config=args.to_dict()) \
+        if main_rank else None
     sobol = SobolSampler(dim=1, scramble=True, seed=seed)
     records = []
 
@@ -232,8 +271,11 @@ def main(argv=None, clap_module=None) -> dict:
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    def save() -> str:
-        return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+    def save():
+        """Rank 0 writes the checkpoint; returns its path (None elsewhere)."""
+        if main_rank:
+            return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+        return None
 
     for epoch in range(getattr(args, "max_epochs", 40)):
         for batch in train_dl:
@@ -244,31 +286,28 @@ def main(argv=None, clap_module=None) -> dict:
             emb = clapdae.clap_module.get_audio_embedding_from_data(reals.mean(dim=1))
             emb = emb[:, None, :]
             t2 = synced()
-            t = torch.from_numpy(sobol.draw(reals.shape[0])).to(device)
-            gen = step_generator(seed, state.step, device)
-            noise = torch.randn(latents.shape, generator=gen, device=device,
-                                dtype=latents.dtype)
-            keep = torch.rand((reals.shape[0], 1, 1), generator=gen, device=device) \
-                < 1.0 - cfg_dropout
+            t, noise, keep = step_draws(sobol, seed, state.step, latents, world, cfg_dropout)
             step, lr = state.step, state.current_lr()
-            loss = float(train_step(state, latents, emb, t, noise, keep))
+            loss = float(step_fn(latents, emb, t, noise, keep))
             t3 = synced()
             rec = {"step": step, "epoch": epoch, "train_loss": loss, "train_lr": lr,
                    "train_ema_decay": state.ema_sched.decay(step),
                    "encode_ms": (t1 - t0) * 1e3, "embed_ms": (t2 - t1) * 1e3,
                    "step_ms": (t3 - t2) * 1e3}
             records.append(rec)
-            if step % LOG_EVERY == 0:
+            if step % LOG_EVERY == 0 and main_rank:
                 logger.log({k: rec[k] for k in ("train_loss", "train_lr", "train_ema_decay",
                                                 "epoch")}, step=step)
             if args.checkpoint_every and step and step % args.checkpoint_every == 0:
                 save()
     ckpt = save()
-    logger.finish()
+    if main_rank:
+        logger.finish()
     print("training done.")
     return {"records": records, "start_step": start_step, "end_step": state.step,
-            "ckpt": ckpt, "run_dir": str(logger.dir), "start_digest": start_digest,
-            "end_digest": state.digest(), "state": state}
+            "ckpt": ckpt, "run_dir": str(logger.dir) if main_rank else None,
+            "start_digest": start_digest, "end_digest": state.digest(), "state": state,
+            "world": world}
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ the wandb forwarding: `runs/<project>/<name>/log.jsonl` holds one record
 per `log` call, and `config.json` the run's configuration. The media of
 the effects trainer's demos go to files beside it, each logged by its
 path: `log_audio` (WAV), `log_image` (PNG, or an array's .npy where
-matplotlib is missing), `log_table` (CSV) and `log_point_cloud` (.npy;
-JAX's interactive HTML twin waits for the apps' viz).
+matplotlib is missing), `log_table` (CSV) and `log_point_cloud` (.npy, and
+beside it the interactive HTML of utils/viz.point_cloud_html, as JAX's).
 """
 from __future__ import annotations
 
@@ -73,9 +73,16 @@ class RunLogger:
         return str(path)
 
     def log_point_cloud(self, name: str, points, step: int = 0) -> str:
-        """Save an (N, 3..6) point cloud as .npy and log its path."""
+        """Save an (N, 3..6) point cloud as .npy, with its interactive HTML
+        twin (same stem, .html) where it has 3 or more columns, and log the
+        .npy's path."""
+        from .viz import point_cloud_html
+
+        pts = np.asarray(points)
         path = self._media_path(name, step, ".npy")
-        np.save(path, np.asarray(points))
+        np.save(path, pts)
+        if pts.ndim == 2 and pts.shape[1] >= 3:
+            point_cloud_html(pts, title=name, path=str(path.with_suffix(".html")))
         self.log({name: str(path)}, step=step)
         return str(path)
 

@@ -1,11 +1,12 @@
 """Visualisation data for the effects trainer's demos and MIRAGE's CLI.
 
-Port of the numpy part of audio_algebra_tpu/utils/viz.py: `embeddings_table`
-(summary statistics), `pca_point_cloud` (an SVD PCA of embeddings),
-`tokens_spectrogram_image` (embeddings laid side by side), `save_image` (a
-PNG through matplotlib where it is installed) and `point_cloud_html` (a
-self-contained interactive 3-D cloud). Each takes numpy arrays or tensors
-on any device.
+Port of audio_algebra_tpu/utils/viz.py: `embeddings_table` (summary
+statistics), `pca_point_cloud` (an SVD PCA of embeddings),
+`spectrogram_db` (a dB magnitude spectrogram image, through the port's
+STFT: kernel K6 on the card), `tokens_spectrogram_image` (embeddings laid
+side by side), `save_image` (a PNG through matplotlib where it is
+installed) and `point_cloud_html` (a self-contained interactive 3-D
+cloud). Each takes numpy arrays or tensors on any device.
 """
 from __future__ import annotations
 
@@ -46,6 +47,29 @@ def pca_point_cloud(z, n_components: int = 3, mean_axis: Optional[int] = -1) -> 
     if proj.shape[1] < n_components:            # rank below n_components
         proj = np.pad(proj, [(0, 0), (0, n_components - proj.shape[1])])
     return proj
+
+
+def spectrogram_db(audio, sr: int = 48000, n_fft: int = 1024, hop: int = 256,
+                   top_db: float = 80.0, device=None) -> np.ndarray:
+    """Audio (T,) or (C, T) -> its dB magnitude spectrogram image (n_fft/2
+    + 1, frames): the magnitude averaged over channels, clipped `top_db`
+    below its peak, low frequencies at the bottom (row 0 the highest).
+    A tensor is taken on its device, an array on `device` (the CPU by
+    default); the STFT is ops.stft's, K6 on a card."""
+    import torch
+    from ..ops.stft import spectrogram
+
+    x = audio if torch.is_tensor(audio) else torch.from_numpy(np.asarray(audio, np.float32))
+    if device is not None:
+        x = x.to(device)
+    x = x.float()
+    if x.dim() == 1:
+        x = x[None]
+    mag = spectrogram(x, n_fft, hop, power=1.0)
+    mag = mag.mean(dim=0) if mag.dim() == 3 else mag
+    db = 20.0 * torch.log10(mag.clamp_min(1e-10))
+    db = torch.clamp(db, min=float(db.max()) - top_db)
+    return db.flip(0).cpu().numpy()
 
 
 def tokens_spectrogram_image(embeddings) -> np.ndarray:

@@ -165,6 +165,21 @@ Phases, each printing one JSON line:
                 chunk 262144, 32 knobs, all 12 effects, loudness
                 normalised, encoded through DVAEWrapper() at full width;
                 shapes, finite values, launches
+  apps          the effects-study apps at full width on seeded files:
+                effects_explorer.main (DVAEWrapper(), 8 clips, the default 6
+                effects over 8 knobs, 1500 parametric-UMAP steps, a 35-step
+                FX2FX decode of Clean->Reverb: R1, R3 and 35 x 191 K1
+                launches), spectrogram_db of one clip (one K6, against the
+                twin's image), calc_effects_pca.main on bdct-chunk-pca.ini
+                (2 batches of 1024 x 65536; the covariance against a float64
+                two-pass covariance of the same latents, rel < 1e-4) and
+                aa_toy.main at 4000 steps (improvement > 1); seconds a
+                stage, peak memory
+  ddp           an nccl process group of one: one algebra mixer step at
+                (2, 128, 2, 65536) f32 as the trainer takes it, through
+                parallel.train's step and through parallel.manual's, all
+                three updates equal to f32 rounding; train_aa_mixer_accel
+                for 4 steps and resumed for 4 more; the group destroyed
 
 The phases run in the order above, Destructo's first (io, serve and
 mirage_cli right after clap, on the warm model). Then the `kernels`
@@ -1983,7 +1998,6 @@ def phase_train_aa() -> dict:
     import torch
     from audio_algebra_torch import train_aa_effects, train_aa_mixer
     from audio_algebra_torch.train_clapdae import onecycle_lr
-    from audio_algebra_torch.utils.audio_io import write_wav
 
     home = os.getcwd()
     steps = 2 * AA_FILES // AA_BATCH
@@ -1993,18 +2007,8 @@ def phase_train_aa() -> dict:
                               "demo/tokens_za2", "demo/tokens_zb2")}
 
     with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.default_rng(12)
-        tt = np.arange(CHUNK, dtype=np.float32) / 48000
         wavs = Path(tmp) / "wavs"
-        wavs.mkdir()
-        t0 = time.perf_counter()
-        for i in range(AA_FILES):
-            f0, f1 = rng.uniform(60, 2000, 2)
-            clip = np.stack([0.3 * np.sin(2 * np.pi * f0 * tt), 0.3 * np.sin(2 * np.pi * f1 * tt)])
-            clip += 0.05 * rng.standard_normal(clip.shape)
-            write_wav(wavs / f"clip{i:03d}.wav", clip.astype(np.float32), 48000,
-                      subtype="float32")
-        corpus_s = time.perf_counter() - t0
+        corpus_s = _write_corpus(wavs, AA_FILES, 12)
         argv = ["--training_dir", str(wavs), "--batch_size", str(AA_BATCH),
                 "--sample_size", str(CHUNK), "--latent_dim", str(AA_DIMS),
                 "--hidden_dims", str(AA_DIMS), "--num_workers", "8", "--num_gpus", "1",
@@ -2502,8 +2506,8 @@ def _rel_rms_np(a, b) -> float:
 
 
 def phase_recurrence() -> dict:
-    """R1, R2 and R3 on the card at the xae path's shapes: each against its
-    twin (R1 at full length; R2 and R3, whose twins loop, at
+    """R1, R2 and R3 on the card at the xae path's shapes, and R1 and R3 at
+    the apps path's too: each against its twin (R1 at full length; R2 and R3, whose twins loop, at
     REC_TWIN_T), at full length against a float64 recurrence on a subset
     of rows, and timed beside its twin and its bound."""
     import numpy as np
@@ -2559,6 +2563,13 @@ def phase_recurrence() -> dict:
     b, a = fx.biquad_coeffs("notch", f, 48000, q=0.7)
     cases["phaser"] = (torch.cat([b, a], -1)[:, None, :].expand(-1, 2, 6).contiguous(),
                        cases["phaser"][1])
+    # and at the apps path's: one clip's LowpassFilter / HighpassFilter sweep
+    # in effects_explorer, APPS_KNOBS knobs x 2 channels of CHUNK, a row's
+    # own coefficients (each knob's on its two channels' rows)
+    for kind, effect in (("lowpass", "LowpassFilter"), ("highpass", "HighpassFilter")):
+        k = torch.tensor(fx.knob_sweep(effect, APPS_KNOBS), dtype=torch.float32, device=dev)
+        cases[f"apps_{kind}"] = (fx._tpt_first_order_sos(k, 48000, kind).repeat_interleave(2, 0),
+                                 randn(2 * APPS_KNOBS, CHUNK))
     for case, (sos, x) in cases.items():
         y = rec.sosfilt_rows(sos, x)
         torch.cuda.synchronize()
@@ -2588,27 +2599,31 @@ def phase_recurrence() -> dict:
          times(lambda: rec.envelope(x, a_att, a_rel), 10), plain_ms, [x.shape[0], t_short],
          rec_bound(x.shape[0], XAE_CHUNK, 2), shape=list(x.shape))
 
-    # R3 at the reverb sweep's 32 knobs x 2 spreads, n = 262144
-    room = torch.tensor(fx.knob_sweep("Reverb", XAE_KNOBS), dtype=torch.float32, device=dev)
-    fb = torch.cat([room * 0.28 + 0.7] * 2)
-    dm = torch.full_like(fb, float(np.float32(0.5) * np.float32(0.4)))
-    spreads = [0] * XAE_KNOBS + [fx.FREEVERB_STEREO_SPREAD] * XAE_KNOBS
-    ir = rec.freeverb_irs(fb, dm, spreads, XAE_CHUNK)
+    # R3 at the reverb sweeps' knobs x 2 spreads: the xae path's 32 knobs,
+    # n = 262144, and the apps path's APPS_KNOBS, n = CHUNK
     n_short = REC_TWIN_T["freeverb_ir"]
-    short = rec.freeverb_irs(fb, dm, spreads, n_short)
-    t0 = time.perf_counter()
-    want = rec.freeverb_irs_ref(fb, dm, spreads, n_short)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    last = 2 * XAE_KNOBS - 1
-    held("freeverb_ir", short, want, [last], ir,
-         _freeverb_ir_f64(float(fb[last]), float(dm[last]), XAE_CHUNK, 48000,
-                          spreads[last])[None],
-         times(lambda: rec.freeverb_irs(fb, dm, spreads, XAE_CHUNK), 5), plain_ms,
-         [2 * XAE_KNOBS, n_short], rec_bound(2 * XAE_KNOBS, XAE_CHUNK, 1, io_tensors=1),
-         shape=[2 * XAE_KNOBS, XAE_CHUNK], prefix_equal=bool(torch.equal(ir[:, :n_short], short)))
-    if not out["freeverb_ir"][0]["prefix_equal"]:
-        raise AssertionError("R3: a shorter response is not the longer one's prefix")
+    for case, n_knobs, t_len in (("xae", XAE_KNOBS, XAE_CHUNK), ("apps", APPS_KNOBS, CHUNK)):
+        room = torch.tensor(fx.knob_sweep("Reverb", n_knobs), dtype=torch.float32, device=dev)
+        fb = torch.cat([room * 0.28 + 0.7] * 2)
+        dm = torch.full_like(fb, float(np.float32(0.5) * np.float32(0.4)))
+        spreads = [0] * n_knobs + [fx.FREEVERB_STEREO_SPREAD] * n_knobs
+        ir = rec.freeverb_irs(fb, dm, spreads, t_len)
+        short = rec.freeverb_irs(fb, dm, spreads, n_short)
+        t0 = time.perf_counter()
+        want = rec.freeverb_irs_ref(fb, dm, spreads, n_short)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        last = 2 * n_knobs - 1
+        held("freeverb_ir", short, want, [last], ir,
+             _freeverb_ir_f64(float(fb[last]), float(dm[last]), t_len, 48000,
+                              spreads[last])[None],
+             times(lambda: rec.freeverb_irs(fb, dm, spreads, t_len), 5), plain_ms,
+             [2 * n_knobs, n_short], rec_bound(2 * n_knobs, t_len, 1, io_tensors=1),
+             case=case, shape=[2 * n_knobs, t_len],
+             prefix_equal=bool(torch.equal(ir[:, :n_short], short)))
+        if not out["freeverb_ir"][-1]["prefix_equal"]:
+            raise AssertionError(f"R3 ({case}): a shorter response is not the longer one's "
+                                 "prefix")
     emit({"phase": "recurrence", "card": card()})
     return out
 
@@ -2868,6 +2883,313 @@ def phase_mirage_cli(model, flac: Path, tmp: Path) -> dict:
     return {k: sum(c[k] for c in counts.values()) for k in ("k1", "k3", "k5", "k6")}
 
 
+# the effects-study apps: effects_explorer over 8 clips x the default 6
+# effects x 8 knobs at 65536 samples (the JAX script's defaults) with 1500
+# UMAP steps and a 35-step FX2FX decode at batch 1 (191 K1 a step);
+# calc_effects_pca on bdct-chunk-pca.ini's 1024 x 65536 batch, 2 batches;
+# aa_toy at its default 4000 steps
+APPS_CLIPS, APPS_KNOBS, APPS_UMAP_STEPS, APPS_FX2FX_STEPS = 8, 8, 1500, 35
+PCA_BATCH, PCA_BATCHES, PCA_COV_REL = 1024, 2, 1e-4
+TOY_STEPS = 4000
+SPEC_DB_TOL = 0.1              # dB, K6 against its twin over the image
+# data parallelism at world 1 over nccl: one mixer step at the algebra
+# phase's batch, three ways, updates equal to f32 rounding
+DDP_REL = 1e-6
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _write_corpus(root: Path, n: int, seed: int, subtype: str = "float32") -> float:
+    """n seeded stereo WAVs of CHUNK samples at 48 kHz; returns seconds."""
+    import numpy as np
+    from audio_algebra_torch.utils.audio_io import write_wav
+
+    root.mkdir()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    phase = (2 * np.pi / 48000 * np.arange(CHUNK)).astype(np.float32)
+    for i in range(n):                   # a tone a channel and noise, all f32
+        clip = 0.3 * np.sin(rng.uniform(60, 2000, (2, 1)).astype(np.float32) * phase)
+        clip += 0.05 * rng.standard_normal((2, CHUNK), dtype=np.float32)
+        write_wav(root / f"clip{i:04d}.wav", clip, 48000, subtype=subtype)
+    return time.perf_counter() - t0
+
+
+def phase_apps() -> dict:
+    """The effects-study apps at full width on seeded files the phase
+    writes: effects_explorer.main (DVAEWrapper() default, APPS_CLIPS clips,
+    the default 6 effects, APPS_KNOBS knobs, --umap at APPS_UMAP_STEPS,
+    --fx2fx Clean,Reverb at APPS_FX2FX_STEPS); spectrogram_db of one clip
+    (K6, against the twin's image); calc_effects_pca.main on
+    bdct-chunk-pca.ini for PCA_BATCHES batches of PCA_BATCH, its covariance
+    against a float64 two-pass covariance of the same latents; aa_toy.main
+    at TOY_STEPS. Seconds a stage, peak memory, the launches of K1, K6, R1
+    and R3; returns those launches."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import aa_toy, calc_effects_pca, effects_explorer
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.ops import stft_kernel as stk
+    from audio_algebra_torch.utils.audio_io import read_wav, write_wav
+    from audio_algebra_torch.utils.viz import spectrogram_db
+
+    home = os.getcwd()
+    seconds, peak, counts = {}, {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_effect_counts()
+        gn.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        counts[name] = {**_effect_counts(), "k1": gn.launches}
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)                    # calc_effects_pca's run directory (runs/)
+        try:
+            src = tmp / "fx_src"
+            src.mkdir()
+            for i in range(APPS_CLIPS):
+                write_wav(src / f"clip{i}.wav",
+                          _music(np.random.default_rng(40 + i), 2, 2 * 48000, 48000), 48000,
+                          subtype="float32")
+            fx = stage("effects_explorer", lambda: effects_explorer.main([
+                "--source-dir", str(src), "--out-dir", str(tmp / "fx_out"),
+                "--knob-steps", str(APPS_KNOBS), "--chunk-size", str(CHUNK),
+                "--max-clips", str(APPS_CLIPS), "--umap", "--umap-steps", str(APPS_UMAP_STEPS),
+                "--fx2fx", "Clean,Reverb", "--fx2fx-steps", str(APPS_FX2FX_STEPS),
+                "--device", "cuda"]))
+            out = Path(fx["out_dir"])
+            embs = dict(np.load(out / "embeddings.npz"))
+            maps = dict(np.load(out / "umap_maps.npz"))
+            wav, _ = read_wav(str(out / "fx2fx_Clean_to_Reverb.wav"))
+
+            clip = _music(np.random.default_rng(40), 2, CHUNK, 48000)
+            db = stage("spectrogram_db", lambda: spectrogram_db(torch.from_numpy(clip).cuda()))
+            db_twin = spectrogram_db(clip)
+
+            latents = []
+            encode_fn = calc_effects_pca.given_model_encode_fn
+
+            def recording(given_model):
+                enc = encode_fn(given_model)
+
+                def fn(x):
+                    y = enc(x)
+                    latents.append(y)
+                    return y
+                return fn
+            pca_files_s = _write_corpus(tmp / "pca_wavs", PCA_BATCH * PCA_BATCHES, 41,
+                                        subtype="pcm16")
+            calc_effects_pca.given_model_encode_fn = recording
+            try:
+                pca = stage("calc_effects_pca", lambda: calc_effects_pca.main([
+                    "--training_dir", str(tmp / "pca_wavs"), "--batch_size", str(PCA_BATCH),
+                    "--device", "cuda"]))
+            finally:
+                calc_effects_pca.given_model_encode_fn = encode_fn
+            flat = torch.cat([y.transpose(0, 1).reshape(y.shape[1], -1) for y in latents],
+                             dim=1).double()
+            del latents
+            xc = flat - flat.mean(dim=1, keepdim=True)
+            cov64 = (xc @ xc.T / (flat.shape[1] - 1)).cpu().numpy()
+            del flat, xc
+            cov_rel = float(np.linalg.norm(pca["cov"] - cov64) / np.linalg.norm(cov64))
+
+            toy = stage("aa_toy", lambda: aa_toy.main(["--steps", str(TOY_STEPS), "--out-dir",
+                                                        str(tmp / "toy"), "--device", "cuda"]))
+        finally:
+            os.chdir(home)
+    torch.cuda.empty_cache()
+
+    knobs = {n: 1 if n == "Clean" else APPS_KNOBS for n in embs}
+    want_embs = {n: [APPS_CLIPS, k, 64, CHUNK // 128] for n, k in knobs.items()}
+    k1_fx2fx = APPS_FX2FX_STEPS * GN_CALLS_PER_FORWARD
+    row = {"phase": "apps", "seconds": seconds, "explorer_stage_s": fx["seconds"],
+           "peak_mem_gb": peak, "launches": counts, "k1_expected_fx2fx": k1_fx2fx,
+           "embeddings": {n: list(e.shape) for n, e in embs.items()},
+           "embeddings_finite": all(bool(np.isfinite(e).all()) for e in embs.values()),
+           "umap_maps": {n: list(m.shape) for n, m in maps.items()},
+           "umap_finite": all(bool(np.isfinite(m).all()) for m in maps.values()),
+           "fx2fx_wav": list(wav.shape), "fx2fx_finite": bool(np.isfinite(wav).all()),
+           "spectrogram_db_shape": list(db.shape),
+           "spectrogram_db_max_abs_diff_vs_twin": float(np.abs(db - db_twin).max()),
+           "pca_batch": [PCA_BATCH, 2, CHUNK], "pca_batches": pca["batches"],
+           "pca_count": pca["count"], "pca_corpus_s": pca_files_s,
+           "pca_cov_rel_vs_f64_two_pass": cov_rel,
+           "pca_top_eigenvalues": [float(v) for v in pca["eigvals"][:4]],
+           "toy_improvement": toy["improvement"], "toy_kmw_err": toy["kmw_err"],
+           "toy_raw_err": toy["raw_err"], "toy_z_err": toy["z_err"], "card": card()}
+    emit(row)
+    faults = []
+    if {n: list(e.shape) for n, e in embs.items()} != want_embs or not row["embeddings_finite"]:
+        faults.append("embeddings")
+    if any(list(maps[n].shape) != [APPS_CLIPS * k, 2] for n, k in knobs.items()) \
+            or not row["umap_finite"]:
+        faults.append("umap maps")
+    if row["fx2fx_wav"] != [2, CHUNK] or not row["fx2fx_finite"]:
+        faults.append("fx2fx wav")
+    explorer = counts["effects_explorer"]
+    if explorer["r1"] < 1 or explorer["r3"] < 1 or explorer["k1"] != k1_fx2fx:
+        faults.append(f"effects_explorer launches {explorer}")
+    if counts["spectrogram_db"]["k6"] != 1 or list(db.shape) != [513, CHUNK // 256 + 1] \
+            or row["spectrogram_db_max_abs_diff_vs_twin"] > SPEC_DB_TOL:
+        faults.append("spectrogram_db")
+    if pca["batches"] != PCA_BATCHES or not cov_rel < PCA_COV_REL:
+        faults.append(f"calc_effects_pca: {pca['batches']} batches, cov rel {cov_rel}")
+    if not (toy["improvement"] > 1 and math.isfinite(toy["kmw_err"])):
+        faults.append(f"aa_toy: {toy}")
+    if faults:
+        raise AssertionError(f"apps: {faults}")
+    return {"k1": explorer["k1"], "k6": counts["spectrogram_db"]["k6"] + explorer["k6"],
+            "r1": explorer["r1"], "r3": explorer["r3"]}
+
+
+def phase_ddp() -> dict:
+    """Data parallelism over a process group of one: an nccl group on a
+    free local port; one mixer step at (2, AA_BATCH, 2, CHUNK) stems (f32,
+    TF32 off) three ways from the same weights, data and Adam: the trainer's
+    single-process step (encode, mixer_loss, backward, OneCycleAdam), the
+    annotated step of parallel.train (all_gather and gradient all_reduce
+    through nccl) and parallel.manual's; every parameter after the step
+    equal to f32 rounding (DDP_REL of its largest entry); then
+    train_aa_mixer_accel.main on AA_FILES generated WAVs (batch AA_BATCH,
+    2 epochs: 4 steps, the one-cycle schedule needs 4 updates) and the same
+    flags resumed from its checkpoint for 4 more; the group destroyed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from audio_algebra_torch import train_aa_mixer_accel
+    from audio_algebra_torch.aa_mixer import (AABundle, OneCycleAdam, as_tensors,
+                                              encode_mixer_inputs, given_model_encode_fn,
+                                              make_mixer_loss_fn, mixer_loss)
+    from audio_algebra_torch.given_models import DVAEWrapper
+    from audio_algebra_torch.parallel.manual import make_manual_ddp_step
+    from audio_algebra_torch.parallel.mesh import make_mesh
+    from audio_algebra_torch.parallel.train import make_data_parallel_step
+
+    home = os.getcwd()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        world = make_mesh(device="cuda")
+        wrapper = DVAEWrapper(args_dict={"latent_dim": AA_DIMS, "sample_size": CHUNK},
+                              device="cuda")
+        encode_fn = given_model_encode_fn(wrapper)
+        rng = np.random.default_rng(50)
+        stems = (0.3 * rng.standard_normal((2, AA_BATCH, 2, CHUNK))).astype(np.float32)
+        faders = np.asarray(AA_FADERS, np.float32)
+        batch = (0.3 * rng.standard_normal((AA_BATCH, 2, CHUNK))).astype(np.float32)
+        stems_b = np.ascontiguousarray(np.swapaxes(stems, 0, 1))
+
+        def fresh():
+            aa = AABundle(dims=AA_DIMS, hidden_dims=AA_DIMS, seed=0, device="cuda")
+            return aa.module, OneCycleAdam(aa.module, 8, 1e-3)
+
+        def single(module, opt):
+            y_all, y_batch = encode_mixer_inputs(encode_fn, *as_tensors("cuda", stems, faders,
+                                                                        batch))
+            loss, logs = mixer_loss(module, y_all, y_batch, stems.shape[0])
+            loss.backward()
+            opt.step()
+            return logs
+
+        def parallel(make):
+            def run(module, opt):
+                loss_fn = make_mixer_loss_fn(module, encode_fn)
+                step = make(lambda sb, f, b, **kw: loss_fn(sb.transpose(0, 1), f, b, **kw),
+                            opt, world)
+                return step(stems_b, torch.from_numpy(faders), batch)
+            return run
+
+        arms, step_s, losses = {}, {}, {}
+        _zero_all_counts()
+        for name, fn in (("single", single), ("annotated", parallel(make_data_parallel_step)),
+                         ("manual", parallel(make_manual_ddp_step))):
+            module, opt = fresh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = fn(module, opt)
+            torch.cuda.synchronize()
+            step_s[name] = time.perf_counter() - t0
+            losses[name] = float(logs["train_loss"])
+            arms[name] = {k: v.detach().clone() for k, v in module.state_dict().items()}
+            del module, opt
+        kernel_launches = _all_counts()
+        diffs = {name: max(float((arms[name][k] - v).abs().max() / v.abs().max())
+                           for k, v in arms["single"].items())
+                 for name in ("annotated", "manual")}
+        bit_equal = {name: all(torch.equal(arms[name][k], v) for k, v in arms["single"].items())
+                     for name in ("annotated", "manual")}
+        moved = max(float((arms["single"][k] - v).abs().max())
+                    for k, v in fresh()[0].state_dict().items())
+        del arms, stems, stems_b, batch
+        torch.cuda.empty_cache()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            corpus_s = _write_corpus(tmp / "wavs", AA_FILES, 51)
+            argv = ["--training_dir", str(tmp / "wavs"), "--batch_size", str(AA_BATCH),
+                    "--sample_size", str(CHUNK), "--latent_dim", str(AA_DIMS),
+                    "--hidden_dims", str(AA_DIMS), "--num_workers", "8", "--num_gpus", "1",
+                    "--checkpoint_every", "0", "--seed", "0", "--load_frac", "1.0",
+                    "--max_epochs", "2", "--device", "cuda"]
+            os.chdir(tmp)
+            try:
+                t0 = time.perf_counter()
+                accel = train_aa_mixer_accel.main([*argv, "--name", "accel"])
+                accel_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                resumed = train_aa_mixer_accel.main([*argv, "--name", "resumed", "--ckpt_path",
+                                                     f"{accel['run_dir']}/ckpt"])
+                resumed_s = time.perf_counter() - t0
+            finally:
+                os.chdir(home)
+    finally:
+        dist.destroy_process_group()
+    steps = 2 * AA_FILES // AA_BATCH
+    row = {"phase": "ddp", "backend": "nccl", "world": [world.size, world.rank],
+           "batch": [AA_BATCH, 2, CHUNK], "dtype": "float32", "allow_tf32": False,
+           "step_s": step_s, "train_loss": losses, "rel_diff_vs_single": diffs,
+           "bit_equal_to_single": bit_equal, "single_step_moved_max_abs": moved,
+           "kernel_launches": kernel_launches, "corpus_s": corpus_s,
+           "accel": {"seconds": accel_s, "steps": [accel["start_step"], accel["end_step"]],
+                     "losses": [r["train_loss"] for r in accel["records"]]},
+           "resumed": {"seconds": resumed_s, "steps": [resumed["start_step"],
+                                                       resumed["end_step"]],
+                       "losses": [r["train_loss"] for r in resumed["records"]],
+                       "reproduces_saved_state":
+                           resumed["start_digest"] == accel["end_digest"]},
+           "card": card()}
+    emit(row)
+    faults = [f"{name}: {d}" for name, d in diffs.items() if not d <= DDP_REL]
+    if not moved > 0:
+        faults.append("the step moved no parameter")
+    if any(kernel_launches.values()):
+        faults.append(f"kernel launches in the mixer step: {kernel_launches}")
+    if (accel["start_step"], accel["end_step"], resumed["start_step"], resumed["end_step"]) \
+            != (0, steps, steps, 2 * steps) or not row["resumed"]["reproduces_saved_state"]:
+        faults.append("train_aa_mixer_accel steps or resume")
+    if not all(math.isfinite(x) for x in row["accel"]["losses"] + row["resumed"]["losses"]):
+        faults.append("train_aa_mixer_accel losses")
+    if not accel["ckpt"] or accel["end_digest"]["params"] == accel["start_digest"]["params"]:
+        faults.append("train_aa_mixer_accel did not train or write its checkpoint")
+    if faults:
+        raise AssertionError(f"ddp: {faults}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2939,6 +3261,8 @@ def main() -> int:
     rec = run(phase_recurrence)
     fx_counts = run(phase_effects)
     xae = run(phase_xae, tmp, io_files["ogg"])
+    apps = run(phase_apps)
+    run(phase_ddp)
     tmp_dir.cleanup()
 
     def entry(name, source, replaces, launches, row, **extra):
@@ -2958,7 +3282,8 @@ def main() -> int:
                 "replaces": replaces, "launches": xae[key], "max_abs_err": row["max_abs_err"],
                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None,
-                "launches_by_path": {"xae": xae[key], "effects": fx_counts[key]},
+                "launches_by_path": {"xae": xae[key], "effects": fx_counts[key],
+                                     **({"apps": apps[key]} if key in apps else {})},
                 "device_ms": row["kernel_device_ms"], "plain_shape": row["plain_shape"],
                 "bound_kind": row["bound_kind"],
                 "cases": [{k: r.get(k) for k in ("case", "shape", "kernel_ms", "kernel_device_ms",
@@ -2971,7 +3296,8 @@ def main() -> int:
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
               launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
                                 "mirage": counts["k1"], "train_aa": train_aa,
-                                "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"]}),
+                                "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"],
+                                "apps": apps["k1"]}),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
@@ -3005,11 +3331,12 @@ def main() -> int:
               planner_route=k5["route"]),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",
               spectrogram_k6 + clap_k6 + serve_k6 + train["k6"] + ckpt["k6"] + cli["k6"]
-              + fx_counts["k6"] + xae["k6"], k6["fft"],
+              + fx_counts["k6"] + xae["k6"] + apps["k6"], k6["fft"],
               launches_by_path={"spectrogram": spectrogram_k6, "clap": clap_k6,
                                 "serve": serve_k6, "train": train["k6"],
                                 "checkpoints": ckpt["k6"], "mirage_cli": cli["k6"],
-                                "effects": fx_counts["k6"], "xae": xae["k6"]},
+                                "effects": fx_counts["k6"], "xae": xae["k6"],
+                                "apps": apps["k6"]},
               dft_operations_ms=k6["fft"]["dft_operations_ms"],
               cases={case: {key: row[key] for key in (
                   "route", "shape", "n_fft", "hop", "center", "max_abs_err", "kernel_ms",
@@ -3026,7 +3353,8 @@ def main() -> int:
         rec_entry("freeverb_ir", "audio_algebra_tpu/ops/effects.py:178", "r3",
                   rec["freeverb_ir"])]})
     emit({"phase_seconds": seconds,
-          "io_fx_cli_phases_s": sum(seconds[k] for k in IO_FX_CLI_PHASES)})
+          "io_fx_cli_phases_s": sum(seconds[k] for k in IO_FX_CLI_PHASES),
+          "apps_ddp_phases_s": seconds["apps"] + seconds["ddp"]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
