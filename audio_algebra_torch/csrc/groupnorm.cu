@@ -58,8 +58,10 @@
 //
 // C interface (bound with ctypes): aa_groupnorm1_gelu (K1) and
 // aa_groupnorm1_turbo (K2b, K2c) launch both passes, aa_groupnorm1_quant
-// (K2a) its one launch, on the given stream; they allocate nothing, do not
-// synchronise, and return the CUDA error.
+// (K2a) its one launch, aa_groupnorm1_stats and aa_groupnorm1_apply K1's
+// two passes apart (the split route, with a sum across time slabs between
+// them), on the given stream; they allocate nothing, do not synchronise,
+// and return the CUDA error.
 
 #include "common.cuh"
 
@@ -75,7 +77,8 @@ __device__ __forceinline__ float gelu_tanh(float y) {
 }
 
 // (mu, rstd) of batch row blockIdx.y from its statistics partials, shared
-// by the whole block.
+// by the whole block. n is the row's element count the sums cover (the whole
+// row's across ranks when the partials were summed over time slabs).
 __device__ __forceinline__ void row_stats(const float* partials, int n_split, int n,
                                           float eps, float& mu, float& rstd) {
   __shared__ float s_mu, s_rstd;
@@ -94,17 +97,19 @@ __device__ __forceinline__ void row_stats(const float* partials, int n_split, in
 }
 
 // grid (blocks_per_row, B): each block folds its row's partials into
-// (mu, rstd), then normalises a grid-strided share of the row.
+// (mu, rstd), dividing by n_stats, then normalises a grid-strided share of
+// the row's n local elements. K1 passes n_stats = n; the split route passes
+// the whole row's count across the time slabs its partials were summed over.
 template <typename T, bool GELU, bool RES>
 __global__ void __launch_bounds__(kThreads)
 gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
                 const float* __restrict__ partials,
                 const T* __restrict__ scale, const T* __restrict__ bias,
-                T* __restrict__ y, int n, int t_len, int n_split, float eps,
-                int vec_ok) {
+                T* __restrict__ y, int n, int n_stats, int t_len, int n_split,
+                float eps, int vec_ok) {
   constexpr int V = VecIO<T>::V;
   float mu, rstd;
-  row_stats(partials, n_split, n, eps, mu, rstd);
+  row_stats(partials, n_split, n_stats, eps, mu, rstd);
   const size_t base = static_cast<size_t>(blockIdx.y) * n;
   const T* xr = x + base;
   T* yr = y + base;
@@ -582,11 +587,30 @@ gn_quant_kernel(const T* __restrict__ x, float* __restrict__ partials,
 template <typename T, bool GELU, bool RES>
 void launch_apply(dim3 grid, cudaStream_t st, const void* x, const void* res,
                   const float* partials, const void* scale, const void* bias,
-                  void* y, int n, int t_len, int n_split, float eps, int vec_ok) {
+                  void* y, int n, int n_stats, int t_len, int n_split, float eps,
+                  int vec_ok) {
   gn_apply_kernel<T, GELU, RES><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), partials,
       static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(y), n, t_len, n_split, eps, vec_ok);
+      static_cast<T*>(y), n, n_stats, t_len, n_split, eps, vec_ok);
+}
+
+// The apply pass alone, on partials already in place.
+template <typename T>
+void launch_apply_pass(int b, int c, int t_len, int n_stats, int n_split, int apply_blocks,
+                       int gelu, int has_res, float eps, int vec_ok, const void* x,
+                       const void* res, const void* scale, const void* bias, void* y,
+                       const float* partials, cudaStream_t st) {
+  const int n = c * t_len;
+  const dim3 grid(apply_blocks, b);
+  if (gelu && has_res)
+    launch_apply<T, true, true>(grid, st, x, res, partials, scale, bias, y, n, n_stats, t_len, n_split, eps, vec_ok);
+  else if (gelu)
+    launch_apply<T, true, false>(grid, st, x, res, partials, scale, bias, y, n, n_stats, t_len, n_split, eps, vec_ok);
+  else if (has_res)
+    launch_apply<T, false, true>(grid, st, x, res, partials, scale, bias, y, n, n_stats, t_len, n_split, eps, vec_ok);
+  else
+    launch_apply<T, false, false>(grid, st, x, res, partials, scale, bias, y, n, n_stats, t_len, n_split, eps, vec_ok);
 }
 
 template <typename T>
@@ -596,15 +620,8 @@ void launch_all(int b, int c, int t_len, int n_split, int apply_blocks,
                 const void* bias, void* y, float* partials, cudaStream_t st) {
   const int n = c * t_len;
   aa::launch_stats<T>(x, partials, b, n, n_split, vec_ok, st);
-  const dim3 grid(apply_blocks, b);
-  if (gelu && has_res)
-    launch_apply<T, true, true>(grid, st, x, res, partials, scale, bias, y, n, t_len, n_split, eps, vec_ok);
-  else if (gelu)
-    launch_apply<T, true, false>(grid, st, x, res, partials, scale, bias, y, n, t_len, n_split, eps, vec_ok);
-  else if (has_res)
-    launch_apply<T, false, true>(grid, st, x, res, partials, scale, bias, y, n, t_len, n_split, eps, vec_ok);
-  else
-    launch_apply<T, false, false>(grid, st, x, res, partials, scale, bias, y, n, t_len, n_split, eps, vec_ok);
+  launch_apply_pass<T>(b, c, t_len, n, n_split, apply_blocks, gelu, has_res, eps, vec_ok, x,
+                       res, scale, bias, y, partials, st);
 }
 
 template <typename T, bool GELU, int MODE>
@@ -713,6 +730,42 @@ extern "C" int aa_groupnorm1_gelu(int dtype, const void* x, const void* res,
   else if (dtype == 1)
     launch_all<__nv_bfloat16>(b, c, t_len, n_split, apply_blocks, gelu, has_res,
                               eps, vec_ok, x, res, scale, bias, y, part, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 split around a reduce across time slabs (the sequence-parallel
+// decodes): aa_groupnorm1_stats writes a slab's [b, n_split, 2] (sum, sumsq)
+// partials; the caller sums them over the slabs (an all_reduce across
+// ranks); aa_groupnorm1_apply normalises the slab with n_stats, the whole
+// row's element count. Every slab has the same shape, so n_split agrees.
+extern "C" int aa_groupnorm1_stats(int dtype, const void* x, void* partials, int b, int c,
+                                   int t_len, int n_split, int vec_ok, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  if (dtype == 0)
+    aa::launch_stats<float>(x, part, b, c * t_len, n_split, vec_ok, st);
+  else if (dtype == 1)
+    aa::launch_stats<__nv_bfloat16>(x, part, b, c * t_len, n_split, vec_ok, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int aa_groupnorm1_apply(int dtype, const void* x, const void* res,
+                                   const void* scale, const void* bias, void* y,
+                                   const void* partials, int b, int c, int t_len,
+                                   int n_stats, int n_split, int apply_blocks, int gelu,
+                                   int has_res, float eps, int vec_ok, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* part = static_cast<const float*>(partials);
+  if (dtype == 0)
+    launch_apply_pass<float>(b, c, t_len, n_stats, n_split, apply_blocks, gelu, has_res, eps,
+                             vec_ok, x, res, scale, bias, y, part, st);
+  else if (dtype == 1)
+    launch_apply_pass<__nv_bfloat16>(b, c, t_len, n_stats, n_split, apply_blocks, gelu,
+                                     has_res, eps, vec_ok, x, res, scale, bias, y, part, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -12,6 +12,18 @@ Latent ops: destructo (sign flip), dimswap, timereverse, ewma ("latent
 reverb"), overdrive (tanh), none, or a Python expression over `z` with
 `torch` and `np` in scope (--op-expr). --effect-dry/--effect-wet apply
 z + scale * mean(encode(wet) - encode(dry)) instead.
+
+`--num-devices N` (0: the process group's size) splits the chunk batch
+over N processes, one a card, as JAX shards it over N devices:
+
+    torchrun --nproc_per_node N -m audio_algebra_torch.destructo in.wav \
+        --num-devices N ...
+
+The batch is padded with zero chunks to a multiple of N; each rank
+encodes, mangles and decodes its rows, from its rows of the noise one
+process would draw for the whole batch, so the output is one process's;
+rank 0 gathers the rows, drops the pad and writes the file. Outside a
+group of N it raises and says how to launch.
 """
 from __future__ import annotations
 
@@ -76,6 +88,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--num-devices", type=int, default=1,
+                   help="split the chunk batch over this many processes, one a card "
+                        "(0: the process group's size); more than one needs torchrun")
     p.add_argument("--turbo", action="store_true",
                    help="int8 turbo decode (the UNet's int8 convs with the amax "
                         "carry). It engages only at a batch of 16 chunks or more, "
@@ -83,14 +98,20 @@ def main(argv=None):
                         "float one")
     args = p.parse_args(argv)
 
+    from .device import resolve_device
     from .given_models import DVAEWrapper
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import launched_world_size
     from .utils.audio_io import batch_it_crazy, load_audio, save_audio
 
+    device = resolve_device(args.device)
+    launched_world_size(args.num_devices, device, "destructo", "--num-devices")
+    world = make_mesh(device=device)
     model_kwargs, extra_args = load_model_config(args.model_config)
     args_dict = {"demo_steps": args.steps, "sample_size": args.chunk_size}
     args_dict.update(extra_args)
     w = DVAEWrapper(args_dict=args_dict, model_kwargs=model_kwargs, seed=args.seed,
-                    device=args.device, dtype=getattr(torch, args.dtype),
+                    device=world.device, dtype=getattr(torch, args.dtype),
                     turbo=args.turbo)
 
     def chunks(path):
@@ -99,8 +120,20 @@ def main(argv=None):
 
     batch = chunks(args.audio)
     print(f"chunked: {batch.shape}")
+    n_real = len(batch)
+    pad = (-n_real) % world.size
+    if pad:          # zero chunks to a multiple of the ranks, as JAX pads
+        batch = np.concatenate([batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
+    rows = world.rows(len(batch))
+    if world.size > 1:
+        print(f"split over {world.size} processes (pad {pad}), rank {world.rank}: rows "
+              f"{rows.start}-{rows.stop - 1}")
     t0 = time.time()
-    z = w.encode(batch)
+    state = w.generator.get_state()
+    z = w.encode(batch[rows])
+    if world.size > 1:   # the noise one process's encode draws for the real rows
+        w.generator.set_state(state)
+        w.noise = w._draw_noise(n_real)
     print(f"encoded {tuple(z.shape)} in {time.time() - t0:.1f}s")
     if args.effect_dry and args.effect_wet:
         dry, wet = chunks(args.effect_dry), chunks(args.effect_wet)
@@ -110,13 +143,24 @@ def main(argv=None):
         print(f"applied effect vector, |diff|={float(diff.abs().mean()):.4f}")
     else:
         z = mathemangle(z, args.op, args.op_expr)
+    if world.size > 1:   # my rows of the noise one process's decode takes
+        noise = w.noise
+        if noise is None or noise.shape[0] != n_real:
+            noise = w._draw_noise(n_real)
+        w.noise = torch.cat([noise, noise.new_zeros((pad, *noise.shape[1:]))])[rows]
     t0 = time.time()
-    out = w.decode(z, demo_steps=args.steps).float().cpu().numpy()
+    out = w.decode(z, demo_steps=args.steps)
+    if world.size > 1:   # (2, b * T) of my rows -> every row, the pad dropped
+        local = out.reshape(2, -1, args.chunk_size).transpose(0, 1).contiguous()
+        out = world.all_gather_rows(local)[:n_real].transpose(0, 1).reshape(2, -1)
+    out = out.float().cpu().numpy()
     dt = time.time() - t0
-    audio_sec = batch.shape[0] * args.chunk_size / 48000
+    audio_sec = n_real * args.chunk_size / 48000
     print(f"decoded {args.steps} steps in {dt:.1f}s ({audio_sec / dt:.1f}x realtime)")
-    save_audio(args.out, np.clip(out, -1, 1), 48000)
-    print(f"wrote {args.out}")
+    if world.rank == 0:
+        save_audio(args.out, np.clip(out, -1, 1), 48000)
+        print(f"wrote {args.out}")
+    return out
 
 
 if __name__ == "__main__":

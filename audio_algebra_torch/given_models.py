@@ -438,6 +438,38 @@ class DVAEWrapper(_TorchWrapper):
         b, d, n = fakes.shape                     # 'b d n -> d (b n)'
         return fakes.transpose(0, 1).reshape(d, b * n)
 
+    @torch.inference_mode()
+    def decode_seqpar(self, reps, world, demo_steps: Optional[int] = None,
+                      sharded_levels: Optional[int] = None) -> torch.Tensor:
+        """`decode` with the diffusion UNet sequence-parallel over the ranks
+        of `world` (a `seq` parallel.World; parallel/infer.py): the same
+        sampler, crash schedule and stored noise. Every rank takes rank 0's
+        whole noise and samples its time slab; the slabs are gathered, so
+        every rank returns the (2, B * sample_size) audio. The float route
+        only (JAX's sequence-parallel path is bf16 / f32)."""
+        from .parallel.infer import decode_unet_seqpar
+        if self.turbo:
+            raise ValueError("decode_seqpar runs the float route: build the wrapper with "
+                             "turbo=False")
+        if demo_steps is None:
+            demo_steps = self.demo_steps
+        self.ensure_params()
+        reps = self._as_input(reps)
+        noise = self.noise
+        if noise is None or noise.shape[0] != reps.shape[0]:
+            noise = self._draw_noise(reps.shape[0])
+        noise = self._as_input(noise).contiguous()
+        world.broadcast_([noise])
+
+        def model_fn(x, t, cond):
+            return decode_unet_seqpar(self.model.diffusion, x, t, cond, world, sharded_levels)
+
+        local = vddim_sample(model_fn, noise[..., world.slab(noise.shape[-1])].contiguous(),
+                             demo_steps, 0, reps)
+        fakes = world.all_gather_time(local)
+        b, d, n = fakes.shape                     # 'b d n -> d (b n)'
+        return fakes.transpose(0, 1).reshape(d, b * n)
+
 
 class StackedDiffAEWrapper(_TorchWrapper):
     """The two-stage LatentAudioDiffusionAutoencoder (JAX
@@ -896,6 +928,72 @@ class CLAPDAE(GivenModelClass):
             sl = slice(i, min(i + self.DECODE_BATCH, b))
             first = torch.clamp(vddim_sample(la.diffusion_v, s1[sl], outer_steps, 0,
                                              fake_latents[sl]), -1, 1)
+            t0 = self._stage("outer_s", t0, stage_times)
+            parts.append(la.decode_first_stage(first))
+            t0 = self._stage("decode_s", t0, stage_times)
+        fakes = torch.cat(parts)
+        if flatten:                                 # 'b d n -> d (b n)'
+            bb, d, n = fakes.shape
+            fakes = fakes.transpose(0, 1).reshape(d, bb * n)
+        return fakes, fake_latents
+
+    @torch.inference_mode()
+    def generate_seqpar(self, audio_embeddings, world, cfg_scales=4, demo_steps: int = 150,
+                        outer_steps: int = 100, batch_size: int = 1, flatten: bool = True,
+                        sharded_levels: Optional[int] = None, latent_noise=None,
+                        s1_noise=None, stage_times: bool = False):
+        """`generate` with the outer stage sequence-parallel over the ranks
+        of `world` (a `seq` parallel.World): the inner CFG stage (K3, K5)
+        runs whole on every rank; rank 0's latents and stage-1 noise are
+        broadcast, so every rank's outer stage starts from the same bits;
+        the outer v-DDIM runs the stage-1 UNet (no attention: every level
+        but the bottleneck can shard) through parallel.infer on time slabs;
+        the slabs are gathered and the AE decode runs on the whole
+        first-stage latents, in micro-batches of DECODE_BATCH as
+        `generate`'s. The noises are taken and drawn in `generate`'s order,
+        so the same generator gives the same audio. Returns `generate`'s
+        (audio, stage-2 latents) on every rank. No init audio: the img2img
+        resample is single-program, as in JAX."""
+        from .parallel.infer import decode_unet_seqpar
+        self.ensure_params()
+        emb = self._as_input(audio_embeddings)
+        while emb.dim() < 3:
+            emb = emb[None]
+        cfg_scale = float(cfg_scales[0] if isinstance(cfg_scales, (list, tuple))
+                          else cfg_scales)
+        unet = self.latent_diffusion_model.diffusion
+        self.last_stage_times = {}
+        if stage_times and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+
+        n_latent = self.demo_samples // self.downsampling_ratio
+        noise = self._noise((batch_size, self.latent_dim, n_latent), latent_noise)
+        rb = precompute_rel_biases(unet, n_latent)
+        fake_latents = torch.clamp(kdiff_sample(
+            lambda x, t, embedding: unet(x, t, embedding=embedding, embedding_scale=cfg_scale,
+                                         rel_biases=rb),
+            noise, demo_steps, embedding=emb), -1, 1).contiguous()
+        world.broadcast_([fake_latents])
+        t0 = self._stage("inner_s", t0, stage_times)
+
+        la = self.latent_diffae
+        b = fake_latents.shape[0]
+        s1 = self._noise((b, la.latent_dim,
+                          fake_latents.shape[2] * la.latent_downsampling_ratio),
+                         s1_noise).contiguous()
+        world.broadcast_([s1])
+        slab = world.slab(s1.shape[-1])
+
+        def model_fn(x, t, cond):
+            return decode_unet_seqpar(la.diffusion, x, t, cond, world, sharded_levels)
+
+        parts = []
+        for i in range(0, b, self.DECODE_BATCH):
+            sl = slice(i, min(i + self.DECODE_BATCH, b))
+            local = torch.clamp(vddim_sample(model_fn, s1[sl][..., slab].contiguous(),
+                                             outer_steps, 0, fake_latents[sl]), -1, 1)
+            first = world.all_gather_time(local)
             t0 = self._stage("outer_s", t0, stage_times)
             parts.append(la.decode_first_stage(first))
             t0 = self._stage("decode_s", t0, stage_times)

@@ -13,10 +13,18 @@ from init-audio latents, generate by CFG latent diffusion, crossfade the
 batch's variations into one take, and save it as a WAV with a 3-D PCA
 cloud of the latents (.npy and an interactive .html). It runs on the card
 unless `--device cpu` is given. `--seed` seeds the model's torch.Generator,
-from which `CLAPDAE.generate` draws its noise. JAX's `--mesh` (the
-sequence-parallel outer stage, ROADMAP A7) and `--turbo` (the int8 fold
-route, ROADMAP A8) are not ported and raise NotImplementedError; the XLA
-compile cache has no counterpart here.
+from which `CLAPDAE.generate` draws its noise.
+
+`--mesh seq=N` runs the outer stage sequence-parallel over N processes,
+one a card (`CLAPDAE.generate_seqpar`): every rank runs the CLI with the
+same flags and rank 0 alone writes files,
+
+    torchrun --nproc_per_node N -m audio_algebra_torch.mirage --mesh seq=N ...
+
+Outside a group of N it raises and says so; `--init-audio` with `--mesh`
+raises ValueError (the img2img resample is single-program, as in JAX).
+JAX's `--turbo` (the int8 fold route, ROADMAP A8) is not ported and raises
+NotImplementedError; the XLA compile cache has no counterpart here.
 """
 from __future__ import annotations
 
@@ -86,13 +94,24 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
                   model_kwargs: Optional[dict] = None, save_pca: bool = True,
                   mesh_spec: Optional[str] = None, device="cuda"):
     """Embed -> combine -> generate -> crossfade -> save. Returns (wav path,
-    PCA .npy path or None, the (2, N) take)."""
+    PCA .npy path or None, the (2, N) take). With `mesh_spec` ('seq=N', in
+    a group of N processes) the outer stage runs sequence-parallel on the
+    rank's card and only rank 0 writes files (the others return None
+    paths)."""
     from .utils.audio_io import crossfade_flatten, save_audio
     from .utils.viz import pca_point_cloud, point_cloud_html
 
+    world = None
     if mesh_spec:
-        raise NotImplementedError("--mesh (the sequence-parallel outer stage) is not "
-                                  "ported: ROADMAP item A7")
+        from .parallel.mesh import mesh_from_spec
+        world = mesh_from_spec(mesh_spec, device=device, module="mirage")
+        if world.axis != "seq":
+            raise ValueError(f"--mesh {mesh_spec!r}: generation shards over a 'seq' axis "
+                             "(e.g. --mesh seq=4)")
+        if init_audio_tup is not None:
+            raise ValueError("--mesh seq=N does not support --init-audio: the img2img "
+                             "resample path is single-program; drop one flag")
+        device = world.device
     model = get_model_ready(model_choice, device=device, verbose=verbose,
                             **(model_kwargs or {}))
     if seed >= 0:
@@ -126,11 +145,18 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
         looped = np.tile(init_audio, (1, reps))[:, :need]          # loop-repeat
         init_latents = model.encode_audio_latents(looped[None])
 
-    fakes, fake_latents = model.generate(
-        emb, cfg_scales=cfg_scale, demo_steps=demo_steps, outer_steps=outer_steps,
-        init_audio_latents=init_latents, init_strength=init_strength,
-        batch_size=batch_size, flatten=False)
+    if world is not None:
+        fakes, fake_latents = model.generate_seqpar(
+            emb, world, cfg_scales=cfg_scale, demo_steps=demo_steps, outer_steps=outer_steps,
+            batch_size=batch_size, flatten=False)
+    else:
+        fakes, fake_latents = model.generate(
+            emb, cfg_scales=cfg_scale, demo_steps=demo_steps, outer_steps=outer_steps,
+            init_audio_latents=init_latents, init_strength=init_strength,
+            batch_size=batch_size, flatten=False)
     out = crossfade_flatten(fakes.float().cpu().numpy(), sr=SAMPLE_RATE)
+    if world is not None and world.rank != 0:
+        return None, None, out
 
     os.makedirs(output_dir, exist_ok=True)
     wav_path = str(Path(output_dir) / "mirage_out.wav")
@@ -275,15 +301,13 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--turbo", action="store_true",
                    help="the int8 turbo route of the JAX package: not ported (ROADMAP A8)")
     p.add_argument("--mesh", type=str, default=None, metavar="seq=N",
-                   help="the sequence-parallel outer stage of the JAX package: not "
-                        "ported (ROADMAP A7)")
+                   help="run the outer stage sequence-parallel over N processes, one a "
+                        "card: torchrun --nproc_per_node N -m audio_algebra_torch.mirage "
+                        "--mesh seq=N ...")
     args = p.parse_args(argv)
     if args.turbo:
         raise NotImplementedError("--turbo (MIRAGE's int8 fold route) is not ported: "
                                   "ROADMAP item A8")
-    if args.mesh:
-        raise NotImplementedError("--mesh (the sequence-parallel outer stage) is not "
-                                  "ported: ROADMAP item A7")
     if args.gui:
         run_gui(args)
         return {}
@@ -307,9 +331,10 @@ def main(argv: Optional[list] = None) -> dict:
         demo_steps=args.steps, outer_steps=args.outer_steps, init_audio_tup=init_tup,
         init_strength=args.init_strength, batch_size=args.batch_size, seed=args.seed,
         model_choice=args.model, output_dir=args.output_dir, model_kwargs=model_kwargs,
-        device=device)
+        mesh_spec=args.mesh, device=device)
     result = {"wav": wav, "pca": pca}
-    print(json.dumps(result))
+    if wav is not None:
+        print(json.dumps(result))
     return result
 
 

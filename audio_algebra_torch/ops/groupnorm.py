@@ -7,6 +7,9 @@ groupnorm1_gelu_btc`, on the port's (B, C, T) layout:
   groupnorm1_gelu_quant  (K2a) int8 of y on a per-channel grid (turbo GN_0)
   groupnorm1_gelu_res_amax (K2b, K2c) res + y and its per-channel amax,
                          plus an int8 twin on a given grid (turbo GN_1)
+  groupnorm1_gelu_sharded (K1 split) K1 on a time slab of a row that lies
+                         across ranks: K1's statistics pass, the caller's sum
+                         of the partials over the ranks, K1's apply pass
 
 On a CUDA tensor each launches the hand-written CUDA kernel of
 `csrc/groupnorm.cu` (built for sm_90a at first use; K2a as one cooperative
@@ -22,9 +25,16 @@ is plain jnp under a `custom_vjp`, no TPU kernel); the residual's cotangent
 is the output's. The turbo modes (K2) are inference-only, as in JAX: on the
 card they refuse inputs that require grad.
 
-`launches` (K1), `quant_launches` (K2a), `amax_launches` (K2b) and
-`amax_q_launches` (K2c) count the kernels' launches, so a run can show
-that its main path went through them.
+The split route is the sequence-parallel decodes' GroupNorm (JAX
+`parallel/seq.py:groupnorm1_seq`, `parallel/infer.py:_gn1`, which psum the
+two sums in plain jnp because a `pallas_call` cannot hold a collective):
+the same two CUDA passes as K1 with the reduce between them. Like K2 it is
+inference-only.
+
+`launches` (K1), `quant_launches` (K2a), `amax_launches` (K2b),
+`amax_q_launches` (K2c) and `split_launches` (K1 split, one a stats +
+apply pair) count the kernels' launches, so a run can show that its main
+path went through them.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ launches = 0
 quant_launches = 0
 amax_launches = 0
 amax_q_launches = 0
+split_launches = 0
 
 
 # The current CUDA stream of a device index as an int: torch's raw accessor
@@ -95,6 +106,29 @@ def groupnorm1_gelu_ref(x, scale, bias, gelu: bool, residual=None,
     """Plain PyTorch GN(1)[+GELU][+residual] on (B, C, T), output in x's
     dtype."""
     y = _gn_f32(x, scale, bias, gelu, eps)
+    if residual is not None:
+        y = residual.float() + y
+    return y.to(x.dtype)
+
+
+def groupnorm1_gelu_sharded_ref(x, scale, bias, gelu: bool, residual=None,
+                                eps: float = 1e-6, reduce_sum_=None, n_ranks: int = 1):
+    """Plain twin of the split route on a time slab (B, C, T_local) of rows
+    that lie across `n_ranks` equal slabs: f32 (sum, sumsq) of each row's
+    slab as (B, 1, 2), `reduce_sum_([partials])` summing them over the
+    ranks in place, then the K1 twin's arithmetic with the whole row's
+    count n_local * n_ranks."""
+    x32 = x.float()
+    partials = torch.stack([x32.sum(dim=(1, 2)), x32.square().sum(dim=(1, 2))], -1)[:, None]
+    if reduce_sum_ is not None:
+        reduce_sum_([partials])
+    n = x.shape[1] * x.shape[2] * n_ranks
+    mu = (partials[:, 0, 0] / n)[:, None, None]
+    var = torch.clamp((partials[:, 0, 1] / n)[:, None, None] - mu.square(), min=0.0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float()[None, :, None] + bias.float()[None, :, None]
+    if gelu:
+        y = gelu_tanh(y)
     if residual is not None:
         y = residual.float() + y
     return y.to(x.dtype)
@@ -161,6 +195,11 @@ def _lib(name: str = "aa_groupnorm1_gelu"):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "aa_groupnorm1_gelu":
             fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                           cf, ci, vp]
+        elif name == "aa_groupnorm1_stats":
+            fn.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, vp]
+        elif name == "aa_groupnorm1_apply":
+            fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                            cf, ci, vp]
         elif name == "aa_groupnorm1_quant":
             fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, vp]
@@ -261,6 +300,89 @@ def _launch_k1(x, scale, bias, gelu: bool, residual, eps: float) -> torch.Tensor
     if err != 0:
         raise RuntimeError(f"groupnorm1_gelu kernel launch failed: CUDA error {err}")
     launches += 1
+    return y
+
+
+def split_stats(x: torch.Tensor) -> torch.Tensor:
+    """K1's statistics pass alone on a CUDA slab (B, C, T): its [B, n_split,
+    2] f32 (sum, sumsq) partials, n_split from `_launch_shape` (the same on
+    every rank's equal slab)."""
+    b, c, t_len = x.shape
+    n = c * t_len
+    vec = 16 // x.element_size()
+    n_split, _ = _launch_shape(b, n, vec)
+    if not x.numel():
+        return torch.zeros((b, n_split, 2), dtype=torch.float32, device=x.device)
+    partials = torch.empty((b, n_split, 2), dtype=torch.float32, device=x.device)
+    vec_ok = int(n % vec == 0 and x.data_ptr() % 16 == 0)
+    err = _lib("aa_groupnorm1_stats")(_DTYPES[x.dtype], x.data_ptr(), partials.data_ptr(),
+                                      b, c, t_len, n_split, vec_ok,
+                                      stream_handle(x.device.index))
+    if err != 0:
+        raise RuntimeError(f"groupnorm1 split stats launch failed: CUDA error {err}")
+    return partials
+
+
+def split_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, gelu: bool,
+                residual: torch.Tensor | None, partials: torch.Tensor, n_stats: int,
+                eps: float = 1e-6) -> torch.Tensor:
+    """K1's apply pass alone on a CUDA slab, from partials summed over the
+    slabs of the row: [residual +] [gelu](... * scale + bias), the mean and
+    variance over n_stats elements (the whole row's count)."""
+    b, c, t_len = x.shape
+    n = c * t_len
+    y = torch.empty_like(x)
+    if not x.numel():
+        return y
+    vec = 16 // x.element_size()
+    n_split, apply_blocks = _launch_shape(b, n, vec)
+    if tuple(partials.shape) != (b, n_split, 2):
+        raise ValueError(f"partials {tuple(partials.shape)} do not fit a slab of {tuple(x.shape)}")
+    ptrs = [x.data_ptr(), y.data_ptr()] + \
+        ([residual.data_ptr()] if residual is not None else [])
+    vec_ok = int(n % vec == 0 and all(p % 16 == 0 for p in ptrs))
+    err = _lib("aa_groupnorm1_apply")(
+        _DTYPES[x.dtype], x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), partials.data_ptr(), b, c, t_len,
+        int(n_stats), n_split, apply_blocks, int(gelu), int(residual is not None), float(eps),
+        vec_ok, stream_handle(x.device.index))
+    if err != 0:
+        raise RuntimeError(f"groupnorm1 split apply launch failed: CUDA error {err}")
+    return y
+
+
+def groupnorm1_gelu_sharded(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                            gelu: bool, residual: torch.Tensor | None = None,
+                            eps: float = 1e-6, reduce_sum_=None,
+                            n_ranks: int = 1) -> torch.Tensor:
+    """K1 on this rank's time slab (B, C, T_local) of rows split over
+    `n_ranks` equal slabs: y = [residual +] [gelu](GroupNorm1 over the
+    whole row * scale + bias), the statistics the whole row's.
+
+    On a CUDA tensor: K1's statistics pass (`split_stats`) writes the
+    slab's [B, n_split, 2] f32 partials, `reduce_sum_([partials])` sums
+    them over the ranks in place (World.all_reduce_sum_), and K1's apply
+    pass (`split_apply`) normalises the slab with the whole row's count.
+    CPU tensors take the plain twin. Inference-only: it refuses inputs
+    that require grad."""
+    global split_launches
+    _check(x, scale, bias, residual)
+    if x.device.type == "cpu":
+        return groupnorm1_gelu_sharded_ref(x, scale, bias, gelu, residual, eps, reduce_sum_,
+                                           n_ranks)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm1_gelu_sharded: unsupported device {x.device}")
+    refuse_grad("the sharded GroupNorm (K1 split, inference only)", x, scale, bias, residual)
+    n_stats = x.shape[1] * x.shape[2] * n_ranks
+    if n_stats > _MAX_ROW:
+        raise ValueError(f"groupnorm1_gelu_sharded: row of {n_stats} elements exceeds "
+                         f"{_MAX_ROW}")
+    partials = split_stats(x)
+    if reduce_sum_ is not None:
+        reduce_sum_([partials])
+    y = split_apply(x, scale, bias, gelu, residual, partials, n_stats, eps)
+    if x.numel():
+        split_launches += 1
     return y
 
 

@@ -47,40 +47,54 @@ def initialize_distributed(coordinator: Optional[str] = None,
     return True
 
 
-def data_parallel_world(args, device: torch.device, name: str):
+def launched_world_size(asked: int, device: torch.device, name: str, flag: str) -> int:
+    """The number of processes an entry point's flag asks for, checked
+    against the group: `asked` > 1 joins the group torchrun described in
+    the environment and raises, saying how to launch, outside one (`name`
+    the module, `flag` the flag as the user gives it, e.g. "--num_gpus");
+    a larger group raises too, and a smaller one runs on its size and says
+    so. `asked` 1 is one process, or a group of one joined before; 0 is
+    the launched group's size (JAX's "every local device"). Returns the
+    group's size (1 without one)."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if asked == 0:
+        initialize_distributed(backend=backend)
+        asked = process_count()
+    if asked > 1 and not initialize_distributed(backend=backend):
+        print(f"{name}: {flag} {asked} asks for {asked} processes, and this one is not in "
+              "a process group")
+        raise RuntimeError(f"{flag} {asked}: launch one process a card with "
+                           f"`torchrun --nproc_per_node {asked} -m audio_algebra_torch.{name} "
+                           f"... {flag} {asked}`, or pass {flag} 1")
+    size = process_count()
+    if size > asked:
+        raise RuntimeError(f"{name}: {size} processes launched for {flag} {asked}: "
+                           f"pass {flag} {size}")
+    if size < asked:
+        print(f"{name}: {flag} {asked}, {size} processes launched: running on {size}")
+    return size
+
+
+def data_parallel_world(args, device: torch.device, name: str, fsdp: bool = False):
     """The data-parallel world the flags ask for (parallel.World).
 
     `--num_gpus N` > 1 trains over N processes, one a card, that torchrun
     (or any launcher setting WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT)
     started: `torchrun --nproc_per_node N -m audio_algebra_torch.<trainer>
     ... --num_gpus N`. Outside such a group it raises and says how to
-    launch, rather than train on one card; a group larger than N raises
-    too, and a smaller one trains on its size and says so. `--num_gpus 1`
-    (or 0) is one process, or a group of one where one was joined before.
-    `--fsdp` (a sharded train state) raises: ROADMAP item A7. `name` is
-    the entry point's module, for the messages."""
+    launch, rather than train on one card (launched_world_size). `--fsdp 1`
+    (a sharded train state, parallel/fsdp.py) is taken by the trainers
+    that pass `fsdp=True` (train_clapdae, as in JAX); the others raise on
+    it rather than ignore it. `name` is the entry point's module, for the
+    messages."""
     from .mesh import make_mesh      # mesh.py imports this module
 
-    fsdp = int(getattr(args, "fsdp", 0) or 0)
-    if fsdp:
-        print(f"{name}: --fsdp {fsdp} asks for a sharded train state, which is "
-              "not ported (ROADMAP item A7)")
-        raise NotImplementedError("--fsdp is not ported yet: ROADMAP item A7 "
-                                  "(the FSDP mapping of the JAX package's parallel/fsdp.py)")
-    asked = args.num_gpus if args.num_gpus > 0 else 1
-    if asked > 1 and not initialize_distributed(
-            backend="nccl" if device.type == "cuda" else "gloo"):
-        print(f"{name}: --num_gpus {asked} asks for data parallelism over {asked} "
-              "processes, and this one is not in a process group")
-        raise RuntimeError(f"--num_gpus {asked}: launch one process a card with "
-                           f"`torchrun --nproc_per_node {asked} -m audio_algebra_torch.{name} "
-                           f"... --num_gpus {asked}`, or pass --num_gpus 1")
-    size = process_count()
-    if size > asked:
-        raise RuntimeError(f"{name}: {size} processes launched for --num_gpus {asked}: "
-                           f"pass --num_gpus {size}")
-    if size < asked:
-        print(f"{name}: --num_gpus {asked}, {size} processes launched: training on {size}")
+    if int(getattr(args, "fsdp", 0) or 0) and not fsdp:
+        print(f"{name}: --fsdp {args.fsdp} asks for a sharded train state, which only "
+              "train_clapdae keeps")
+        raise ValueError(f"--fsdp: {name} keeps a replicated train state; only "
+                         "train_clapdae shards its state (parallel/fsdp.py)")
+    launched_world_size(max(args.num_gpus, 1), device, name, "--num_gpus")
     world = make_mesh(device=device)
     if world.size > 1:
         print(f"{name}: data parallel over {world.size} processes, rank {world.rank} on "

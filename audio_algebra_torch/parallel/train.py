@@ -121,7 +121,8 @@ def shard_batch(batch, world: World):
 
 def make_data_parallel_step(loss_fn: Callable, optimizer, world: World,
                             accum_steps: int = 1, compute_dtype=None,
-                            arg_specs: Optional[Sequence] = None) -> Callable:
+                            arg_specs: Optional[Sequence] = None,
+                            reduce_grads: bool = True) -> Callable:
     """Build `step(*batch_args) -> logs`, updating the parameters in place.
 
     loss_fn(*batch_args, gather=world.gather) -> (loss, logs): it sees this
@@ -131,7 +132,9 @@ def make_data_parallel_step(loss_fn: Callable, optimizer, world: World,
     `place_args` (`arg_specs` as there; the auto rule shards rank >= 2
     arguments whose leading dim splits over the ranks and keeps rank-1 ones
     whole). `step.optimizer` is the optimiser the step drives, wrapped in
-    MultiSteps when accum_steps > 1: checkpoint that one."""
+    MultiSteps when accum_steps > 1: checkpoint that one. `reduce_grads`
+    False leaves the gradients as backward left them: a model sharded by
+    parallel.fsdp reduce-scatters (sums) them itself."""
     if accum_steps > 1:
         optimizer = MultiSteps(optimizer, accum_steps)
     params = optimizer_params(optimizer)
@@ -140,7 +143,7 @@ def make_data_parallel_step(loss_fn: Callable, optimizer, world: World,
         args = place_args(batch_args, world, compute_dtype, arg_specs)
         loss, logs = loss_fn(*args, gather=world.gather)
         loss.backward()
-        if world.grouped:
+        if world.grouped and reduce_grads:
             world.all_reduce_sum_(grads_of(params))
         step.updated = take_step(optimizer)
         return logs

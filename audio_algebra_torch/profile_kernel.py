@@ -7,7 +7,10 @@ Compute:
 
 Run from the root of a checkout: the package is imported from the current
 directory, so the same script times another checkout's kernels when run
-from that checkout's root. Kernels: k4b (dK/dV of the rel-pos flash
+from that checkout's root. Kernels: k1 (the fused GroupNorm(1) at
+chip_smoke.py's K1 cases, with a SHA-256 of each output's bits: run from
+two checkouts' roots, equal digests show that K1's results did not
+change), k4b (dK/dV of the rel-pos flash
 attention at the trainer's (8, 16, 1024, 64), f32 or bf16), k2a / k2b / k2c
 (the turbo GroupNorm modes at the decode's level 0, (16, 256, 65536)
 bf16), k3 (the bf16 serving attention at the MIRAGE inner UNet's flash
@@ -31,6 +34,11 @@ import os
 import sys
 import time
 
+# chip_smoke.py's K1 cases, in its order and with its seeds (case i from seed i)
+K1_CASES = [(shape, dt, gelu, res) for shape in [(4, 256, 65536), (4, 512, 8)]
+            for dt in ("bfloat16", "float32") for gelu in (True, False) for res in (True, False)]
+K1_CASES += [((2, 128, 1000), "float32", True, True), ((1, 512, 32768), "bfloat16", True, True),
+             ((1, 256, 65536), "float32", True, True), ((1, 512, 8), "float32", True, True)]
 K3_SHAPES = [(2, 16, 1024, 64), (2, 16, 3072, 64), (2, 16, 1536, 64), (1, 16, 1024, 64),
              (4, 16, 1024, 64)]
 K4A_SHAPES = [(8, 16, 1024, 64), (8, 16, 512, 64), (1, 16, 1024, 64), (2, 16, 1024, 64)]
@@ -153,7 +161,7 @@ def k5_host_split(x, scale, bias, fs, sh) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5"],
+    ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5"],
                     required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
@@ -178,6 +186,27 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.kernel == "k1":
+        import hashlib
+        for i, (shape, dt, gelu, res) in enumerate(K1_CASES):
+            gi = torch.Generator(device=dev).manual_seed(i)
+            dtype = getattr(torch, dt)
+            x = (torch.randn(shape, generator=gi, device=dev) * 1.5 + 0.2).to(dtype)
+            r = torch.randn(shape, generator=gi, device=dev).to(dtype) if res else None
+            scale = (torch.rand(shape[1], generator=gi, device=dev) + 0.5).to(dtype)
+            bias = (torch.rand(shape[1], generator=gi, device=dev) - 0.5).to(dtype)
+
+            def call():
+                return gn.groupnorm1_gelu(x, scale, bias, gelu, r)
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(y.view(torch.int16 if dt == "bfloat16" else torch.int32)
+                                    .cpu().numpy().tobytes()).hexdigest()
+            print(json.dumps({"kernel": "k1", "tree": os.getcwd(), "shape": list(shape),
+                              "dtype": dt, "gelu": gelu, "residual": res, "sha256": digest,
+                              "ms": events_ms(call, 20), "device": card}), flush=True)
+            del x, r, y
+        return 0
     if args.kernel == "k3":
         for shape in K3_SHAPES:
             q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16() for _ in range(3))

@@ -2,7 +2,7 @@
 
     python -m audio_algebra_torch.serve [--host 127.0.0.1] [--port 8950]
         [--model 22s|66s] [--no-half] [--batch-window 0.05] [--max-batch 8]
-        [--warmup] [--strict-text]
+        [--warmup] [--strict-text] [--mesh seq=N] [--device cuda]
 
 Port of audio_algebra_tpu/serve.py: a stdlib ThreadingHTTPServer wrapping
 one warm CLAPDAE on the card (embedding_math.get_model_ready's), with
@@ -11,8 +11,20 @@ requests whose (steps, outer_steps, cfg_scale) agree are coalesced into one
 generate call by a micro-batcher (`--batch-window` seconds; 0 turns it
 off). With MIRAGE_USERNAME and MIRAGE_PASSWORD set, every route but
 /health asks for basic auth (401 without it). JAX's `--turbo` (the int8
-fold route, ROADMAP A8) and `--mesh` (the sequence-parallel outer stage,
-ROADMAP A7) are not ported and raise NotImplementedError.
+fold route, ROADMAP A8) is not ported and raises NotImplementedError.
+
+`--mesh seq=N` runs each generate's outer stage sequence-parallel over N
+processes, one a card (`CLAPDAE.generate_seqpar`):
+
+    torchrun --nproc_per_node N -m audio_algebra_torch.serve --mesh seq=N ...
+
+JAX serves the mesh from one process; torch runs N. Rank 0 serves HTTP;
+ranks above 0 run a follower loop (`MirageService.follow`): for each
+generate, rank 0 broadcasts its arguments and the inner stage's noise
+(`_SeqparChannel`), every rank calls generate_seqpar, and a stop message
+ends the loop when rank 0 closes. The micro-batcher's coalesced generates
+go through the same channel; init-audio requests take rank 0's
+single-program generate, as JAX's do.
 
 Endpoints:
   GET  /          -> the HTML GUI (prompts, slerp / algebra, init audio)
@@ -250,7 +262,7 @@ class _MicroBatcher:
             steps, outer_steps, cfg_scale = group[0].key
             try:
                 with self.service.lock:
-                    fakes, _ = self.service.model.generate(
+                    fakes, _ = self.service._model_generate(
                         np.concatenate([p.emb for p in group], axis=0), cfg_scales=cfg_scale,
                         demo_steps=steps, outer_steps=outer_steps, batch_size=len(group),
                         flatten=False)
@@ -267,6 +279,45 @@ class _MicroBatcher:
                     p.event.set()
 
 
+class _SeqparChannel:
+    """Rank 0's generate calls, run by every rank of a `seq` world: rank 0
+    broadcasts each call's arguments and its inner-stage noise (drawn from
+    rank 0's generator, in `generate`'s order), then every rank calls
+    `generate_seqpar`; ranks above 0 loop in `follow` until `stop`."""
+
+    def __init__(self, world, model):
+        self.world, self.model = world, model
+
+    def _broadcast(self, msg=None):
+        return self.world.broadcast_object(msg)
+
+    def generate(self, emb, batch_size: int = 1, **kw):
+        """On rank 0: one generate_seqpar on every rank."""
+        emb = emb.float().cpu().numpy() if isinstance(emb, torch.Tensor) else np.asarray(emb)
+        m = self.model
+        noise = m._noise((batch_size, m.latent_dim, m.demo_samples // m.downsampling_ratio),
+                         None).float().cpu().numpy()
+        self._broadcast({"op": "generate", "emb": emb, "latent_noise": noise,
+                         "batch_size": batch_size, "kw": kw})
+        return m.generate_seqpar(emb, self.world, batch_size=batch_size, latent_noise=noise,
+                                 **kw)
+
+    def stop(self) -> None:
+        self._broadcast({"op": "stop"})
+
+    def follow(self) -> int:
+        """On ranks above 0: run rank 0's generates until it stops; returns
+        how many ran."""
+        served = 0
+        while True:
+            msg = self._broadcast()
+            if msg["op"] == "stop":
+                return served
+            self.model.generate_seqpar(msg["emb"], self.world, batch_size=msg["batch_size"],
+                                       latent_noise=msg["latent_noise"], **msg["kw"])
+            served += 1
+
+
 class MirageService:
     """One warm model and a lock. `model` is injectable (any object with
     .generate, .embed, .encode_audio_latents, .clap_module, .generator and
@@ -274,12 +325,23 @@ class MirageService:
     on `device` (bf16 unless `half` is False; CLAP stays f32).
     `batch_window_s` > 0 turns the micro-batcher on. `strict_text` refuses
     text prompts while the tokenizer falls back to byte ids. Basic auth is
-    asked for when MIRAGE_USERNAME and MIRAGE_PASSWORD are both set."""
+    asked for when MIRAGE_USERNAME and MIRAGE_PASSWORD are both set.
+    `mesh_spec` 'seq=N' (in a group of N processes) runs the outer stage
+    sequence-parallel: rank 0 serves, the other ranks `follow`, each on
+    its rank's card."""
 
     def __init__(self, model=None, model_choice: str = "22s", half: bool = True,
                  verbose: bool = True, max_batch: int = 8,
                  device: str | torch.device = "cuda", strict_text: bool = False,
-                 batch_window_s: float = 0.0):
+                 batch_window_s: float = 0.0, mesh_spec: Optional[str] = None):
+        self.world = None
+        if mesh_spec:
+            from .parallel.mesh import mesh_from_spec
+            self.world = mesh_from_spec(mesh_spec, device=device, module="serve")
+            if self.world.axis != "seq":
+                raise ValueError(f"--mesh {mesh_spec!r}: serving shards over a 'seq' axis "
+                                 "(e.g. seq=4)")
+            device = self.world.device
         if model is None:
             model = get_model_ready(model_choice, device=device, verbose=verbose, half=half)
         self.model = model
@@ -292,14 +354,36 @@ class MirageService:
         user = os.environ.get("MIRAGE_USERNAME", "")
         password = os.environ.get("MIRAGE_PASSWORD", "")
         self.auth: Optional[tuple] = (user, password) if user and password else None
+        self.channel = _SeqparChannel(self.world, model) if self.world is not None else None
+        follower = self.world is not None and self.world.rank != 0
         self.batcher = (_MicroBatcher(self, batch_window_s, max_batch)
-                        if batch_window_s > 0 else None)
+                        if batch_window_s > 0 and not follower else None)
         self.strict_text = strict_text
         self.tokenizer_backend, self._tok_reason = model.clap_module.tokenizer_backend()
         if self.tokenizer_backend == "byte-fallback" and verbose:
             print("serve: WARNING: no RoBERTa tokenizer files; text prompts use "
                   "byte-level fallback ids (degraded embeddings)"
                   + (" [strict: text prompts are refused with 409]" if strict_text else ""))
+
+    def _model_generate(self, emb, **kw):
+        """One generate call (the caller holds self.lock): through every
+        rank's generate_seqpar when a mesh is set, except for init-audio
+        requests, which stay single-program on rank 0."""
+        if self.channel is not None and kw.get("init_audio_latents") is None:
+            kw.pop("init_audio_latents", None)
+            kw.pop("init_strength", None)
+            return self.channel.generate(emb, **kw)
+        return self.model.generate(emb, **kw)
+
+    def follow(self) -> int:
+        """Ranks above 0 of a mesh: run rank 0's generates until it closes."""
+        return self.channel.follow()
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: end the followers' loops."""
+        if self.channel is not None and self.world.rank == 0:
+            with self.lock:
+                self.channel.stop()
 
     def text_tokenizer_warning(self) -> Optional[str]:
         """None when text tokenization is exact; else the notice carried in
@@ -389,7 +473,7 @@ class MirageService:
             with self.lock:
                 if seed >= 0:
                     self.model.generator.manual_seed(seed)
-                fakes, _ = self.model.generate(
+                fakes, _ = self._model_generate(
                     emb, cfg_scales=cfg_scale, demo_steps=steps, outer_steps=outer_steps,
                     batch_size=batch_size, init_audio_latents=init_latents,
                     init_strength=float(spec.get("init_strength", 0.4)), flatten=False)
@@ -413,6 +497,8 @@ class MirageService:
         if self.batcher is not None:
             h["batched_runs"] = self.batcher.batched_runs
             h["coalesced_requests"] = self.batcher.coalesced_requests
+        if self.world is not None:
+            h["mesh"] = {self.world.axis: self.world.size}
         return h
 
 
@@ -526,21 +612,26 @@ def main(argv: Optional[list] = None):
     p.add_argument("--strict-text", action="store_true",
                    help="refuse text prompts (409) while the tokenizer falls back to "
                         "byte-level ids")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default; under torchrun, the rank's card) or 'cpu'")
     p.add_argument("--turbo", action="store_true",
                    help="the int8 turbo route of the JAX service: not ported (ROADMAP A8)")
     p.add_argument("--mesh", type=str, default=None, metavar="seq=N",
-                   help="the sequence-parallel outer stage of the JAX service: not "
-                        "ported (ROADMAP A7)")
+                   help="run each generate's outer stage sequence-parallel over N "
+                        "processes, one a card: torchrun --nproc_per_node N -m "
+                        "audio_algebra_torch.serve --mesh seq=N ...")
     args = p.parse_args(argv)
     if args.turbo:
         raise NotImplementedError("--turbo (MIRAGE's int8 fold route) is not ported: "
                                   "ROADMAP item A8")
-    if args.mesh:
-        raise NotImplementedError("--mesh (the sequence-parallel outer stage) is not "
-                                  "ported: ROADMAP item A7")
     service = MirageService(model_choice=args.model, half=not args.no_half,
                             batch_window_s=args.batch_window, max_batch=args.max_batch,
-                            strict_text=args.strict_text)
+                            strict_text=args.strict_text, mesh_spec=args.mesh,
+                            device=args.device)
+    if service.world is not None and service.world.rank != 0:
+        print(f"serve: rank {service.world.rank} following rank 0's generates", flush=True)
+        service.follow()
+        return
     if args.warmup:
         print("serve: warmup generate...", flush=True)
         service.generate_wav({"embeddings": [[1.0] + [0.0] * 511], "steps": 150,
@@ -557,6 +648,7 @@ def main(argv: Optional[list] = None):
         pass
     finally:
         server.server_close()
+        service.close()
 
 
 if __name__ == "__main__":

@@ -26,8 +26,11 @@ and CFG-dropout mask come from a torch.Generator seeded per step from
 of `make_train_step` takes them as arguments. `--num_gpus N` > 1 runs
 parallel.train's data-parallel step over N processes
 (parallel.multihost.data_parallel_world): each loads its rows of every
-global batch, and the loss is the global batch's mean. State sharding
-(`--fsdp 1`) is not ported: ROADMAP item A7.
+global batch, and the loss is the global batch's mean. `--fsdp 1` with
+more than one process shards the parameters, the EMA and Adam's state over
+them (parallel/fsdp.py, FSDP2; one process keeps the replicated state, as
+JAX shards only when its data axis is larger than 1). Checkpoints hold
+whole tensors, written by rank 0, so a run resumes into either layout.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from .device import resolve_device
 from .given_models import CLAPDAE
 from .models.ema import EMASchedule
 from .models.stacked import v_objective_loss
+from .parallel.fsdp import full_tensor, shard_state, state_bytes_per_device
 from .parallel.mesh import World
 from .parallel.multihost import Shard, data_parallel_world
 from .parallel.train import make_data_parallel_step, replicate_state
@@ -91,7 +95,8 @@ def onecycle_lr(step: int, total_steps: int, max_lr: float, pct_start: float = 0
 @dataclass
 class TrainState:
     """What a step updates: the model's parameters (in place), their EMA
-    copies (name -> tensor), Adam's state and the step count."""
+    copies (name -> tensor), Adam's state and the step count. `sharded`:
+    parallel.fsdp.shard_state has sharded them over the ranks."""
     model: torch.nn.Module
     ema_params: dict
     opt: torch.optim.Optimizer
@@ -99,17 +104,25 @@ class TrainState:
     lr: float = 4e-5
     t_max: int = 500
     ema_sched: EMASchedule = field(default_factory=lambda: EMASchedule(0.9999, 0.75))
+    sharded: bool = False
 
     def current_lr(self) -> float:
         return cosine_lr(self.step, self.lr, self.t_max)
 
     def tree(self) -> dict:
-        """The checkpoint's state tree."""
-        return {"params": {k: v.detach() for k, v in self.model.named_parameters()},
-                "ema_params": dict(self.ema_params),
-                "opt_state": self.opt.state_dict(), "step": self.step}
+        """The checkpoint's state tree, of whole tensors in either layout
+        (sharded, every rank must call it: it gathers)."""
+        opt = self.opt.state_dict()
+        opt["state"] = {i: {k: full_tensor(v) for k, v in entry.items()}
+                        for i, entry in opt["state"].items()}
+        return {"params": {k: full_tensor(v.detach())
+                           for k, v in self.model.named_parameters()},
+                "ema_params": {k: full_tensor(v) for k, v in self.ema_params.items()},
+                "opt_state": opt, "step": self.step}
 
     def load_tree(self, tree: dict) -> None:
+        """Load a checkpoint's tree into the replicated state (before
+        shard_state)."""
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 p.copy_(tree["params"][name])
@@ -122,8 +135,8 @@ class TrainState:
         """Exact integer checksums of the parameters' and the EMA copies'
         bits: two states with the same digests hold the same weights."""
         def bits(tensors):
-            return int(sum(int(t.detach().contiguous().view(torch.int32).to(torch.int64).sum())
-                           for t in tensors))
+            return int(sum(int(full_tensor(t.detach()).contiguous().view(torch.int32)
+                               .to(torch.int64).sum()) for t in tensors))
         return {"params": bits(self.model.parameters()),
                 "ema": bits(self.ema_params.values())}
 
@@ -180,8 +193,10 @@ def make_train_step(state: TrainState, world: Optional[World] = None) -> Callabl
     the optimiser's state and the EMA in place, advances `state.step`, and
     returns the loss of the global batch (before the update)."""
     device = next(state.model.parameters()).device
+    # sharded, FSDP2 reduce-scatters (sums) the gradients in backward
     dp_step = make_data_parallel_step(clapdae_loss_fn(state.model), state.opt,
-                                      world or World(1, 0, device))
+                                      world or World(1, 0, device),
+                                      reduce_grads=not state.sharded)
 
     def step(latents, emb, t, noise, keep=None) -> torch.Tensor:
         for group in state.opt.param_groups:
@@ -195,6 +210,17 @@ def make_train_step(state: TrainState, world: Optional[World] = None) -> Callabl
         return logs["train_loss"]
 
     return step
+
+
+def train_state_leaves(state: TrainState) -> dict:
+    """name -> tensor of the state's resident f32 leaves: parameters, EMA
+    copies and Adam's m and v (the tree parallel.fsdp sizes)."""
+    leaves = {f"params/{k}": p for k, p in state.model.named_parameters()}
+    leaves.update({f"ema/{k}": e for k, e in state.ema_params.items()})
+    for i, entry in state.opt.state_dict()["state"].items():
+        leaves.update({f"opt/{i}/{k}": v for k, v in entry.items()
+                       if torch.is_tensor(v) and v.dim()})
+    return leaves
 
 
 def train_step(state: TrainState, latents, emb, t, noise, keep=None) -> torch.Tensor:
@@ -235,7 +261,8 @@ def main(argv=None, clap_module=None) -> dict:
     the end, and the state's digests at the start and the end."""
     args = get_all_args(argv=argv)
     print(f"args = {args}")
-    world = data_parallel_world(args, resolve_device(args.device), "train_clapdae")
+    world = data_parallel_world(args, resolve_device(args.device), "train_clapdae",
+                                fsdp=True)
     device = world.device
     seed = args.seed
 
@@ -257,6 +284,15 @@ def main(argv=None, clap_module=None) -> dict:
         except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) as e:
             print(f"Resume failed ({e}); starting fresh")
     replicate_state(state.model, world)
+    if int(getattr(args, "fsdp", 0) or 0):
+        if world.size > 1:
+            shard_state(state, world)
+            print(f"fsdp: train state sharded over data={world.size}: "
+                  f"{state_bytes_per_device(train_state_leaves(state), world) / 2**30:.2f} "
+                  "GiB a rank")
+        else:
+            print("fsdp: --fsdp 1 on one process: the train state stays replicated "
+                  "(sharding needs --num_gpus N > 1 under torchrun)")
     start_step, start_digest = state.step, state.digest()
     step_fn = make_train_step(state, world)
 
@@ -272,9 +308,11 @@ def main(argv=None, clap_module=None) -> dict:
         return time.perf_counter()
 
     def save():
-        """Rank 0 writes the checkpoint; returns its path (None elsewhere)."""
+        """Rank 0 writes the checkpoint of whole tensors (every rank gathers
+        its shards); returns its path (None elsewhere)."""
+        tree = state.tree()
         if main_rank:
-            return save_checkpoint(f"{logger.dir}/ckpt", state.tree(), step=state.step)
+            return save_checkpoint(f"{logger.dir}/ckpt", tree, step=state.step)
         return None
 
     for epoch in range(getattr(args, "max_epochs", 40)):

@@ -4,7 +4,7 @@
         [--sample-rate 48000] [--chunk-size 262144] [--knob-steps 32]
         [--effects Clean,TimeReverse,...] [--normalize loudness|maxabs|none]
         [--target-lufs -23] [--max-clips N] [--encode [--encode-batch 64]
-        [--model-config cfg.json]] [--device cuda]
+        [--model-config cfg.json] [--num-devices N]] [--device cuda]
 
 Port of the root `xae_dataset.py`: load the source files (WAV, MP3, FLAC,
 OGG), normalise each by integrated loudness (ops/loudness, its K-weighting
@@ -17,10 +17,20 @@ shapes of the files are the JAX version's.
 
 JAX sweeps a knob by `jax.vmap` one clip at a time; here the batch is
 written out: each effect takes all K knobs and SWEEP_CLIPS clips in one
-call (ops/effects), PitchShift's static knob looping on the host. The
-JAX version shards its encode over a device mesh; with one card that is
-left out (multi-device work is ROADMAP A7). Runs on the card unless
-`--device cpu`.
+call (ops/effects), PitchShift's static knob looping on the host.
+
+The JAX version shards its encode over every local device. Here
+`--num-devices N` (0, the default: the process group's size, one process
+without one) splits each encode batch over N processes, one a card:
+
+    torchrun --nproc_per_node N -m audio_algebra_torch.xae_dataset \
+        --source-dir DIR --encode --num-devices N
+
+Rank 0 builds and writes the clips, effect arrays and manifest; the other
+ranks wait at a barrier and read the effect arrays back. Each encode
+batch is padded by repeating its rows to a multiple of N (JAX's `place`),
+each rank encodes its rows, and rank 0 gathers them, drops the pad and
+writes `emb_<effect>.npy`. Runs on the card unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -53,6 +63,9 @@ def main(argv: Optional[list] = None) -> dict:
                    help="also encode every effected clip with the DVAE")
     p.add_argument("--encode-batch", type=int, default=64)
     p.add_argument("--model-config", default=None)
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="split the encode over this many processes, one a card (0: the "
+                        "process group's size); more than one needs torchrun")
     p.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = p.parse_args(argv)
 
@@ -62,7 +75,15 @@ def main(argv: Optional[list] = None) -> dict:
     from .ops.loudness import loudness_normalize, maxabs_normalize
     from .utils.audio_io import load_audio
 
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import launched_world_size
+
     device = resolve_device(args.device)
+    launched_world_size(args.num_devices, device, "xae_dataset", "--num-devices")
+    world = make_mesh(device=device)
+    device = world.device
+    if world.rank != 0:
+        return _follow_encode(args, world)
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     files = get_audio_filenames([args.source_dir])
@@ -125,27 +146,63 @@ def main(argv: Optional[list] = None) -> dict:
         json.dump({"sample_rate": args.sample_rate, "chunk_size": args.chunk_size,
                    "effects": effect_names, "rows": manifest}, f)
     print(f"wrote {out}/clips.npy + {len(store)} effect arrays + manifest")
+    world.barrier()                        # the other ranks read the arrays now
+    world.broadcast_object({"encode": bool(args.encode and len(clips)),
+                            "effects": list(store)})
 
     # 4. optionally, the encode of every effected clip
     embs = {}
     if args.encode and len(clips):
-        from .config import load_model_config
-        from .given_models import DVAEWrapper
+        embs = _encode_banks(args, world, store, out)
+        print(f"encoded {len(embs)} effect banks")
+    return {"clips": clips.shape, "effects": {k: v.shape for k, v in store.items()},
+            "embeddings": {k: v.shape for k, v in embs.items()}, "rows": len(manifest),
+            "world": [world.size, world.rank]}
 
-        model_kwargs, extra_args = load_model_config(args.model_config)
-        w = DVAEWrapper(args_dict={"sample_size": args.chunk_size, **extra_args},
-                        model_kwargs=model_kwargs, device=device)
-        w.setup(gdrive=False)
-        for name, arr in store.items():
-            flat = arr.reshape(-1, 2, args.chunk_size)
-            chunks = [w.encode(flat[i:i + args.encode_batch]).float().cpu().numpy()
-                      for i in range(0, len(flat), args.encode_batch)]
+
+def _encode_banks(args, world, store: dict, out: Path) -> dict:
+    """Encode every effect array through DVAEWrapper in --encode-batch
+    batches, each padded by repeating its rows to a multiple of the ranks
+    and split over them; rank 0 gathers, drops the pad and writes
+    emb_<effect>.npy. Returns the embeddings (rank 0; empty elsewhere)."""
+    from .config import load_model_config
+    from .given_models import DVAEWrapper
+
+    model_kwargs, extra_args = load_model_config(args.model_config)
+    w = DVAEWrapper(args_dict={"sample_size": args.chunk_size, **extra_args},
+                    model_kwargs=model_kwargs, device=world.device)
+    w.setup(gdrive=False)
+    if world.size > 1 and world.rank == 0:
+        print(f"encode sweep split over {world.size} processes")
+    embs = {}
+    for name, arr in store.items():
+        flat = arr.reshape(-1, 2, args.chunk_size)
+        chunks = []
+        for i in range(0, len(flat), args.encode_batch):
+            batch = flat[i:i + args.encode_batch]
+            n0 = len(batch)
+            pad = (-n0) % world.size
+            if pad:                        # repeat rows up to a multiple of the ranks
+                batch = np.concatenate([batch] * -(-(n0 + pad) // n0))[:n0 + pad]
+            enc = world.all_gather_rows(w.encode(batch[world.rows(len(batch))]))
+            chunks.append(enc[:n0].float().cpu().numpy())
+        if world.rank == 0:
             embs[name] = np.concatenate(chunks).reshape(arr.shape[0], arr.shape[1],
                                                         *chunks[0].shape[1:])
             np.save(out / f"emb_{name}.npy", embs[name])
-        print(f"encoded {len(embs)} effect banks")
-    return {"clips": clips.shape, "effects": {k: v.shape for k, v in store.items()},
-            "embeddings": {k: v.shape for k, v in embs.items()}, "rows": len(manifest)}
+    return embs
+
+
+def _follow_encode(args, world) -> dict:
+    """Ranks above 0: wait for rank 0's effect arrays, read them, and take
+    their rows of every encode batch."""
+    world.barrier()
+    plan = world.broadcast_object(None)
+    out = Path(args.out_dir)
+    if plan["encode"]:
+        store = {name: np.load(out / f"fx_{name}.npy") for name in plan["effects"]}
+        _encode_banks(args, world, store, out)
+    return {"world": [world.size, world.rank]}
 
 
 if __name__ == "__main__":

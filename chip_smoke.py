@@ -17,6 +17,13 @@ Phases, each printing one JSON line:
                 + SiLU; each row on the device alone, with the wrapper's
                 host microseconds a call, the route the planner chose and a
                 same-bits check of two launches)
+  kernels (K1 split)  K1's two passes apart (aa_groupnorm1_stats,
+                aa_groupnorm1_apply), the sequence-parallel decodes'
+                GroupNorm: (4, 256, 65536) bf16 and f32, with and without a
+                residual, cut along T into 2, 4 and 8 slabs in one process,
+                the slabs' partials summed between the passes; against K1 on
+                the whole tensor and the twin (TOL), timed beside K1 whole,
+                the twin, the library chain and K1's byte bound
   model         one full-width Destructo UNet forward, (2, 2, 16384) bf16,
                 through K1 and through the twin with the same weights:
                 rel-RMS under a bound
@@ -89,6 +96,14 @@ Phases, each printing one JSON line:
                 --init-audio (the io phase's FLAC), and with the FLAC as an
                 audio prompt at --batch-size 2; the WAVs, the PCA .npy /
                 .html, the launches of K1, K3, K5 and K6
+  seqpar        an nccl group of one (NCCL takes one rank a card): the
+                destructo phase's DVAEWrapper() decode_seqpar (bf16, B = 4 x
+                65536, 35 steps) of its latents from its noise against its
+                decode (rel-RMS < 2e-2), and the mirage phase's CLAPDAE()
+                generate_seqpar (22 s, bf16, 150 + 100 steps) from its steady
+                run's noises against that run (< 5e-2); seconds of each
+                route, split-K1 and K1-whole launches a forward (summing to
+                the unsharded forward's K1), pick_sharded_levels' choice
   kernels (K4)  the differentiable flash attention: K4a's (o, l, m), K4b's
                 (dk, dv) and K4c's (dq, dbT) against the twins at the
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
@@ -180,6 +195,15 @@ Phases, each printing one JSON line:
                 parallel.train's step and through parallel.manual's, all
                 three updates equal to f32 rounding; train_aa_mixer_accel
                 for 4 steps and resumed for 4 more; the group destroyed
+  fsdp          an nccl group of one: the songs UNetCFG1d trainer step
+                (make_train_step, f32, TF32 off, (8, 32, 2048) latents: batch
+                8 x 1,048,576 samples), two steps replicated and two with the
+                state sharded by parallel.fsdp.shard_state, and two
+                replicated again, from the same weights: parameters, EMA and
+                Adam's m and v within 4x the replicated pair's difference
+                (the trainer's backward does not repeat its bits) and at
+                least DDP_REL; state_bytes_per_device against the shards
+                held, step ms and peak memory of each arm
 
 The phases run in the order above, Destructo's first (io, serve and
 mirage_cli right after clap, on the warm model). Then the `kernels`
@@ -642,13 +666,13 @@ def phase_destructo() -> int:
         t_dec = time.time()
         out = w.decode(z, demo_steps=STEPS)
         torch.cuda.synchronize()
-        return batch, out, t_dec - t_enc, time.time() - t_dec
+        return batch, out, t_dec - t_enc, time.time() - t_dec, z
 
     torch.cuda.reset_peak_memory_stats()
     gn.launches = 0
-    batch, out, enc_s, dec_s = pipeline()
+    batch, out, enc_s, dec_s, _ = pipeline()
     launches = gn.launches
-    _, _, enc2_s, dec2_s = pipeline()             # steady state (warm cuDNN plans)
+    _, out2, enc2_s, dec2_s, z2 = pipeline()      # steady state (warm cuDNN plans)
     audio_s = batch.shape[0] * chunk / 48000
     finite = bool(torch.isfinite(out).all())
     emit({"phase": "destructo", "batch": list(batch.shape), "steps": STEPS,
@@ -663,7 +687,9 @@ def phase_destructo() -> int:
     if launches != STEPS * GN_CALLS_PER_FORWARD:
         raise AssertionError(f"K1 launched {launches} times in the decode, "
                              f"expected {STEPS * GN_CALLS_PER_FORWARD}")
-    return launches
+    # the steady run's wrapper (its stored noise), latents, audio and seconds:
+    # the seqpar phase decodes the same latents from the same noise
+    return {"k1": launches, "wrapper": w, "z": z2, "out": out2, "decode_s": dec2_s}
 
 
 def k2_bytes(shape, dtype, mode: str) -> int:
@@ -951,11 +977,12 @@ def phase_mirage():
     a, b = (v / np.linalg.norm(v) for v in rng.standard_normal((2, 1, 1, 512)).astype("f4"))
     emb = weighted_algebra([a, b], [1.0, -0.5])
 
-    def run():
+    def run(**noises):
         torch.cuda.synchronize()
         start = time.perf_counter()
         fakes, lat = model.generate(emb, cfg_scales=4, demo_steps=INNER_STEPS,
-                                    outer_steps=OUTER_STEPS, batch_size=1, stage_times=True)
+                                    outer_steps=OUTER_STEPS, batch_size=1, stage_times=True,
+                                    **noises)
         torch.cuda.synchronize()
         return fakes, lat, time.perf_counter() - start, dict(model.last_stage_times)
 
@@ -965,7 +992,14 @@ def phase_mirage():
     fakes, lat, first_s, first_stages = run()
     counts = {"k3": fa.launches, "k5": ggn.launches, "k1": gn.launches}
     k5_routes = {"cluster": ggn.cluster_launches, "two_pass": ggn.two_pass_launches}
-    _, _, gen_s, stages = run()
+    g = torch.Generator(device="cuda").manual_seed(7)     # the steady run's noises, kept
+    noises = {"latent_noise": torch.randn((1, model.latent_dim,
+                                           MIRAGE_SAMPLES // model.downsampling_ratio),
+                                          generator=g, device="cuda").to(torch.bfloat16),
+              "s1_noise": torch.randn((1, model.latent_diffae.latent_dim, MIRAGE_SAMPLES //
+                                       model.latent_diffae.autoencoder.downsampling_ratio),
+                                      generator=g, device="cuda").to(torch.bfloat16)}
+    fakes2, _, gen_s, stages = run(**noises)
     expected = {"k3": INNER_STEPS * K3_PER_INNER, "k5": INNER_STEPS * K5_PER_INNER,
                 "k1": OUTER_STEPS * K1_PER_OUTER}
     finite = bool(torch.isfinite(fakes).all())
@@ -989,7 +1023,7 @@ def phase_mirage():
     if k5_routes != {"cluster": expected["k5"], "two_pass": 0}:
         raise AssertionError(f"mirage K5 routes {k5_routes}: every inner-UNet shape should "
                              f"take the one-launch cluster route")
-    return model, counts
+    return model, counts, {"emb": emb, "noises": noises, "fakes": fakes2, "generate_s": gen_s}
 
 
 def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
@@ -3190,6 +3224,326 @@ def phase_ddp() -> dict:
     return row
 
 
+# K1 split around a reduce across ranks: the sequence-parallel decodes'
+# GroupNorm, K1's two passes with a sum of the partials between; held here by
+# cutting one tensor along T into S slabs in one process
+SPLIT_SHAPE, SPLIT_SLABS = (4, 256, 65536), (2, 4, 8)
+SEQPAR_REL_RMS = {"destructo": MODEL_REL_RMS_BOUND["bfloat16"],
+                  "mirage": MIRAGE_REL_RMS_BOUND["bfloat16"]}
+# FSDP at world 1: two trainer steps an arm; the sharded state within
+# FSDP_SPREAD times the replicated step's own run-to-run difference
+FSDP_STEPS, FSDP_SPREAD = 2, 4
+
+
+def phase_kernels_split() -> dict:
+    """K1 split at SPLIT_SHAPE in bf16 and f32, with and without a
+    residual (GELU on, as the decodes run it): the tensor cut along T into S
+    contiguous slabs, aa_groupnorm1_stats on each, the partials summed,
+    aa_groupnorm1_apply on each with n_stats the whole row's count; the
+    slabs' outputs joined against K1 on the whole tensor and against the
+    twin, no element outside TOL. Timed: S stats + the sum + S applies
+    against K1 whole, the twin (the same function on the same tensor), the
+    library chain, and K1's byte bound (the same bytes move)."""
+    import torch
+    import torch.nn.functional as F
+    from audio_algebra_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for res in (True, False):
+            g = torch.Generator(device=dev).manual_seed(100 + len(rows))
+            x = (torch.randn(SPLIT_SHAPE, generator=g, device=dev) * 1.5 + 0.2).to(dt)
+            r = torch.randn(SPLIT_SHAPE, generator=g, device=dev).to(dt) if res else None
+            scale = (torch.rand(SPLIT_SHAPE[1], generator=g, device=dev) + 0.5).to(dt)
+            bias = (torch.rand(SPLIT_SHAPE[1], generator=g, device=dev) - 0.5).to(dt)
+            whole = gn.groupnorm1_gelu(x, scale, bias, True, r)
+            twin = gn.groupnorm1_gelu_ref(x, scale, bias, True, r)
+            name = str(dt).removeprefix("torch.")
+            atol, rtol = TOL[name]
+            n_row = SPLIT_SHAPE[1] * SPLIT_SHAPE[2]
+            for slabs in SPLIT_SLABS:
+                xs = [c.contiguous() for c in x.chunk(slabs, dim=-1)]
+                rs = [c.contiguous() for c in r.chunk(slabs, dim=-1)] if res else [None] * slabs
+
+                def split():
+                    total = torch.stack([gn.split_stats(xi) for xi in xs]).sum(0)
+                    return [gn.split_apply(xi, scale, bias, True, ri, total, n_row)
+                            for xi, ri in zip(xs, rs)]
+
+                got = torch.cat(split(), dim=-1)
+                torch.cuda.synchronize()
+                err_whole = (got.float() - whole.float()).abs()
+                err_twin = (got.float() - twin.float()).abs()
+                bad = int((err_whole > atol + rtol * whole.float().abs()).sum()
+                          + (err_twin > atol + rtol * twin.float().abs()).sum())
+
+                def library():
+                    y = F.gelu(F.group_norm(x, 1, scale, bias, 1e-6), approximate="tanh")
+                    return y + r if res else y
+
+                bound_ms, bound_by = gn_bound(SPLIT_SHAPE, dt, True, res)
+                rows.append({
+                    "shape": list(SPLIT_SHAPE), "dtype": name, "gelu": True, "residual": res,
+                    "slabs": slabs, "max_abs_err": float(err_twin.max()),
+                    "max_abs_err_vs_k1": float(err_whole.max()), "atol": atol, "rtol": rtol,
+                    "n_outside_tol": bad, "kernel_ms": cuda_ms(split, 20),
+                    "k1_whole_ms": cuda_ms(lambda: gn.groupnorm1_gelu(x, scale, bias, True, r),
+                                           20),
+                    "plain_ms": cuda_ms(lambda: gn.groupnorm1_gelu_ref(x, scale, bias, True, r),
+                                        20),
+                    "library_ms": cuda_ms(library, 20),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+                del got, err_whole, err_twin
+            del x, r, whole, twin
+    emit({"phase": "kernels", "kernel": "groupnorm1_gelu_split", "cases": rows,
+          "card": card()})
+    failed = [r for r in rows if r["n_outside_tol"]]
+    if failed:
+        raise AssertionError(f"K1 split disagrees with K1 whole or its twin: {failed}")
+    return {"row": next(r for r in rows if r["dtype"] == "bfloat16" and r["residual"]
+                        and r["slabs"] == 4), "cases": rows}
+
+
+def _group_of_one():
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+
+
+def _seqpar_op_ms(world) -> dict:
+    """ms a call (CUDA events over 50 calls, so the host's share shows) of
+    the sequence-parallel route's ops beside their unsharded twins at the
+    MIRAGE outer UNet's level 0, (1, 512, 32768) bf16, on `world`: the
+    split GroupNorm with its all_reduce against K1 whole, the halo conv5
+    against the SAME conv, the partials' all_reduce alone."""
+    import torch
+    from audio_algebra_torch.models.blocks import conv1d
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.parallel.seq import conv1d_seq, groupnorm1_seq
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((1, 512, 32768), generator=g, device="cuda").bfloat16()
+    r = torch.randn((1, 512, 32768), generator=g, device="cuda").bfloat16()
+    scale = torch.ones(512, device="cuda").bfloat16()
+    bias = torch.zeros(512, device="cuda").bfloat16()
+    w = (torch.randn((512, 512, 5), generator=g, device="cuda") * 0.02).bfloat16()
+    partials = gn.split_stats(x)
+    with torch.inference_mode():
+        out = {"gn_split": cuda_ms(lambda: groupnorm1_seq(x, scale, bias, world, True, r), 50),
+               "gn_whole": cuda_ms(lambda: gn.groupnorm1_gelu(x, scale, bias, True, r), 50),
+               "conv5_halo": cuda_ms(lambda: conv1d_seq(x, w, None, world), 50),
+               "conv5_same": cuda_ms(lambda: conv1d(x, w, None), 50),
+               "all_reduce_partials": cuda_ms(lambda: world.all_reduce_sum_([partials]), 50)}
+    del x, r, w
+    return out
+
+
+def phase_seqpar(model=None, destructo=None, mirage_ref=None) -> dict:
+    """The sequence-parallel decodes over an nccl group of one (one card,
+    one rank: NCCL takes one rank a card), through the entry points a user
+    calls, against the unsharded routes on the same inputs: the destructo
+    phase's DVAEWrapper() (bf16, B = 4 x 65536) decode_seqpar of its
+    latents from its stored noise, 35 steps, against its decode (rel-RMS <
+    SEQPAR_REL_RMS); the mirage phase's CLAPDAE() (22 s, bf16, batch 1, 150
+    + 100 steps) generate_seqpar from the noises of its steady run, against
+    that run. The seconds of each route, the split-K1 and K1-whole launches
+    a forward (they sum to the unsharded forward's K1), and
+    pick_sharded_levels' choice. Without the earlier phases' state (--only),
+    it runs them first."""
+    import torch
+    import torch.distributed as dist
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.parallel.infer import attn_start_of, pick_sharded_levels
+    from audio_algebra_torch.parallel.mesh import make_mesh
+
+    if destructo is None:
+        destructo = phase_destructo()
+    if model is None or mirage_ref is None:
+        model, _, mirage_ref = phase_mirage()
+    _group_of_one()
+    try:
+        world = make_mesh(axis_names=("seq",), shape=(1,), device="cuda")
+        w = destructo["wrapper"]
+        unet = w.model.diffusion
+        levels = {"destructo": pick_sharded_levels(CHUNK, world.size, unet.depth,
+                                                   attn_start_of(unet))}
+        gn.launches = gn.split_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = w.decode_seqpar(destructo["z"], world, demo_steps=STEPS)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dvae_counts = {"k1_split": gn.split_launches, "k1_whole": gn.launches}
+        dvae_rel = rel_rms(out, destructo["out"])
+
+        outer = model.latent_diffae.diffusion
+        levels["mirage_outer"] = pick_sharded_levels(
+            MIRAGE_SAMPLES // model.latent_diffae.autoencoder.downsampling_ratio, world.size,
+            outer.depth, attn_start_of(outer))
+        gn.launches = gn.split_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fakes, lat = model.generate_seqpar(mirage_ref["emb"], world, cfg_scales=4,
+                                           demo_steps=INNER_STEPS, outer_steps=OUTER_STEPS,
+                                           batch_size=1, stage_times=True,
+                                           **mirage_ref["noises"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        stages = dict(model.last_stage_times)
+        mirage_counts = {"k1_split": gn.split_launches, "k1_whole": gn.launches}
+        mirage_rel = rel_rms(fakes, mirage_ref["fakes"])
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(fakes).all())
+        ops_ms = _seqpar_op_ms(world)
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "seqpar", "backend": "nccl", "world": [world.size, world.rank],
+           "axis": world.axis, "sharded_levels": levels,
+           "destructo": {"batch": [4, 2, CHUNK], "dtype": "bfloat16", "steps": STEPS,
+                         "seqpar_decode_s": dec_s, "decode_s": destructo["decode_s"],
+                         "rel_rms_vs_decode": dvae_rel,
+                         "bound": SEQPAR_REL_RMS["destructo"],
+                         "launches": dvae_counts,
+                         "per_forward": {k: v / STEPS for k, v in dvae_counts.items()}},
+           "mirage": {"samples": MIRAGE_SAMPLES, "dtype": "bfloat16", "batch": 1,
+                      "steps": [INNER_STEPS, OUTER_STEPS],
+                      "generate_seqpar_s": gen_s, "generate_s": mirage_ref["generate_s"],
+                      "stages_s": stages, "rel_rms_vs_generate": mirage_rel,
+                      "bound": SEQPAR_REL_RMS["mirage"], "launches": mirage_counts,
+                      "per_outer_forward": {k: v / OUTER_STEPS
+                                            for k, v in mirage_counts.items()}},
+           "op_ms_outer_level0": ops_ms, "finite": finite, "card": card()}
+    emit(row)
+    faults = []
+    if not dvae_rel < SEQPAR_REL_RMS["destructo"] or not mirage_rel < SEQPAR_REL_RMS["mirage"]:
+        faults.append(f"rel-RMS destructo {dvae_rel}, mirage {mirage_rel}")
+    if sum(dvae_counts.values()) != STEPS * GN_CALLS_PER_FORWARD or not dvae_counts["k1_split"]:
+        faults.append(f"destructo launches {dvae_counts}")
+    if sum(mirage_counts.values()) != OUTER_STEPS * K1_PER_OUTER \
+            or not mirage_counts["k1_split"]:
+        faults.append(f"mirage launches {mirage_counts}")
+    if not finite or tuple(out.shape) != (2, 4 * CHUNK) \
+            or tuple(fakes.shape) != (2, MIRAGE_SAMPLES):
+        faults.append("outputs")
+    if faults:
+        raise AssertionError(f"seqpar: {faults}")
+    return {"k1_split": dvae_counts["k1_split"] + mirage_counts["k1_split"],
+            "k1_whole": dvae_counts["k1_whole"] + mirage_counts["k1_whole"],
+            "by_path": {"destructo": dvae_counts["k1_split"],
+                        "mirage": mirage_counts["k1_split"]}}
+
+
+def phase_fsdp() -> dict:
+    """FSDP over an nccl group of one: the songs UNetCFG1d trainer step
+    (train_clapdae.make_train_step with its Adam, f32, TF32 off) on
+    (TRAIN_BATCH, 32, 2048) latents (batch 8 x 1,048,576 samples) with
+    seeded embeddings, t, noise and keep mask, FSDP_STEPS steps from the
+    same seeded weights three times: replicated, sharded by
+    parallel.fsdp.shard_state, and replicated again. The trainer's backward
+    does not repeat its bits run to run (two replicated runs' Adam moments
+    differed by 7e-6-8e-6 of their largest entries on the card), so the
+    replicated pair's difference is the floor: every part of the sharded
+    state (parameters, EMA, Adam's m and v) lies within FSDP_SPREAD times
+    the pair's difference of it, and at least DDP_REL, of the replicated
+    state (max abs difference over the largest entry). State bytes a rank
+    (state_bytes_per_device against the shards held), the last step's ms
+    and the peak memory of each arm."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from audio_algebra_torch.models.stacked import StackedAELatentDiffusionCond
+    from audio_algebra_torch.parallel.fsdp import shard_state, state_bytes_per_device
+    from audio_algebra_torch.parallel.mesh import make_mesh
+    from audio_algebra_torch.train_clapdae import make_state, make_train_step, train_state_leaves
+    from audio_algebra_torch.utils.params import random_init_
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+    shape = (TRAIN_BATCH, 32, MIRAGE_SAMPLES // 512)
+    emb = torch.randn((TRAIN_BATCH, 1, 512), generator=g, device=dev)
+    batches = [(torch.tanh(torch.randn(shape, generator=g, device=dev)),
+                emb / emb.norm(dim=-1, keepdim=True),
+                torch.rand(TRAIN_BATCH, generator=g, device=dev),
+                torch.randn(shape, generator=g, device=dev),
+                torch.rand((TRAIN_BATCH, 1, 1), generator=g, device=dev) >= 0.1)
+               for _ in range(FSDP_STEPS)]
+    weights = random_init_(StackedAELatentDiffusionCond(), 5).state_dict()
+    parts = ("params", "ema", "m", "v")
+
+    _group_of_one()
+    arms = {}
+    try:
+        world = make_mesh(device="cuda")
+        for arm in ("replicated", "sharded", "replicated_again"):
+            gc.collect()                   # the last arm's cycles hold device tensors
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start_mem = torch.cuda.memory_allocated()
+            model = StackedAELatentDiffusionCond()
+            model.load_state_dict(weights)
+            state = make_state(model.to(dev).requires_grad_(True))
+            if arm == "sharded":
+                shard_state(state, world)
+            step = make_train_step(state, world)
+            times, losses = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(*batch)))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            leaves = train_state_leaves(state)
+            held = sum((t.to_local() if hasattr(t, "to_local") else t).numel()
+                       * t.element_size() for t in leaves.values())
+            tree = state.tree()
+            opt_state = tree["opt_state"]["state"]
+            arms[arm] = {
+                "params": {k: v.cpu() for k, v in tree["params"].items()},
+                "ema": {k: v.cpu() for k, v in tree["ema_params"].items()},
+                "m": {i: e["exp_avg"].cpu() for i, e in opt_state.items()},
+                "v": {i: e["exp_avg_sq"].cpu() for i, e in opt_state.items()},
+                "step_ms": times[-1] * 1e3, "first_step_ms": times[0] * 1e3,
+                "losses": losses,
+                "state_bytes_per_device": state_bytes_per_device(leaves, world),
+                "state_bytes_held": held, "mem_at_start_gb": start_mem / 1e9,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_mem_above_start_gb": (torch.cuda.max_memory_allocated() - start_mem) / 1e9}
+            del model, state, step, leaves, tree, opt_state
+    finally:
+        dist.destroy_process_group()
+
+    def rel(arm, part):
+        a, b = arms[arm][part], arms["replicated"][part]
+        return max(float((a[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                   for k, v in b.items())
+
+    diffs = {part: rel("sharded", part) for part in parts}
+    floor = {part: rel("replicated_again", part) for part in parts}
+    bounds = {part: max(DDP_REL, FSDP_SPREAD * floor[part]) for part in parts}
+    row = {"phase": "fsdp", "backend": "nccl", "world": [world.size, world.rank],
+           "batch": list(shape), "dtype": "float32", "allow_tf32": False, "steps": FSDP_STEPS,
+           "n_params": sum(v.numel() for v in arms["replicated"]["params"].values()),
+           "rel_diff_sharded_vs_replicated": diffs,
+           "rel_diff_replicated_run_to_run": floor, "bounds": bounds,
+           "arms": {arm: {k: a[k] for k in (
+               "step_ms", "first_step_ms", "losses", "state_bytes_per_device",
+               "state_bytes_held", "mem_at_start_gb", "peak_mem_gb",
+               "peak_mem_above_start_gb")} for arm, a in arms.items()},
+           "card": card()}
+    emit(row)
+    faults = [f"{part}: {diffs[part]} > {bounds[part]}" for part in parts
+              if not diffs[part] <= bounds[part]]
+    for arm, a in arms.items():
+        if a["state_bytes_per_device"] != a["state_bytes_held"]:
+            faults.append(f"{arm}: state_bytes_per_device is not the bytes held")
+        if not all(math.isfinite(x) for x in a["losses"]):
+            faults.append(f"{arm}: losses")
+    if faults:
+        raise AssertionError(f"fsdp: {faults}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3212,6 +3566,9 @@ def main() -> int:
         for name in only:
             if name in ("clap", "serve", "mirage_cli"):
                 raise SystemExit(f"--only: phase {name} needs the served model")
+            if name == "seqpar":          # runs the destructo and mirage phases first
+                phase_seqpar()
+                continue
             if name == "io":
                 phase_io(tmp)
             elif name == "xae":
@@ -3233,22 +3590,25 @@ def main() -> int:
 
     run(phase_build)
     k1 = run(phase_kernels)
+    k1_split = run(phase_kernels_split)
     k3 = run(phase_kernels_k3)
     k5 = run(phase_kernels_k5)
     run(phase_model)
-    destructo_k1 = run(phase_destructo)
+    destructo = run(phase_destructo)
     k2 = run(phase_kernels_k2)
     turbo = run(phase_destructo_turbo)
     run(phase_mirage_model)
-    model, counts = run(phase_mirage)
+    model, counts, mirage_ref = run(phase_mirage)
     k6 = run(phase_kernels_k6)
     spectrogram_k6 = run(phase_spectrogram)
     clap_k6 = run(phase_clap, model)
     io_files = run(phase_io, tmp)
     serve_k6 = run(phase_serve, model, io_files)
     cli = run(phase_mirage_cli, model, io_files["flac"], tmp)
+    seqpar = run(phase_seqpar, model, destructo, mirage_ref)
     clap_module = model.clap_module
-    del model
+    destructo_k1 = destructo["k1"]
+    del model, destructo, mirage_ref
     torch.cuda.empty_cache()
     k4 = run(phase_kernels_k4)
     run(phase_train_model)
@@ -3263,6 +3623,7 @@ def main() -> int:
     xae = run(phase_xae, tmp, io_files["ogg"])
     apps = run(phase_apps)
     run(phase_ddp)
+    run(phase_fsdp)
     tmp_dir.cleanup()
 
     def entry(name, source, replaces, launches, row, **extra):
@@ -3294,10 +3655,22 @@ def main() -> int:
     emit({"kernels": [
         entry("groupnorm1_gelu", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:721", counts["k1"], k1,
-              launches_by_path={"destructo": destructo_k1, "destructo_turbo": turbo["k1"],
+              launches_by_path={"destructo": destructo_k1,
+                                "destructo_turbo": turbo["k1"],
                                 "mirage": counts["k1"], "train_aa": train_aa,
                                 "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"],
-                                "apps": apps["k1"]}),
+                                "apps": apps["k1"], "seqpar": seqpar["k1_whole"]}),
+        entry("groupnorm1_gelu_split", "groupnorm.cu",
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:953", seqpar["k1_split"],
+              k1_split["row"],
+              replaces_also="audio_algebra_tpu/ops/pallas/groupnorm.py:1003, :1061 (K1's "
+                            "apply); the psum of audio_algebra_tpu/parallel/infer.py:_gn1 and "
+                            "parallel/seq.py:groupnorm1_seq between them",
+              launches_by_path=seqpar["by_path"], k1_whole_ms=k1_split["row"]["k1_whole_ms"],
+              cases=[{k: r[k] for k in ("dtype", "residual", "slabs", "max_abs_err",
+                                        "max_abs_err_vs_k1", "kernel_ms", "k1_whole_ms",
+                                        "plain_ms", "library_ms", "bound_ms")}
+                     for r in k1_split["cases"]]),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
@@ -3354,7 +3727,9 @@ def main() -> int:
                   rec["freeverb_ir"])]})
     emit({"phase_seconds": seconds,
           "io_fx_cli_phases_s": sum(seconds[k] for k in IO_FX_CLI_PHASES),
-          "apps_ddp_phases_s": seconds["apps"] + seconds["ddp"]})
+          "apps_ddp_phases_s": seconds["apps"] + seconds["ddp"],
+          "split_seqpar_fsdp_phases_s": seconds["kernels_split"] + seconds["seqpar"]
+          + seconds["fsdp"]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

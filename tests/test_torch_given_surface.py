@@ -29,10 +29,10 @@ CLAPDAE_KWARGS = dict(sample_size=4096, first_stage_config=FIRST_STAGE,
                                         factors2=(2,), num_blocks=(1,), attentions=(0, 1),
                                         attention_heads=2, attention_features=16))
 # JAX-only names, each for a reason the port states: `next_key` splits
-# JAX's PRNG key (the port draws from the torch.Generator `generator`);
-# `decode_seqpar` / `generate_seqpar` are the multi-chip sequence-parallel
-# decodes, not ported.
-JAX_ONLY = {"next_key", "decode_seqpar", "generate_seqpar"}
+# JAX's PRNG key (the port draws from the torch.Generator `generator`).
+# The sequence-parallel decodes (`decode_seqpar`, `generate_seqpar`) are
+# ported and held by tests/test_torch_seqpar.py.
+JAX_ONLY = {"next_key"}
 TINY_DMAE = dict(channels=(8, 16), factors=(1, 2), items=(1, 1), linear_attentions=(0, 1),
                  attention_features=4, attention_heads=2, inject_depth=1, latent_dim=4,
                  resnet_groups=4, num_filters=8, window_length=32, lt_stride=16,

@@ -127,11 +127,22 @@ def test_process_audio_end_to_end(fresh_cache, tmp_path):
         mirage.process_audio(output_dir=str(tmp_path / "e"), **common)
 
 
-def test_xla_only_switches_are_refused(fresh_cache):
+def test_xla_only_switches_are_refused(fresh_cache, monkeypatch):
+    """--turbo is refused (ROADMAP A8); --mesh seq=4 is ported and, outside
+    a group of 4, says how to launch; --mesh with --init-audio is refused
+    as JAX refuses it."""
+    for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
         mirage.main(["--text", "a", "--turbo", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4 -m "
+                                         "audio_algebra_torch.mirage"):
         mirage.main(["--text", "a", "--mesh", "seq=4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="does not support --init-audio"):
+        mirage.process_audio(text_prompts=["a"], init_audio_tup=(48000, np.zeros(16)),
+                             mesh_spec="seq=1", device="cpu")
+    with pytest.raises(ValueError, match="'seq' axis"):
+        mirage.process_audio(text_prompts=["a"], mesh_spec="data=1", device="cpu")
 
 
 def test_gui_without_gradio_says_so(monkeypatch, capsys):

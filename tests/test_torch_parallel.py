@@ -509,13 +509,24 @@ def test_sharded_loader_rows_make_up_the_batch():
         DataLoader(data, batch_size=4, shard=(0, 3))
 
 
-def test_mesh_axes_beyond_data_are_not_ported():
+def test_mesh_axes_beyond_data_are_not_ported(monkeypatch):
+    """The `seq` axis is ported: seq=1 parses to one process, seq=2 outside
+    a group of 2 raises with the torchrun line; the `model` axis (no entry
+    point of the JAX package uses it) still raises."""
     from audio_algebra_torch.parallel.mesh import make_mesh, mesh_from_spec
 
+    for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     assert mesh_from_spec("data=1", device="cpu").size == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+    world = mesh_from_spec("seq=1", device="cpu")
+    assert (world.size, world.rank, world.axis) == (1, 0, "seq")
+    assert mesh_from_spec("data=1,seq=1", device="cpu").axis == "seq"
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m "
+                                         "audio_algebra_torch.mirage"):
+        mesh_from_spec("seq=2", device="cpu", module="mirage")
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         mesh_from_spec("data=1,seq=4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+    with pytest.raises(NotImplementedError, match="'model' mesh axis"):
         make_mesh(axis_names=("data", "model"), shape=(1, 1), device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         mesh_from_spec("data=2", device="cpu")
@@ -558,7 +569,8 @@ def test_num_gpus_outside_a_group_says_how_to_launch(trainer, tmp_path, monkeypa
     with pytest.raises(RuntimeError, match=f"torchrun --nproc_per_node 2 -m "
                                            f"audio_algebra_torch.{trainer}"):
         main(["--device", "cpu", "--training_dir", str(tmp_path), "--num_gpus", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+    # a sharded state is train_clapdae's alone (as in JAX); these refuse the flag
+    with pytest.raises(ValueError, match="only train_clapdae shards its state"):
         main(["--device", "cpu", "--training_dir", str(tmp_path), "--fsdp", "1"])
     assert "--fsdp 1" in capsys.readouterr().out
 

@@ -284,10 +284,15 @@ def test_build_state_freezes_the_encoders(tmp_path):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """--fsdp 1 is ported (parallel/fsdp.py); over more processes than this
+    one it is refused outside a launched group, with the torchrun line."""
+    for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
-        ttrain.main(_argv(tmp_path, "--fsdp", "1"))
-    assert "--fsdp 1" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m "
+                                           "audio_algebra_torch.train_clapdae"):
+        ttrain.main(_argv(tmp_path, "--fsdp", "1", "--num_gpus", "2"))
+    assert "--num_gpus 2" in capsys.readouterr().out
 
 
 def test_step_generator_depends_on_seed_and_step():
