@@ -19,30 +19,35 @@ __all__ = ["lerp", "slerp", "interp_embeddings", "weighted_algebra", "get_model_
            "model_cache_key"]
 
 _model_cache: dict = {}
+# why a turbo model takes no mesh: CLAPDAE.generate_seqpar's refusal, and
+# the parse-time one of the MIRAGE CLI and the service
+TURBO_SEQPAR_REFUSAL = "the sequence-parallel outer stage runs the float route only, as JAX's"
 
 
-def model_cache_key(model_choice: str = "22s", half: bool = True, device="cuda",
-                    **model_kwargs) -> tuple:
+def model_cache_key(model_choice: str = "22s", half: bool = True, device="cuda", *,
+                    turbo: bool = False, **model_kwargs) -> tuple:
     """The key of get_model_ready's cache: the model length, the bf16 switch,
-    the resolved device and the model's configuration."""
+    the resolved device, the turbo switch and the model's configuration."""
     from .device import resolve_device
-    return (model_choice, half, str(resolve_device(device)),
+    return (model_choice, half, str(resolve_device(device)), turbo,
             json.dumps(model_kwargs, sort_keys=True))
 
 
 def get_model_ready(model_choice: str = "22s", device="cuda", verbose: bool = True,
-                    half: bool = True, **model_kwargs):
+                    half: bool = True, turbo: bool = False, **model_kwargs):
     """The warm CLAPDAE of a model length, keyed by model_cache_key: built
     on `device` with `model_kwargs` (seeded random weights unless its setup
     finds checkpoints) at its first request; `half` casts the diffusion
-    stages to bf16, the reference app's default (CLAP stays f32). A request
-    on another device or with another configuration builds its own model."""
-    key = model_cache_key(model_choice, half, device, **model_kwargs)
+    stages to bf16, the reference app's default (CLAP stays f32); `turbo`
+    builds it on the int8 routes of its outer stage. A request on another
+    device, turbo switch or configuration builds its own model."""
+    key = model_cache_key(model_choice, half, device, turbo=turbo, **model_kwargs)
     if key not in _model_cache:
         from .given_models import CLAPDAE
         if verbose:
-            print(f"get_model_ready: instantiating CLAPDAE ({model_choice})")
-        model = CLAPDAE(device=device, **model_kwargs)
+            print(f"get_model_ready: instantiating CLAPDAE ({model_choice}"
+                  f"{', turbo' if turbo else ''})")
+        model = CLAPDAE(device=device, turbo=turbo, **model_kwargs)
         model.setup(gdrive=False, model_len=model_choice)
         if half:
             model.half()

@@ -46,11 +46,13 @@ they are the seeded random weights of utils/params.random_init_;
 
 StackedDiffAEWrapper (the two-stage LatentAudioDiffusionAutoencoder):
 encode to stage-2 latents; decode_stage1to2 samples the stage-1 latents
-by v-DDIM over `diffusion_v` (kernel K1 on the card), decode_stage2 is
-the AE decode. DMAE1d: archinet's DiffusionAE around 48 <-> 44.1 kHz
-resampling; its mel front end is K6 at center=False, its decode a 50-step
-v-DDIM. RAVEWrapper: RAVE v2 on PQMF bands, with an export's latent PCA
-applied when its checkpoint carries one.
+by v-DDIM over `diffusion_v` (kernel K1 on the card), or with `turbo=True`
+over `diffusion_v_aux` with the amax carry (K1, K2a/b/c) at batch >=
+`turbo_min_b`; decode_stage2 is the AE decode. DMAE1d: archinet's
+DiffusionAE around 48 <-> 44.1 kHz resampling; its mel front end is K6 at
+center=False, its decode a 50-step v-DDIM. RAVEWrapper: RAVE v2 on PQMF
+bands, with an export's latent PCA applied when its checkpoint carries
+one.
 
 CLAPDAE. `embed` turns a text prompt or a clip into a (1, 1, 512) CLAP
 embedding (models/clap.py: the HTSAT audio tower on the mel front end,
@@ -58,7 +60,12 @@ the RoBERTa text tower), kept in f32 under `half()`. `generate` runs the
 MIRAGE stack from (B, 1, 512) embeddings: a DPM++(2M) with
 classifier-free guidance over the CLAP-conditioned UNetCFG1d (kernels K3
 and K5), a v-DDIM over the outer DiffusionAttnUnet1D (kernel K1), then
-the AudioAutoencoder decode.
+the AudioAutoencoder decode. `turbo=True` (JAX: AA_TURBO_INT8=1) takes
+JAX's turbo routes of the outer stage, one per micro-batch of
+DECODE_BATCH: at batch >= `turbo_min_b` the amax carry of the stacked
+AE's; below it, int8 inside the fold (parallel/fold.decode_unet_seqfold,
+`quantized=True`: the folded levels' conv5s on a dynamic amax, K1 for
+every GroupNorm).
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ from .convert import (convert_dmae_state_dict, convert_ldm_state_dict,
                       extract_rave_latent_transform, load_torchscript_state_dict, pour)
 from .convert_dvae import convert_dvae_state_dict
 from .device import resolve_device
-from .models.blocks import TURBO_MIN_B
+from .models.blocks import TURBO_MIN_B, turbo_batch_ok
 from .models.clap import CLAPModule
 from .models.dmae import DiffusionAE1d
 from .models.dvae import DiffusionDVAE
@@ -475,21 +482,23 @@ class StackedDiffAEWrapper(_TorchWrapper):
     """The two-stage LatentAudioDiffusionAutoencoder (JAX
     given_models.py:475): `encode` to stage-2 latents, `decode_stage1to2`
     samples the stage-1 latents by v-DDIM, `decode_stage2` decodes them to
-    audio. The JAX package's turbo route of the stage-1 sampler is not
-    ported."""
+    audio. `turbo=True` samples the stage-1 latents on the UNet's int8
+    route with the amax carry (JAX: AA_TURBO_INT8=1), which engages at
+    batch >= `turbo_min_b` (JAX's AA_TURBO_MIN_B)."""
 
     DEFAULT_FIRST_STAGE = {"capacity": 64, "c_mults": [2, 4, 8, 16, 32],
                            "strides": [2, 2, 2, 2, 2], "latent_dim": 32}
 
     def __init__(self, debug: bool = True, first_stage_config: Optional[dict] = None,
                  ckpt_info: Optional[dict] = None, model_kwargs: Optional[dict] = None,
-                 **kwargs):
+                 turbo: bool = False, turbo_min_b: int = TURBO_MIN_B, **kwargs):
         self.first_stage_config = fsc = first_stage_config or self.DEFAULT_FIRST_STAGE
         super().__init__(LatentAudioDiffusionAutoencoder(
             latent_dim=fsc["latent_dim"], ae_capacity=fsc["capacity"],
             ae_c_mults=tuple(fsc["c_mults"]), ae_strides=tuple(fsc["strides"]),
             **(model_kwargs or {})), **kwargs)
         self.debug = debug
+        self.turbo, self.turbo_min_b = turbo, turbo_min_b
         self.latent_dim = self.model.latent_dim
         self.latent_downsampling_ratio = self.model.latent_downsampling_ratio
         self.ckpt_info = ckpt_info or {
@@ -511,6 +520,11 @@ class StackedDiffAEWrapper(_TorchWrapper):
         small = self._as_input(small_reps)
         noise = self._noise((small.shape[0], self.latent_dim,
                              small.shape[2] * self.latent_downsampling_ratio), noise)
+        if self.turbo:
+            def model_fn(x, t, aux, cond):
+                return self.model.diffusion_v_aux(x, t, cond, q_aux=aux,
+                                                  turbo_min_b=self.turbo_min_b)
+            return vddim_sample(model_fn, noise, steps, 0, small, aux_mode=True)
         return vddim_sample(self.model.diffusion_v, noise, steps, 0, small)
 
     @torch.inference_mode()
@@ -684,7 +698,8 @@ class CLAPDAE(GivenModelClass):
     random ones (utils/params.random_init_ with `seed` and `seed + 1`);
     `setup` pours the checkpoints the environment names, and
     `load_flax_params(diffae_tree, ldm_tree)` loads flax trees instead.
-    Noise is drawn from `generator` unless the caller passes it."""
+    Noise is drawn from `generator` unless the caller passes it. `turbo`
+    and `turbo_min_b` choose the outer stage's int8 routes (`_outer`)."""
 
     DEFAULT_FIRST_STAGE = {"capacity": 64, "c_mults": [2, 4, 8, 16, 32],
                            "strides": [2, 2, 2, 2, 2], "latent_dim": 32}
@@ -696,9 +711,11 @@ class CLAPDAE(GivenModelClass):
                  sample_size: int = SAMPLES_22S, model_kwargs: Optional[dict] = None,
                  clap_kwargs: Optional[dict] = None, debug: bool = True,
                  seed: int = 0, device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32, **kwargs):
+                 dtype: torch.dtype = torch.float32, turbo: bool = False,
+                 turbo_min_b: int = TURBO_MIN_B, **kwargs):
         super().__init__(seed=seed, device=device, **kwargs)
         self.debug = debug
+        self.turbo, self.turbo_min_b = turbo, turbo_min_b
         self.latent_diffae_setup = self.clap_setup = False
         self.clap_module = CLAPModule(enable_fusion=clap_fusion, amodel=clap_amodel,
                                       seed=seed + 2, device=self.device,
@@ -873,6 +890,24 @@ class CLAPDAE(GivenModelClass):
         self.last_stage_times[name] = self.last_stage_times.get(name, 0.0) + now - t0
         return now
 
+    def _outer(self, noise, lat, steps: int) -> torch.Tensor:
+        """The outer v-DDIM of one micro-batch (JAX given_models.py:984-1022):
+        under turbo, the amax carry at batch >= turbo_min_b, else int8 in
+        the fold; without turbo the float route (JAX's bf16 fold at batch
+        <= 2 is layout only: parallel/fold.py)."""
+        la = self.latent_diffae
+        if self.turbo and turbo_batch_ok(noise.shape[0], self.turbo_min_b):
+            def carry_fn(x, t, aux, cond):
+                return la.diffusion_v_aux(x, t, cond, q_aux=aux, turbo_min_b=self.turbo_min_b)
+            return vddim_sample(carry_fn, noise, steps, 0, lat, aux_mode=True)
+        if self.turbo:
+            from .parallel.fold import decode_unet_seqfold
+
+            def fold_fn(x, t, cond):
+                return decode_unet_seqfold(la.diffusion, x, t, cond, quantized=True)
+            return vddim_sample(fold_fn, noise, steps, 0, lat)
+        return vddim_sample(la.diffusion_v, noise, steps, 0, lat)
+
     @torch.inference_mode()
     def generate(self, audio_embeddings, cfg_scales=4, demo_steps: int = 150,
                  outer_steps: int = 100, init_audio_latents=None,
@@ -926,8 +961,7 @@ class CLAPDAE(GivenModelClass):
         parts = []
         for i in range(0, b, self.DECODE_BATCH):
             sl = slice(i, min(i + self.DECODE_BATCH, b))
-            first = torch.clamp(vddim_sample(la.diffusion_v, s1[sl], outer_steps, 0,
-                                             fake_latents[sl]), -1, 1)
+            first = torch.clamp(self._outer(s1[sl], fake_latents[sl], outer_steps), -1, 1)
             t0 = self._stage("outer_s", t0, stage_times)
             parts.append(la.decode_first_stage(first))
             t0 = self._stage("decode_s", t0, stage_times)
@@ -953,8 +987,13 @@ class CLAPDAE(GivenModelClass):
         `generate`'s. The noises are taken and drawn in `generate`'s order,
         so the same generator gives the same audio. Returns `generate`'s
         (audio, stage-2 latents) on every rank. No init audio: the img2img
-        resample is single-program, as in JAX."""
+        resample is single-program, as in JAX. The float route only: a
+        turbo model raises ValueError (JAX's seqpar ignores its turbo flag)."""
+        from .embedding_math import TURBO_SEQPAR_REFUSAL
         from .parallel.infer import decode_unet_seqpar
+        if self.turbo:
+            raise ValueError(f"generate_seqpar on a turbo model: {TURBO_SEQPAR_REFUSAL}; "
+                             "build it with turbo=False")
         self.ensure_params()
         emb = self._as_input(audio_embeddings)
         while emb.dim() < 3:

@@ -5,7 +5,7 @@
         [--cfg-scale 4] [--steps 150] [--outer-steps 100]
         [--init-audio x.flac --init-strength 0.4] [--batch-size 1]
         [--seed N] [--model 22s|66s] [--model-config kwargs.json]
-        [--output-dir mirage_out] [--device cuda] [--gui [--share]]
+        [--output-dir mirage_out] [--device cuda] [--turbo] [--gui [--share]]
 
 Port of the root `mirage.py`: embed audio and text prompts with CLAP,
 combine them by slerp or by the renormalised weighted sum, optionally start
@@ -23,8 +23,14 @@ same flags and rank 0 alone writes files,
 
 Outside a group of N it raises and says so; `--init-audio` with `--mesh`
 raises ValueError (the img2img resample is single-program, as in JAX).
-JAX's `--turbo` (the int8 fold route, ROADMAP A8) is not ported and raises
-NotImplementedError; the XLA compile cache has no counterpart here.
+
+`--turbo` builds the model on the int8 routes of its outer stage (JAX's
+flag sets AA_TURBO_INT8=1; `CLAPDAE(turbo=True)`). The outer stage runs
+in micro-batches of CLAPDAE.DECODE_BATCH = 4, below the carry's batch
+gate of 16, so each runs int8 inside the fold, whatever `--batch-size`
+is. It is refused with `--mesh` (the sequence-parallel outer stage is
+float only).
+The XLA compile cache has no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .embedding_math import get_model_ready, interp_embeddings, weighted_algebra
+from .embedding_math import (TURBO_SEQPAR_REFUSAL, get_model_ready, interp_embeddings,
+                             weighted_algebra)
 
 SAMPLE_RATE = 48000
 
@@ -92,12 +99,12 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
                   seed: int = -1, model_choice: str = "22s",
                   output_dir: str = ".", verbose: bool = True,
                   model_kwargs: Optional[dict] = None, save_pca: bool = True,
-                  mesh_spec: Optional[str] = None, device="cuda"):
+                  mesh_spec: Optional[str] = None, device="cuda", turbo: bool = False):
     """Embed -> combine -> generate -> crossfade -> save. Returns (wav path,
     PCA .npy path or None, the (2, N) take). With `mesh_spec` ('seq=N', in
     a group of N processes) the outer stage runs sequence-parallel on the
     rank's card and only rank 0 writes files (the others return None
-    paths)."""
+    paths). `turbo` generates on get_model_ready's turbo model."""
     from .utils.audio_io import crossfade_flatten, save_audio
     from .utils.viz import pca_point_cloud, point_cloud_html
 
@@ -112,7 +119,7 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
             raise ValueError("--mesh seq=N does not support --init-audio: the img2img "
                              "resample path is single-program; drop one flag")
         device = world.device
-    model = get_model_ready(model_choice, device=device, verbose=verbose,
+    model = get_model_ready(model_choice, device=device, verbose=verbose, turbo=turbo,
                             **(model_kwargs or {}))
     if seed >= 0:
         model.generator.manual_seed(seed)
@@ -223,12 +230,14 @@ def run_gui(args) -> None:
               "(python -m audio_algebra_torch.mirage --text '...' --output-dir out/)")
         return
     device = getattr(args, "device", "cuda")
+    turbo = getattr(args, "turbo", False)
 
     def tab1(audio1, audio2, text1, text2, interp, cfg, steps, seed):
         wav, _, _ = process_audio(
             audio_tups=[a for a in (audio1, audio2) if a is not None],
             text_prompts=[t for t in (text1, text2) if t], interp_scale=interp,
-            cfg_scale=cfg, demo_steps=int(steps), seed=int(seed), device=device)
+            cfg_scale=cfg, demo_steps=int(steps), seed=int(seed), device=device,
+            turbo=turbo)
         return wav
 
     def tab2(audio1, audio2, text1, text2, w1, w2, w3, w4, cfg, steps, seed):
@@ -236,7 +245,7 @@ def run_gui(args) -> None:
             audio_tups=[a for a in (audio1, audio2) if a is not None],
             text_prompts=[t for t in (text1, text2) if t], weights=[w1, w2, w3, w4],
             use_algebra=True, cfg_scale=cfg, demo_steps=int(steps), seed=int(seed),
-            device=device)
+            device=device, turbo=turbo)
         return wav
 
     with gr.Blocks(title="MIRAGE") as demo:
@@ -299,15 +308,15 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--html-info-file", type=str, default="mirage.html",
                    help="where --share writes the redirect page")
     p.add_argument("--turbo", action="store_true",
-                   help="the int8 turbo route of the JAX package: not ported (ROADMAP A8)")
+                   help="int8 outer stage (JAX's AA_TURBO_INT8=1): each micro-batch of "
+                        "4 runs its outer levels' convs int8 (the int8-in-fold route)")
     p.add_argument("--mesh", type=str, default=None, metavar="seq=N",
                    help="run the outer stage sequence-parallel over N processes, one a "
                         "card: torchrun --nproc_per_node N -m audio_algebra_torch.mirage "
                         "--mesh seq=N ...")
     args = p.parse_args(argv)
-    if args.turbo:
-        raise NotImplementedError("--turbo (MIRAGE's int8 fold route) is not ported: "
-                                  "ROADMAP item A8")
+    if args.turbo and args.mesh:
+        p.error(f"--turbo with --mesh: {TURBO_SEQPAR_REFUSAL}; drop one flag")
     if args.gui:
         run_gui(args)
         return {}
@@ -331,7 +340,7 @@ def main(argv: Optional[list] = None) -> dict:
         demo_steps=args.steps, outer_steps=args.outer_steps, init_audio_tup=init_tup,
         init_strength=args.init_strength, batch_size=args.batch_size, seed=args.seed,
         model_choice=args.model, output_dir=args.output_dir, model_kwargs=model_kwargs,
-        mesh_spec=args.mesh, device=device)
+        mesh_spec=args.mesh, device=device, turbo=args.turbo)
     result = {"wav": wav, "pca": pca}
     if wav is not None:
         print(json.dumps(result))

@@ -17,7 +17,10 @@ The turbo int8 route of the Destructo UNet (JAX `blocks.py:101-169`,
 int8-twin emit (K2b, K2c), and ResConvBlock's `turbo` route. It adds no
 parameter. The JAX package turns it on with the env var AA_TURBO_INT8 and
 gates it on batch with AA_TURBO_MIN_B; the port takes both as arguments
-(`turbo`, `turbo_min_b`) and reads no env var.
+(`turbo`, `turbo_min_b`) and reads no env var. ResConvBlock's
+`dynamic_int8` mode is the int8-in-fold route of MIRAGE's outer stage
+below the batch gate (JAX `parallel/fold.py` `_resconv(q=True)`): both
+conv5s on an exact per-channel amax of their input, with no shape gate.
 
 Parameters start at zero (norm scales at one); fill them with
 utils/params.random_init_ or load_flax_params.
@@ -130,6 +133,12 @@ def conv1d_int8(x8: torch.Tensor, x_scale: torch.Tensor, weight: torch.Tensor,
     if bias is None:
         return torch.mul(acc, s_w[:, None], out=out)
     return torch.addcmul(bias.float()[:, None], acc, s_w[:, None], out=out)
+
+
+def quantize_dynamic(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX fold `_conv5(q=True)`'s activation side: x (B, C, T) quantised on
+    its exact per-channel amax of |x| over (B, T)."""
+    return quantize_act(x, x.abs().amax(dim=(0, 2)))
 
 
 class Conv1d(nn.Module):
@@ -348,8 +357,14 @@ class ResConvBlock(nn.Module):
         return sum(ys[1:], ys[0])
 
     def forward(self, x, x_amax=None, emit_amax: bool = False, x_q: Int8Act | None = None,
-                q_emit_scale=None, turbo: bool = False):
+                q_emit_scale=None, turbo: bool = False, dynamic_int8: bool = False):
         """The block; with none of the extras, exactly the bf16/f32 route.
+
+        `dynamic_int8` (JAX fold `_resconv(q=True)`): conv1 and conv2 each
+        run int8 on their input quantised with its exact per-channel amax
+        (`quantize_dynamic`), whatever the channel count or length; the
+        GroupNorms stay on K1. x is one tensor (that route joins the skip
+        by concatenation), and the mode takes none of the turbo extras.
 
         Turbo (JAX `ResConvBlock`; `turbo` says the batch passed the
         gate): where x's dtype and shape allow it (`gn_supported`), GN_0
@@ -360,6 +375,8 @@ class ResConvBlock(nn.Module):
         `x_amax` a matching tuple. `emit_amax` returns (out, amax) (amax
         None for the is_last head); with `q_emit_scale`, (out, amax,
         Int8Act) (K2b, K2c)."""
+        if dynamic_int8:
+            return self._forward_dynamic_int8(x)
         pair = isinstance(x, tuple)
         parts = x if pair else (x,)
         p0 = parts[0]
@@ -387,6 +404,12 @@ class ResConvBlock(nn.Module):
             return self.GroupNorm_1(h, residual=skip, emit_amax=True,
                                     q_emit_scale=q_emit_scale)
         return self.GroupNorm_1(h, residual=skip, emit_amax=emit_amax)
+
+    def _forward_dynamic_int8(self, x: torch.Tensor) -> torch.Tensor:
+        skip = self._skip((x,))
+        h = self.Conv1d_0.forward_int8(*quantize_dynamic(x), x.dtype)
+        h = self.Conv1d_1.forward_int8(*quantize_dynamic(self.GroupNorm_0(h)), x.dtype)
+        return skip + h if self.is_last else self.GroupNorm_1(h, residual=skip)
 
 
 class SelfAttention1d(nn.Module):

@@ -6,8 +6,9 @@ Port of audio_algebra_tpu/models/stacked.py:
   AudioAutoencoder's latents: Encoder1d (32 -> 32, /16) and a
   DiffusionAttnUnet1D (io 32, cond 32, depth 10, c_mults [512] * 10, no
   attention). encode = AE.encode -> latent_encoder -> tanh; the decode
-  path is the v-diffusion (`diffusion_v`, the sampler's model) and
-  `decode_first_stage` (the AE decoder). The module carries every
+  path is the v-diffusion (`diffusion_v`, the sampler's model; its
+  turbo amax carry `diffusion_v_aux`) and `decode_first_stage` (the AE
+  decoder). The module carries every
   submodule of the flax tree (the AE encoder and Encoder1d too), so the
   seeded random weights and the flax bridge see the same leaves.
 * StackedAELatentDiffusionCond: UNetCFG1d over the 32-d stage-2 latents
@@ -25,6 +26,7 @@ from torch import nn
 
 from ..samplers.vddim import get_alphas_sigmas
 from .audio_ae import AudioAutoencoder
+from .blocks import TURBO_MIN_B
 from .encoder1d import Encoder1d
 from .unet1d import DiffusionAttnUnet1D
 from .unet_cfg1d import UNetCFG1d
@@ -69,6 +71,14 @@ class LatentAudioDiffusionAutoencoder(nn.Module):
     def diffusion_v(self, x, t, cond):
         """Stage-1-latent v prediction (the outer sampler's model)."""
         return self.diffusion(x, t, cond)
+
+    def diffusion_v_aux(self, x, t, cond, q_aux=None, turbo_min_b: int = TURBO_MIN_B):
+        """diffusion_v on the turbo route with the amax carry (JAX's under
+        AA_TURBO_INT8): returns (v, q_aux_out), and the v-DDIM sampler's
+        aux mode threads q_aux from step to step. Below turbo_min_b the
+        UNet runs its float route."""
+        return self.diffusion(x, t, cond, q_aux=q_aux, collect_q_aux=True, turbo=True,
+                              turbo_min_b=turbo_min_b)
 
     def decode_first_stage(self, first_stage_latents: torch.Tensor) -> torch.Tensor:
         """AE decode of (clamped) stage-1 latents -> audio."""

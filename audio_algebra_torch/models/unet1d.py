@@ -16,6 +16,11 @@ next conv1 quantises on it. The amax carry: with `q_aux`, the previous
 sampler step's bounds of each stack's first two blocks, those blocks' GN_1
 also emit the int8 twin of their output on that grid (K2c), and the next
 conv1 reads it directly. `collect_q_aux=True` returns this step's bounds.
+
+The int8-in-fold route (`forward(..., int8_levels=k)`, JAX
+parallel/fold.py `quantized=True`): the first k down levels and the last
+k up levels run ResConvBlock's `dynamic_int8` mode, the deeper levels the
+float route; parallel/fold.decode_unet_seqfold picks k.
 """
 from __future__ import annotations
 
@@ -59,7 +64,12 @@ class _Stack3(nn.Module):
             if not is_last:
                 self.m5 = SelfAttention1d(c_out, max(1, c_out // 32))
 
-    def forward(self, x, x_amax=None, q_in=None, turbo: bool = False):
+    def forward(self, x, x_amax=None, q_in=None, turbo: bool = False,
+                dynamic_int8: bool = False):
+        if dynamic_int8:         # an int8-in-fold level: never one with attention
+            for block in (self.m0, self.m2, self.m4):
+                x = block(x, dynamic_int8=True)
+            return x, None, None
         emit = turbo and not self.attn
         carry = emit and q_in is not None
         a1 = a2 = xq = None
@@ -101,7 +111,8 @@ class DiffusionAttnUnet1D(nn.Module):
         c_mults = list(c_mults)[:self.depth]
         self.cond_dim = cond_dim
         n_io = io_channels * pqmf_bands
-        attn_start = self.depth - n_attn_layers
+        # the first level with self-attention (depth without any)
+        self.attn_start = attn_start = max(0, self.depth - n_attn_layers)
         self.timestep_embed = FourierFeatures(timestep_features)
         self.down = Downsample1d()
         self.up = Upsample1d()
@@ -124,13 +135,19 @@ class DiffusionAttnUnet1D(nn.Module):
             idx += 1
 
     def forward(self, x, t, cond=None, q_aux=None, collect_q_aux: bool = False,
-                turbo: bool = False, turbo_min_b: int = TURBO_MIN_B):
+                turbo: bool = False, turbo_min_b: int = TURBO_MIN_B, int8_levels: int = 0):
         """x (B, io, T), t (B,), cond (B, cond_dim, n) -> v (B, io, T).
 
         `turbo` runs the int8 route when B >= turbo_min_b (JAX: the env
         vars AA_TURBO_INT8 and AA_TURBO_MIN_B). `q_aux` is the tuple this
         UNet returned on the previous sampler step with `collect_q_aux`,
-        which makes the return (v, q_aux_out)."""
+        which makes the return (v, q_aux_out). `int8_levels` runs the
+        outermost levels in the dynamic-int8 mode (the int8-in-fold route;
+        exclusive with turbo, and above the attention levels)."""
+        top = min(self.attn_start, self.depth - 1)
+        if int8_levels and (turbo or not 0 < int8_levels <= top):
+            raise ValueError(f"int8_levels={int8_levels} needs turbo off and at most "
+                             f"min(attn_start, depth - 1) = {top}")
         t_len = x.shape[-1]
         turbo = turbo and turbo_batch_ok(x.shape[0], turbo_min_b)
         parts = [x, timestep_broadcast(self.timestep_embed(t), t_len)]
@@ -144,8 +161,10 @@ class DiffusionAttnUnet1D(nn.Module):
         a = None
 
         def stack(h, a):
+            level = min(idx, 2 * self.depth - 1 - idx)
             out = getattr(self, f"stack_{idx:03d}")(
-                h, x_amax=a, q_in=None if q_aux is None else q_aux[idx], turbo=turbo)
+                h, x_amax=a, q_in=None if q_aux is None else q_aux[idx], turbo=turbo,
+                dynamic_int8=level < int8_levels)
             q_out.append(out[2])
             return out[0], out[1]
 

@@ -48,14 +48,6 @@ def pick_sharded_levels(t_len: int, n_shards: int, depth: int, attn_start: int,
     return j
 
 
-def attn_start_of(unet) -> int:
-    """The first level with self-attention (depth without any)."""
-    for j in range(unet.depth):
-        if getattr(unet, f"stack_{j:03d}").attn:
-            return j
-    return unet.depth
-
-
 def _down2_seq(h: torch.Tensor, taps, world) -> torch.Tensor:
     """Downsample1d on a slab: [1,3,3,1]/8, stride 2. One halo sample a
     side, VALID: local output i reads x[2 g0 + 2i - 1 .. 2 g0 + 2i + 2], as
@@ -92,7 +84,7 @@ def decode_unet_seqpar(unet, x: torch.Tensor, t: torch.Tensor,
     levels run on slabs. The result is the unsharded forward's up to the
     order of the sums (f32 statistics, the same ops in the same order)."""
     depth = unet.depth
-    attn_start = attn_start_of(unet)
+    attn_start = unet.attn_start
     t_local = x.shape[-1]
     t_len = t_local * world.size
     n_sharded = (pick_sharded_levels(t_len, world.size, depth, attn_start)

@@ -2,7 +2,7 @@
 
     python -m audio_algebra_torch.serve [--host 127.0.0.1] [--port 8950]
         [--model 22s|66s] [--no-half] [--batch-window 0.05] [--max-batch 8]
-        [--warmup] [--strict-text] [--mesh seq=N] [--device cuda]
+        [--warmup] [--strict-text] [--turbo] [--mesh seq=N] [--device cuda]
 
 Port of audio_algebra_tpu/serve.py: a stdlib ThreadingHTTPServer wrapping
 one warm CLAPDAE on the card (embedding_math.get_model_ready's), with
@@ -10,8 +10,12 @@ requests serialised onto it by a lock. Concurrent single-variation
 requests whose (steps, outer_steps, cfg_scale) agree are coalesced into one
 generate call by a micro-batcher (`--batch-window` seconds; 0 turns it
 off). With MIRAGE_USERNAME and MIRAGE_PASSWORD set, every route but
-/health asks for basic auth (401 without it). JAX's `--turbo` (the int8
-fold route, ROADMAP A8) is not ported and raises NotImplementedError.
+/health asks for basic auth (401 without it). `--turbo` serves the
+turbo CLAPDAE (`MirageService(turbo=True)`; JAX's flag sets
+AA_TURBO_INT8=1): every generate's outer stage runs int8 inside the fold,
+in micro-batches of CLAPDAE.DECODE_BATCH = 4, whatever --max-batch
+coalesces. A service is all-turbo or all-bf16, as JAX's; `--turbo` with
+`--mesh` is refused.
 
 `--mesh seq=N` runs each generate's outer stage sequence-parallel over N
 processes, one a card (`CLAPDAE.generate_seqpar`):
@@ -67,7 +71,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .embedding_math import get_model_ready, interp_embeddings, weighted_algebra
+from .embedding_math import (TURBO_SEQPAR_REFUSAL, get_model_ready, interp_embeddings,
+                             weighted_algebra)
 from .utils.audio_io import crossfade_flatten, load_audio
 
 __all__ = ["MirageService", "TokenizerUnavailable", "encode_wav", "make_server", "main"]
@@ -328,12 +333,14 @@ class MirageService:
     asked for when MIRAGE_USERNAME and MIRAGE_PASSWORD are both set.
     `mesh_spec` 'seq=N' (in a group of N processes) runs the outer stage
     sequence-parallel: rank 0 serves, the other ranks `follow`, each on
-    its rank's card."""
+    its rank's card. `turbo` builds the default model on its int8 routes
+    (generate_seqpar refuses it, so not with a mesh)."""
 
     def __init__(self, model=None, model_choice: str = "22s", half: bool = True,
                  verbose: bool = True, max_batch: int = 8,
                  device: str | torch.device = "cuda", strict_text: bool = False,
-                 batch_window_s: float = 0.0, mesh_spec: Optional[str] = None):
+                 batch_window_s: float = 0.0, mesh_spec: Optional[str] = None,
+                 turbo: bool = False):
         self.world = None
         if mesh_spec:
             from .parallel.mesh import mesh_from_spec
@@ -343,7 +350,8 @@ class MirageService:
                                  "(e.g. seq=4)")
             device = self.world.device
         if model is None:
-            model = get_model_ready(model_choice, device=device, verbose=verbose, half=half)
+            model = get_model_ready(model_choice, device=device, verbose=verbose, half=half,
+                                    turbo=turbo)
         self.model = model
         self.model_choice = model_choice
         self.verbose = verbose
@@ -615,19 +623,19 @@ def main(argv: Optional[list] = None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; under torchrun, the rank's card) or 'cpu'")
     p.add_argument("--turbo", action="store_true",
-                   help="the int8 turbo route of the JAX service: not ported (ROADMAP A8)")
+                   help="int8 outer stage (JAX's AA_TURBO_INT8=1): each micro-batch of "
+                        "4 runs its outer levels' convs int8 (the int8-in-fold route)")
     p.add_argument("--mesh", type=str, default=None, metavar="seq=N",
                    help="run each generate's outer stage sequence-parallel over N "
                         "processes, one a card: torchrun --nproc_per_node N -m "
                         "audio_algebra_torch.serve --mesh seq=N ...")
     args = p.parse_args(argv)
-    if args.turbo:
-        raise NotImplementedError("--turbo (MIRAGE's int8 fold route) is not ported: "
-                                  "ROADMAP item A8")
+    if args.turbo and args.mesh:
+        p.error(f"--turbo with --mesh: {TURBO_SEQPAR_REFUSAL}; drop one flag")
     service = MirageService(model_choice=args.model, half=not args.no_half,
                             batch_window_s=args.batch_window, max_batch=args.max_batch,
                             strict_text=args.strict_text, mesh_spec=args.mesh,
-                            device=args.device)
+                            device=args.device, turbo=args.turbo)
     if service.world is not None and service.world.rank != 0:
         print(f"serve: rank {service.world.rank} following rank 0's generates", flush=True)
         service.follow()

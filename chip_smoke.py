@@ -52,6 +52,17 @@ Phases, each printing one JSON line:
                 algebra of two seeded unit embeddings, run twice; K3, K5 and
                 K1 must launch 150 x 4, 150 x 63 and 100 x 119 times, every
                 K5 launch on its one-launch cluster route
+  mirage_turbo  the mirage phase's model turned turbo (CLAPDAE.turbo): a
+                batch-1 generate (150 + 100 steps) from that phase's noises,
+                int8 inside the fold (7 of 10 outer levels' conv5s on a
+                dynamic amax, K1 for every GroupNorm), against the bf16
+                generate (rel-RMS in (1e-4, 0.08)) with stage seconds beside
+                the bf16 ones; one outer forward in that mode through K1
+                against K1's twin (< 5e-2); a batch-4 generate at 20 + 10
+                steps (9 levels); StackedDiffAEWrapper(turbo=True) at its
+                default width, decode_stage1to2 of (16, 32, 2048) latents for
+                10 steps on the amax carry against its float route (rel-RMS
+                in (1e-4, 0.08)); K1, K2a/b/c and int8-conv5 counts asserted
   kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
@@ -252,6 +263,16 @@ TURBO_STEP0 = {"k1": 49, "k2a": 83, "k2b": 59, "k2c": 0}
 TURBO_STEP = {"k1": 49, "k2a": 83, "k2b": 19, "k2c": 40}
 TURBO_REL_RMS_BOUND = 0.08     # turbo vs bf16 decode (the JAX package's band)
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
+# MIRAGE turbo (mirage_turbo): below the batch gate the outer stage runs int8
+# inside the fold, 12 conv5s (2 stacks x 3 blocks x 2) a folded level; the
+# default micro-batch of 4 at 20 + 10 steps. The stacked AE's carry route at
+# B = 16 x 32768 (22 s), depth 10 x 512 channels: GN_0 int8 (K2a) in every
+# block but stack_000.m0 (80-channel input: K1), GN_1 with amax (K2b) in the
+# 59 blocks that have one on step 0; later m0/m2's 40 take K2c
+MIRAGE_TURBO_B4_STEPS = (20, 10)
+STACKED_TURBO_B, STACKED_TURBO_STEPS = 16, 10
+STACKED_STEP0 = {"k1": 1, "k2a": 59, "k2b": 59, "k2c": 0}
+STACKED_STEP = {"k1": 1, "k2a": 59, "k2b": 19, "k2c": 40}
 # the spectrogram models (16, 2, 65536) at 1024 / 256: SpectrogramAE and
 # MagDPhase encode once, Mag and Mel encode once and take 32 Griffin-Lim rounds
 SPEC_SHAPE, SPEC_ITERS = (16, 2, 65536), 32
@@ -717,11 +738,40 @@ def k2_bound(shape, dtype, mode: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k2_compare(got, want, dtype) -> dict:
+    """K2's tolerances on one call's outputs against its twin's: int8 within
+    one step on at most 1e-3 of the values, the amax within 1e-5 relative,
+    the float output inside TOL. `n_outside_tol` counts the breaches."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    row, errs, bad = {}, [], 0
+    for a, b in zip(got, want):
+        if a.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            row["int8_max_lsb"] = int(d.max())
+            row["int8_share_off"] = float((d > 0).float().mean())
+            bad += int(d.max() > 1 or row["int8_share_off"] > 1e-3)
+            errs.append(float(d.max()))
+        elif a.dim() == 1:
+            row["amax_max_rel_err"] = float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
+            bad += int(row["amax_max_rel_err"] > 1e-5)
+        else:
+            cmp = _compare(a, b, dtype)
+            row["out_max_abs_err"] = cmp["max_abs_err"]
+            bad += cmp["n_outside_tol"]
+            errs.append(cmp["max_abs_err"])
+    row["max_abs_err"] = max(errs)
+    row["n_outside_tol"] = bad
+    return row
+
+
 def phase_kernels_k2() -> dict:
     """K2's three modes at the turbo decode's level 0 (16, 256, 65536) and
-    level 2 (16, 512, 16384) in bf16, each against its twin and timed beside
-    the twin, the library chain and the bound; then the int8 conv against
-    the bf16 cuDNN conv at level 0. Returns the level-0 row of each mode."""
+    level 2 (16, 512, 16384), and the stacked AE carry's level 0
+    (16, 512, 32768), in bf16, each against its twin and timed beside the
+    twin, the library chain and the bound; then the int8 conv against the
+    bf16 cuDNN conv at level 0. Returns the level-0 row of each mode."""
     import torch
     import torch.nn.functional as F
     from audio_algebra_torch.models import blocks
@@ -729,7 +779,7 @@ def phase_kernels_k2() -> dict:
 
     dev = torch.device("cuda")
     rows = []
-    for shape in [(16, 256, 65536), (16, 512, 16384)]:
+    for shape in [(16, 256, 65536), (16, 512, 16384), (16, 512, 32768)]:
         g = torch.Generator(device=dev).manual_seed(300 + len(rows))
         c = shape[1]
         dt = torch.bfloat16
@@ -768,27 +818,8 @@ def phase_kernels_k2() -> dict:
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            row = {"shape": list(shape), "dtype": "bfloat16", "mode": mode}
-            errs, bad = [], 0
-            for a, b in zip(got, want):
-                if a.dtype == torch.int8:
-                    d = (a.int() - b.int()).abs()
-                    row["int8_max_lsb"] = int(d.max())
-                    row["int8_share_off"] = float((d > 0).float().mean())
-                    bad += int(d.max() > 1 or row["int8_share_off"] > 1e-3)
-                    errs.append(float(d.max()))
-                elif a.dim() == 1:
-                    row["amax_max_rel_err"] = float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
-                    bad += int(row["amax_max_rel_err"] > 1e-5)
-                else:
-                    cmp = _compare(a, b, dt)
-                    row["out_max_abs_err"] = cmp["max_abs_err"]
-                    bad += cmp["n_outside_tol"]
-                    errs.append(cmp["max_abs_err"])
-            row["max_abs_err"] = max(errs)
-            row["n_outside_tol"] = bad
+            row = {"shape": list(shape), "dtype": "bfloat16", "mode": mode,
+                   **k2_compare(got, want, dt)}
             del got, want
             big = shape[2] > 16384
             bound_ms, bound_by = k2_bound(shape, dt, mode)
@@ -1023,7 +1054,206 @@ def phase_mirage():
     if k5_routes != {"cluster": expected["k5"], "two_pass": 0}:
         raise AssertionError(f"mirage K5 routes {k5_routes}: every inner-UNet shape should "
                              f"take the one-launch cluster route")
-    return model, counts, {"emb": emb, "noises": noises, "fakes": fakes2, "generate_s": gen_s}
+    return model, counts, {"emb": emb, "noises": noises, "fakes": fakes2, "generate_s": gen_s,
+                           "stages": stages}
+
+
+def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
+    """MIRAGE's and the stacked AE's turbo routes at full width, bf16,
+    through the entry points a user calls. The mirage phase's CLAPDAE()
+    turned turbo: a batch-1 generate (150 + 100 steps, CFG 4) from that
+    phase's steady-run noises, int8 inside the fold at every outer step,
+    against its bf16 generate (rel-RMS in (1e-4, 0.08)), stage seconds
+    beside the bf16 ones, K1 and int8-conv5 counts; one outer-UNet forward
+    in the int8-in-fold mode through K1 against the same through K1's twin
+    (MIRAGE_REL_RMS_BOUND bf16), each route's forward ms beside the float
+    forward's; a batch-4 generate at 20 + 10 steps (the default
+    micro-batch: 9 levels int8). Then StackedDiffAEWrapper(turbo=True) at
+    its default width, decode_stage1to2 of (16, 32, 2048) stage-2 latents
+    for 10 steps on the amax carry (K2a/b/c) against its float route from
+    the same noise; and one carry step of its diffusion_v_aux (the q_aux of
+    a step before) with every K2 call held against its twin on the same
+    inputs under K2's tolerances (`k2_compare`), then the same step through
+    the twins of K1 and K2 (MIRAGE_REL_RMS_BOUND bf16). Without the mirage
+    phase's state (--only) it runs that phase first."""
+    import torch
+    from audio_algebra_torch.given_models import StackedDiffAEWrapper
+    from audio_algebra_torch.models import blocks
+    from audio_algebra_torch.ops import groupnorm as gn
+    from audio_algebra_torch.parallel.fold import (decode_unet_seqfold, pick_fold_blocks,
+                                                   pick_folded_levels)
+
+    if model is None or mirage_ref is None:
+        model, _, mirage_ref = phase_mirage()
+    int8_convs = [0]
+    real_conv = blocks.conv1d_int8
+
+    def counted_conv(*args, **kwargs):
+        int8_convs[0] += 1
+        return real_conv(*args, **kwargs)
+
+    def zero():
+        gn.launches = gn.quant_launches = gn.amax_launches = gn.amax_q_launches = 0
+        int8_convs[0] = 0
+
+    def counts():
+        return {"k1": gn.launches, "k2a": gn.quant_launches, "k2b": gn.amax_launches,
+                "k2c": gn.amax_q_launches, "int8_conv5": int8_convs[0]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    la = model.latent_diffae
+    unet = la.diffusion
+    t_len = MIRAGE_SAMPLES // la.autoencoder.downsampling_ratio
+    levels = {b: pick_folded_levels(t_len, pick_fold_blocks(b, 32), unet.depth,
+                                    unet.attn_start) for b in (1, 4)}
+    emb, noises = mirage_ref["emb"], mirage_ref["noises"]
+    blocks.conv1d_int8 = counted_conv
+    model.turbo = True
+    gen_state = model.generator.get_state()          # later phases draw as before
+    try:
+        with torch.inference_mode():
+            model.generate(emb, cfg_scales=4, demo_steps=2, outer_steps=2)      # warm-up
+            zero()
+            (fakes, lat), gen_s = timed(lambda: model.generate(
+                emb, cfg_scales=4, demo_steps=INNER_STEPS, outer_steps=OUTER_STEPS,
+                batch_size=1, stage_times=True, **noises))
+            stages = dict(model.last_stage_times)
+            gen_counts = counts()
+            # one outer forward in the int8-in-fold mode: K1, then K1's twin
+            x, t = noises["s1_noise"], torch.full((1,), 0.5, device="cuda", dtype=lat.dtype)
+            fwd = {"int8_fold": lambda: decode_unet_seqfold(unet, x, t, lat, quantized=True),
+                   "float": lambda: unet(x, t, lat)}
+            out = {k: f().float() for k, f in fwd.items()}
+            fwd_ms = {k: cuda_ms(f, 5) for k, f in fwd.items()}
+            blocks.groupnorm1_gelu = gn.groupnorm1_gelu_ref
+            try:
+                plain = {k: f().float() for k, f in fwd.items()}
+            finally:
+                blocks.groupnorm1_gelu = gn.groupnorm1_gelu
+            zero()
+            (fakes4, _), gen4_s = timed(lambda: model.generate(
+                emb, cfg_scales=4, demo_steps=MIRAGE_TURBO_B4_STEPS[0],
+                outer_steps=MIRAGE_TURBO_B4_STEPS[1], batch_size=4, stage_times=True))
+            stages4 = dict(model.last_stage_times)
+            b4_counts = counts()
+    finally:
+        model.turbo = False
+        model.generator.set_state(gen_state)
+        blocks.conv1d_int8 = real_conv
+    gen_rel = rel_rms(fakes.float(), mirage_ref["fakes"].float())
+    fwd_err = {k: rel_rms(out[k], plain[k]) for k in out}
+    gen_expected = {"k1": OUTER_STEPS * K1_PER_OUTER, "k2a": 0, "k2b": 0, "k2c": 0,
+                    "int8_conv5": OUTER_STEPS * 12 * levels[1]}
+    b4_expected = {"k1": MIRAGE_TURBO_B4_STEPS[1] * K1_PER_OUTER, "k2a": 0, "k2b": 0, "k2c": 0,
+                   "int8_conv5": MIRAGE_TURBO_B4_STEPS[1] * 12 * levels[4]}
+
+    w = StackedDiffAEWrapper(device="cuda", dtype=torch.bfloat16, turbo=True)
+    w.ensure_params()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n = MIRAGE_SAMPLES // w.model.downsampling_ratio
+    small = torch.tanh(torch.randn((STACKED_TURBO_B, w.model.second_stage_latent_dim, n),
+                                   generator=g, device="cuda")).to(torch.bfloat16)
+    s_noise = torch.randn((STACKED_TURBO_B, w.latent_dim, n * w.latent_downsampling_ratio),
+                          generator=g, device="cuda").to(torch.bfloat16)
+    decoded, st_s = {}, {}
+    for turbo in (False, True):                       # warm-ups: plans, allocator
+        w.turbo = turbo
+        w.decode_stage1to2(small, steps=1, noise=s_noise)
+    for turbo in (False, True):
+        w.turbo = turbo
+        zero()
+        decoded[turbo], st_s[turbo] = timed(lambda: w.decode_stage1to2(
+            small, steps=STACKED_TURBO_STEPS, noise=s_noise))
+    st_counts = counts()
+    del st_counts["int8_conv5"]                       # not counted here
+
+    # one carry step: each K2 call beside its twin, then the step on the twins
+    k2_calls = []
+
+    def checked(kernel, twin):
+        def call(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            k2_calls.append({"fn": kernel.__name__, "shape": list(args[0].shape),
+                             "carry": kwargs.get("q_emit_scale") is not None,
+                             **k2_compare(got, twin(*args, **kwargs), args[0].dtype)})
+            return got
+        return call
+
+    swapped = ("groupnorm1_gelu", "groupnorm1_gelu_quant", "groupnorm1_gelu_res_amax")
+    with torch.inference_mode():
+        t_half = torch.full((STACKED_TURBO_B,), 0.5, device="cuda", dtype=small.dtype)
+        _, q_aux = w.model.diffusion_v_aux(s_noise, t_half, small)
+        blocks.groupnorm1_gelu_quant = checked(gn.groupnorm1_gelu_quant,
+                                               gn.groupnorm1_gelu_quant_ref)
+        blocks.groupnorm1_gelu_res_amax = checked(gn.groupnorm1_gelu_res_amax,
+                                                  gn.groupnorm1_gelu_res_amax_ref)
+        try:
+            step = {"kernels": w.model.diffusion_v_aux(s_noise, t_half, small, q_aux=q_aux)[0]}
+            for name in swapped:
+                setattr(blocks, name, getattr(gn, f"{name}_ref"))
+            step["twins"] = w.model.diffusion_v_aux(s_noise, t_half, small, q_aux=q_aux)[0]
+        finally:
+            for name in swapped:
+                setattr(blocks, name, getattr(gn, name))
+    step_rel = rel_rms(step["kernels"].float(), step["twins"].float())
+    k2_worst = {fn: max((c for c in k2_calls if c["fn"] == fn), key=lambda c: c["max_abs_err"])
+                for fn in {c["fn"] for c in k2_calls}}
+    k2_bad = [c for c in k2_calls if c["n_outside_tol"]]
+    del step
+    st_expected = {k: STACKED_STEP0[k] + (STACKED_TURBO_STEPS - 1) * STACKED_STEP[k]
+                   for k in STACKED_STEP}
+    st_rel = rel_rms(decoded[True].float(), decoded[False].float())
+    finite = all(bool(torch.isfinite(v).all()) for v in (fakes, fakes4, *decoded.values()))
+    row = {"phase": "mirage_turbo", "dtype": "bfloat16", "card": card(),
+           "generate": {"samples": MIRAGE_SAMPLES, "batch": 1, "cfg_scale": 4,
+                        "steps": [INNER_STEPS, OUTER_STEPS], "folded_levels": levels[1],
+                        "generate_s": gen_s, "bf16_generate_s": mirage_ref["generate_s"],
+                        "stages_s": stages, "bf16_stages_s": mirage_ref["stages"],
+                        "outer_over_bf16": stages["outer_s"] / mirage_ref["stages"]["outer_s"],
+                        "rel_rms_vs_bf16": gen_rel, "bound": [1e-4, TURBO_REL_RMS_BOUND],
+                        "launches": gen_counts, "launches_expected": gen_expected},
+           "outer_forward": {"shape": list(x.shape), "rel_rms_kernel_vs_plain": fwd_err,
+                             "bound": MIRAGE_REL_RMS_BOUND["bfloat16"], "ms": fwd_ms},
+           "generate_b4": {"batch": 4, "steps": list(MIRAGE_TURBO_B4_STEPS),
+                           "folded_levels": levels[4], "generate_s": gen4_s,
+                           "stages_s": stages4, "launches": b4_counts,
+                           "launches_expected": b4_expected, "out_shape": list(fakes4.shape)},
+           "stacked": {"batch": [STACKED_TURBO_B, *small.shape[1:]], "t_len": s_noise.shape[-1],
+                       "steps": STACKED_TURBO_STEPS, "turbo_s": st_s[True],
+                       "float_s": st_s[False], "turbo_over_float": st_s[True] / st_s[False],
+                       "rel_rms_turbo_vs_float": st_rel, "bound": [1e-4, TURBO_REL_RMS_BOUND],
+                       "launches": st_counts, "launches_expected": st_expected,
+                       "carry_step_k2_calls": len(k2_calls),
+                       "carry_step_k2_carry_calls": sum(c["carry"] for c in k2_calls),
+                       "carry_step_k2_shapes": sorted({tuple(c["shape"]) for c in k2_calls}),
+                       "carry_step_k2_worst": k2_worst, "carry_step_k2_outside": k2_bad[:4],
+                       "carry_step_rel_rms_kernels_vs_twins": step_rel,
+                       "carry_step_bound": MIRAGE_REL_RMS_BOUND["bfloat16"]},
+           "finite": finite}
+    emit(row)
+    faults = []
+    if not 1e-4 < gen_rel < TURBO_REL_RMS_BOUND or not 1e-4 < st_rel < TURBO_REL_RMS_BOUND:
+        faults.append(f"turbo rel-RMS: generate {gen_rel}, stacked {st_rel}")
+    if not fwd_err["int8_fold"] < MIRAGE_REL_RMS_BOUND["bfloat16"]:
+        faults.append(f"int8-in-fold forward through K1 vs twin {fwd_err}")
+    k2_per_step = STACKED_STEP["k2a"] + STACKED_STEP["k2b"] + STACKED_STEP["k2c"]
+    if k2_bad or len(k2_calls) != k2_per_step or not step_rel < MIRAGE_REL_RMS_BOUND["bfloat16"]:
+        faults.append(f"stacked carry step: {len(k2_bad)} of {len(k2_calls)} K2 calls off "
+                      f"their twins, kernels vs twins rel-RMS {step_rel}")
+    if gen_counts != gen_expected or b4_counts != b4_expected or st_counts != st_expected:
+        faults.append(f"launches {gen_counts}, {b4_counts}, {st_counts}")
+    if tuple(fakes.shape) != (2, MIRAGE_SAMPLES) or tuple(fakes4.shape) != (2, 4 * MIRAGE_SAMPLES) \
+            or not finite:
+        faults.append("outputs")
+    if faults:
+        raise AssertionError(f"mirage_turbo: {faults}")
+    return {"mirage_turbo": gen_counts, "stacked_turbo": st_counts}
 
 
 def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
@@ -3354,7 +3584,7 @@ def phase_seqpar(model=None, destructo=None, mirage_ref=None) -> dict:
     import torch
     import torch.distributed as dist
     from audio_algebra_torch.ops import groupnorm as gn
-    from audio_algebra_torch.parallel.infer import attn_start_of, pick_sharded_levels
+    from audio_algebra_torch.parallel.infer import pick_sharded_levels
     from audio_algebra_torch.parallel.mesh import make_mesh
 
     if destructo is None:
@@ -3367,7 +3597,7 @@ def phase_seqpar(model=None, destructo=None, mirage_ref=None) -> dict:
         w = destructo["wrapper"]
         unet = w.model.diffusion
         levels = {"destructo": pick_sharded_levels(CHUNK, world.size, unet.depth,
-                                                   attn_start_of(unet))}
+                                                   unet.attn_start)}
         gn.launches = gn.split_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3380,7 +3610,7 @@ def phase_seqpar(model=None, destructo=None, mirage_ref=None) -> dict:
         outer = model.latent_diffae.diffusion
         levels["mirage_outer"] = pick_sharded_levels(
             MIRAGE_SAMPLES // model.latent_diffae.autoencoder.downsampling_ratio, world.size,
-            outer.depth, attn_start_of(outer))
+            outer.depth, outer.attn_start)
         gn.launches = gn.split_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3566,8 +3796,8 @@ def main() -> int:
         for name in only:
             if name in ("clap", "serve", "mirage_cli"):
                 raise SystemExit(f"--only: phase {name} needs the served model")
-            if name == "seqpar":          # runs the destructo and mirage phases first
-                phase_seqpar()
+            if name in ("seqpar", "mirage_turbo"):   # run the phases they build on first
+                globals()[f"phase_{name}"]()
                 continue
             if name == "io":
                 phase_io(tmp)
@@ -3599,6 +3829,7 @@ def main() -> int:
     turbo = run(phase_destructo_turbo)
     run(phase_mirage_model)
     model, counts, mirage_ref = run(phase_mirage)
+    turbo_paths = run(phase_mirage_turbo, model, mirage_ref)
     k6 = run(phase_kernels_k6)
     spectrogram_k6 = run(phase_spectrogram)
     clap_k6 = run(phase_clap, model)
@@ -3625,6 +3856,9 @@ def main() -> int:
     run(phase_ddp)
     run(phase_fsdp)
     tmp_dir.cleanup()
+
+    def turbo_launches(k):
+        return {"destructo_turbo": turbo[k], **{p: c[k] for p, c in turbo_paths.items()}}
 
     def entry(name, source, replaces, launches, row, **extra):
         """One kernel of the summary line; `row` from a kernels phase."""
@@ -3658,6 +3892,8 @@ def main() -> int:
               launches_by_path={"destructo": destructo_k1,
                                 "destructo_turbo": turbo["k1"],
                                 "mirage": counts["k1"], "train_aa": train_aa,
+                                "mirage_turbo": turbo_paths["mirage_turbo"]["k1"],
+                                "stacked_turbo": turbo_paths["stacked_turbo"]["k1"],
                                 "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"],
                                 "apps": apps["k1"], "seqpar": seqpar["k1_whole"]}),
         entry("groupnorm1_gelu_split", "groupnorm.cu",
@@ -3672,12 +3908,15 @@ def main() -> int:
                                         "plain_ms", "library_ms", "bound_ms")}
                      for r in k1_split["cases"]]),
         entry("groupnorm1_gelu_quant", "groupnorm.cu",
-              "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"]),
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:107", turbo["k2a"], k2["quant"],
+              launches_by_path=turbo_launches("k2a")),
         entry("groupnorm1_gelu_res_amax", "groupnorm.cu",
-              "audio_algebra_tpu/ops/pallas/groupnorm.py:298", turbo["k2b"], k2["res_amax"]),
+              "audio_algebra_tpu/ops/pallas/groupnorm.py:298", turbo["k2b"], k2["res_amax"],
+              launches_by_path=turbo_launches("k2b")),
         entry("groupnorm1_gelu_res_amax_q", "groupnorm.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm.py:321", turbo["k2c"],
-              k2["res_amax_q"]),
+              k2["res_amax_q"],
+              launches_by_path=turbo_launches("k2c")),
         entry("flash_attention_relpos", "flash_attention.cu",
               "audio_algebra_tpu/ops/pallas/flash_attention.py:70", counts["k3"], k3,
               launches_by_path={"mirage": counts["k3"], "checkpoints": ckpt["k3"],

@@ -128,13 +128,15 @@ def test_process_audio_end_to_end(fresh_cache, tmp_path):
 
 
 def test_xla_only_switches_are_refused(fresh_cache, monkeypatch):
-    """--turbo is refused (ROADMAP A8); --mesh seq=4 is ported and, outside
-    a group of 4, says how to launch; --mesh with --init-audio is refused
-    as JAX refuses it."""
+    """--turbo is ported and refused with --mesh only (the sequence-parallel
+    outer stage is float); --mesh seq=4 is ported and, outside a group of
+    4, says how to launch; --mesh with --init-audio is refused as JAX
+    refuses it."""
     for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
-        mirage.main(["--text", "a", "--turbo", "--device", "cpu"])
+    with pytest.raises(SystemExit) as exc:
+        mirage.main(["--text", "a", "--turbo", "--mesh", "seq=4", "--device", "cpu"])
+    assert exc.value.code == 2
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 4 -m "
                                          "audio_algebra_torch.mirage"):
         mirage.main(["--text", "a", "--mesh", "seq=4", "--device", "cpu"])

@@ -203,13 +203,16 @@ def test_embed_takes_flac_and_ogg_bodies(model, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [(["--turbo"], "A8"), (["--mesh", "seq=4"], "A7")])
 def test_cli_refuses_what_is_not_ported(flag, item, monkeypatch):
-    """--turbo is not ported (ROADMAP A8); --mesh seq=4 (A7) is, and outside
-    a group of 4 processes it is refused with the torchrun line."""
+    """--turbo (A8) is ported and refused with --mesh only, at parsing (the
+    sequence-parallel outer stage is float); --mesh seq=4 (A7) is ported,
+    and outside a group of 4 processes it is refused with the torchrun
+    line."""
     for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
     if item == "A8":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            tserve.main(flag)
+        with pytest.raises(SystemExit) as exc:
+            tserve.main([*flag, "--mesh", "seq=4", "--device", "cpu"])
+        assert exc.value.code == 2
     else:
         with pytest.raises(ValueError, match="torchrun --nproc_per_node 4 -m "
                                              "audio_algebra_torch.serve"):
