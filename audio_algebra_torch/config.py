@@ -154,6 +154,7 @@ DEFAULTS = dict(
     lr_t_max=500,
     cfg_dropout=0.1,
     fsdp=0,              # 1 = shard params/EMA/Adam state over the data
-                         # axis (ZeRO-3); not ported yet: the trainer refuses it
+                         # axis (ZeRO-3): train_clapdae over more than one
+                         # process (parallel/fsdp.py); one process keeps it whole
     device="cuda",       # the port's entry points run on the card unless asked
 )

@@ -15,7 +15,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel of
 tensor it takes its plain twin: R1 the log-depth associative scan of JAX's
 default `_biquad_assoc`, written in torch; R2 and R3 step-by-step loops,
 which the tests and `chip_smoke.py` hold at short lengths. `launches`
-counts each kernel's launches.
+counts each kernel's launches (R1: one a group of at most MAX_SECTIONS
+sections); `cuda_launches` counts R1's CUDA launches, three a group when
+its chunked scan cuts time into more than one chunk (`chunk_plan`).
 """
 from __future__ import annotations
 
@@ -25,10 +27,13 @@ import torch
 
 SOURCE = "recurrence.cu"
 MAX_SECTIONS = 8                # R1's sections a launch; more are split
+MIN_CHUNK, MAX_CHUNK = 128, 1 << 16    # R1's chunk lengths: powers of two in between
+MAX_SEGMENTS = 1 << 16          # R1's (row, chunk) threads a pass: ~15 warps an SM
 COMB_TUNINGS = (1116, 1188, 1277, 1356, 1422, 1491, 1557, 1617)
 ALLPASS_TUNINGS = (556, 441, 341, 225)
 
 launches = {"sosfilt": 0, "envelope": 0, "freeverb_ir": 0}
+cuda_launches = {"sosfilt": 0}
 
 
 def _lib():
@@ -36,7 +41,9 @@ def _lib():
     lib = load(SOURCE)
     if lib.aa_sosfilt.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.aa_sosfilt.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.aa_sosfilt.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.aa_sosfilt_scratch_bytes.argtypes = [ci, ci, ci, ci, ci]
+        lib.aa_sosfilt_scratch_bytes.restype = ctypes.c_longlong
         lib.aa_envelope.argtypes = [vp, vp, ci, ci, cf, cf, vp]
         lib.aa_freeverb_ir.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         for fn in (lib.aa_sosfilt, lib.aa_envelope, lib.aa_freeverb_ir):
@@ -136,11 +143,33 @@ def sosfilt_rows_ref(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def chunk_plan(rows: int, t_len: int) -> tuple[int, int]:
+    """R1's chunk length L and chunk count C for (rows, t_len), t_len as the
+    kernel takes it (a multiple of 4). The chunked scan's two passes over
+    the samples each take about L dependent steps a thread (and each row's
+    Phi L float64 steps) and its carry about C / 16 steps a row, so L is
+    the least power of two from MIN_CHUNK with C <= 8 L and rows x C <=
+    MAX_SEGMENTS (enough threads to fill the card, no more). One chunk (L
+    = t_len, C = 1: a thread a row) where t_len <= MIN_CHUNK or where the
+    rows alone fill half the threads."""
+    if t_len <= MIN_CHUNK or 2 * rows > MAX_SEGMENTS:
+        return t_len, 1
+    length = MIN_CHUNK
+    while length < MAX_CHUNK:
+        chunks = -(-t_len // length)
+        if chunks <= 8 * length and rows * chunks <= MAX_SEGMENTS:
+            break
+        length *= 2
+    chunks = -(-t_len // length)
+    return (length, chunks) if chunks > 1 else (t_len, 1)
+
+
 def sosfilt_rows(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """R1: second-order sections `sos` (rows or 1, n_sections, 6), each row
     (b0, b1, b2, 1, a1, a2), applied to x (rows, T) f32 along T from zero
     state. CPU tensors take the twin; CUDA tensors launch the kernel, at
-    most MAX_SECTIONS sections a launch."""
+    most MAX_SECTIONS sections a launch, time cut into chunks by
+    `chunk_plan`."""
     if x.dim() != 2 or sos.dim() != 3 or sos.shape[-1] != 6 \
             or sos.shape[0] not in (1, x.shape[0]):
         raise ValueError(f"sosfilt_rows: sos {tuple(sos.shape)} does not fit x "
@@ -152,14 +181,21 @@ def sosfilt_rows(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     t_len = x.shape[1]
     x = _kernel_rows(x)
+    rows = x.shape[0]
+    length, chunks = chunk_plan(rows, x.shape[1])
     for s0 in range(0, sos.shape[1], MAX_SECTIONS):
         part = sos[:, s0:s0 + MAX_SECTIONS].contiguous()
+        args = (rows, x.shape[1], part.shape[1], int(part.shape[0] != 1),
+                length if chunks > 1 else 0)
+        scratch = torch.empty(max(lib.aa_sosfilt_scratch_bytes(*args), 0), dtype=torch.uint8,
+                              device=x.device)
         y = torch.empty_like(x)
-        err = lib.aa_sosfilt(x.data_ptr(), part.data_ptr(), y.data_ptr(), x.shape[0],
-                             x.shape[1], part.shape[1], int(part.shape[0] != 1), _stream(x))
+        err = lib.aa_sosfilt(x.data_ptr(), part.data_ptr(), y.data_ptr(),
+                             scratch.data_ptr() if chunks > 1 else None, *args, _stream(x))
         if err != 0:
             raise RuntimeError(f"sosfilt kernel launch failed: CUDA error {err}")
         launches["sosfilt"] += 1
+        cuda_launches["sosfilt"] += 3 if chunks > 1 else 1
         x = y
     return x[:, :t_len]
 
@@ -258,7 +294,7 @@ def freeverb_irs(feedback: torch.Tensor, damp: torch.Tensor, spreads, n: int,
     entry of feedback (R,), damp (R,) and `spreads` (R Python ints: 0 for
     the left channel's tunings, 23 for the right's) -> (R, n) f32. CPU
     tensors take the twin; CUDA tensors launch the kernel, one block an
-    impulse response."""
+    impulse response (its damping chains as warp scans)."""
     spreads = [int(s) for s in spreads]
     if feedback.shape != damp.shape or feedback.dim() != 1 \
             or len(spreads) != feedback.shape[0] or min(spreads) < 0:

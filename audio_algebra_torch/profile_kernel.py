@@ -24,7 +24,15 @@ f32 training forward with its residuals, 3xTF32 on the tensor cores) at
 the trainer's (8, 16, 1024 / 512, 64), at B = 1 and at K3's f32 row (2,
 16, 1024, 64), one JSON line a shape like k3's; `--variants` adds the
 device ms of each block the f32 route can take (1 or 2 batch rows, 64 or
-128 query rows, 64 or 32 keys a tile), in turns. Every line names the card.
+128 query rows, 64 or 32 keys a tile), in turns. r1 (the biquad cascade
+at chip_smoke.py's xae and apps shapes: the TPT filters' (128, 262144),
+the phaser's (1024, 32768) x 2 sections, loudness's (2, 1440000) x 2
+shared, the apps' (16, 65536)) and r3 (Freeverb's responses, 64 x 262144
+and 16 x 65536), one JSON line a shape with the CUDA-event ms and the
+device ms a call (`--trace`: each CUDA kernel's device µs a call, by
+torch.profiler); they call only the wrappers `sosfilt_rows` and
+`freeverb_irs`, so this script times an earlier checkout's R1 and R3 when
+it runs from that checkout's root. Every line names the card.
 """
 from __future__ import annotations
 
@@ -44,6 +52,9 @@ K3_SHAPES = [(2, 16, 1024, 64), (2, 16, 3072, 64), (2, 16, 1536, 64), (1, 16, 10
 K4A_SHAPES = [(8, 16, 1024, 64), (8, 16, 512, 64), (1, 16, 1024, 64), (2, 16, 1024, 64)]
 K4A_BLOCKS = [(1, 64, 64), (2, 64, 64), (2, 64, 32), (1, 128, 64), (2, 128, 64),
               (2, 128, 32)]                     # (batch rows, query rows, keys a tile)
+R1_SHAPES = [("tpt", 128, 262144, 1), ("phaser", 1024, 32768, 2), ("loudness", 2, 1440000, 2),
+             ("apps", 16, 65536, 1)]        # (case, rows, T, sections)
+R3_SHAPES = [(64, 262144), (16, 65536)]      # (responses, samples)
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]
@@ -159,10 +170,74 @@ def k5_host_split(x, scale, bias, fs, sh) -> dict:
     return split
 
 
+def kernel_device_us(fn, iters: int) -> dict:
+    """Device µs a call of each CUDA kernel that `fn` launches, by
+    torch.profiler, keyed by the kernel's name without its namespace and
+    arguments."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if total:
+            name = re.search(r"(\w+_kernel\w*(<\d+>)?)", e.key)
+            key = name.group(1) if name else e.key[:60]
+            out[key] = out.get(key, 0.0) + total / iters
+    return out
+
+
+def profile_recurrence(kernel, dev, card, g, trace: bool) -> int:
+    """R1 or R3 at their main-path shapes, through the wrappers alone."""
+    import torch
+    from audio_algebra_torch.ops import recurrence as rec
+    from audio_algebra_torch.ops.filters import butter_sos
+    from audio_algebra_torch.ops.loudness import _k_weighting_sos
+    if kernel == "r1":
+        for case, rows, t_len, n_sec in R1_SHAPES:
+            x = 0.3 * torch.randn((rows, t_len), generator=g, device=dev)
+            if case == "loudness":
+                sos = _k_weighting_sos(48000).to(dev)[None]
+            else:
+                cut = torch.linspace(1500.0, 12000.0, rows, device=dev)
+                sos = butter_sos(2, cut, 48000, "lowpass").repeat(1, n_sec, 1)
+
+            def call():
+                return rec.sosfilt_rows(sos, x)
+            row = {"kernel": "r1", "tree": os.getcwd(), "case": case, "shape": [rows, t_len],
+                   "sections": sos.shape[1], "ms": events_ms(call, 10),
+                   "device_ms": device_ms(call, 10), "device": card}
+            if hasattr(rec, "chunk_plan"):
+                row["chunk_len"], row["chunks"] = rec.chunk_plan(rows, t_len)
+            if trace:
+                row["kernel_device_us"] = kernel_device_us(call, 10)
+            print(json.dumps(row), flush=True)
+        return 0
+    for n_ir, t_len in R3_SHAPES:
+        fb = torch.linspace(0.7, 0.98, n_ir // 2, device=dev).repeat(2)
+        dm = torch.full_like(fb, 0.2)
+        spreads = [0] * (n_ir // 2) + [23] * (n_ir // 2)
+
+        def call():
+            return rec.freeverb_irs(fb, dm, spreads, t_len)
+        row = {"kernel": "r3", "tree": os.getcwd(), "shape": [n_ir, t_len],
+               "ms": events_ms(call, 5), "device_ms": device_ms(call, 5), "device": card}
+        if trace:
+            row["kernel_device_us"] = kernel_device_us(call, 5)
+        print(json.dumps(row), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5"],
-                    required=True)
+    ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5",
+                                         "r1", "r3"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
@@ -173,6 +248,8 @@ def main(argv=None) -> int:
                          "and 128-row query tiles at B <= 2, in turns; k4a: each block "
                          "(batch rows, query rows, keys a tile) of the f32 route, "
                          "in turns")
+    ap.add_argument("--trace", action="store_true",
+                    help="r1, r3: the device µs a call of each CUDA kernel, by torch.profiler")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -246,6 +323,8 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, bias_t
         return 0
+    if args.kernel in ("r1", "r3"):
+        return profile_recurrence(args.kernel, dev, card, g, args.trace)
     if args.kernel == "k5":
         for i, (shape, dtype, film) in enumerate(K5_SHAPES):
             x, scale, bias, fs, sh = k5_inputs(shape, dtype, film, 200 + i)

@@ -2696,6 +2696,21 @@ def phase_checkpoints() -> dict:
 # builder and the MIRAGE CLI.
 
 FMA_LATENCY_CYCLES = 4         # a dependent f32 FMA (or select) on the SM
+# f32 operations a sample: R1 5 multiply-adds a section, R2 two
+# multiply-adds, a product and a select, R3 per comb the damping and the
+# feedback (2 multiply-adds and a product) and the sum, per allpass a
+# multiply-add and a difference
+REC_OPS_PER_SAMPLE = {"sosfilt": 10, "envelope": 7, "freeverb_ir": 8 * 7 + 4 * 3}
+# R1-R3's distance from float64 on the card in their serial designs (R1
+# and R2 a thread a row, R3's damping chains a thread a comb; PERF.md's
+# recurrence table): a case may sit no further than the larger of 1e-6
+# and twice that
+REC_SERIAL_REL_RMS_VS_F64 = {("sosfilt", "tpt"): 5.4e-8, ("sosfilt", "phaser"): 6.0e-7,
+                             ("sosfilt", "loudness"): 8.8e-5,
+                             ("sosfilt", "apps_lowpass"): 5.4e-8,
+                             ("sosfilt", "apps_highpass"): 2.5e-7,
+                             ("envelope", None): 4.2e-6,
+                             ("freeverb_ir", "xae"): 3.1e-7, ("freeverb_ir", "apps"): 2.1e-7}
 XAE_CHUNK, XAE_KNOBS, XAE_CLIPS = 262144, 32, 2
 IO_FX_CLI_PHASES = ("io", "mirage_cli", "recurrence", "effects", "xae")   # budget ~90 s together
 PITCH_STFT = (XAE_CLIPS * 2, XAE_CHUNK)   # PitchShift's stft rows: clips x stereo
@@ -2714,18 +2729,24 @@ def sm_clock_hz() -> float:
     return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
-def rec_bound(rows: int, t_len: int, steps_per_sample: int, io_tensors: int = 2) -> dict:
-    """A recurrence's least time: its bytes (each f32 input read once, each
-    output written once) over the HBM rate, or its serial chain (t_len
-    samples x the dependent steps a sample x one FMA's latency) at the SM's
-    clock, whichever is larger."""
+def rec_bound(name: str, rows: int, t_len: int, steps_per_sample: int, n_sec: int = 1,
+              io_tensors: int = 2) -> dict:
+    """A recurrence's bound, the least time the card could take: the larger
+    of its bytes (each f32 input read once, each output written once) over
+    the HBM rate and its f32 operations (REC_OPS_PER_SAMPLE, x n_sec for
+    R1) over the f32 peak. Beside it `serial_chain_ms`, what a design that
+    walks each row with one thread could reach at best: t_len samples x the
+    dependent steps a sample x one FMA's latency at the SM's clock. It is
+    not the bound: R1 and R3 cut time apart."""
     t_bytes = io_tensors * rows * t_len * 4 / HBM_BYTES_PER_S * 1e3
-    t_chain = t_len * steps_per_sample * FMA_LATENCY_CYCLES / sm_clock_hz() * 1e3
-    return {"bound_ms": max(t_bytes, t_chain), "bytes_ms": t_bytes, "chain_ms": t_chain,
-            "bound_by": "bytes" if t_bytes >= t_chain else "operations",
-            "bound_kind": "bytes" if t_bytes >= t_chain else
-            f"serial chain: {t_len} samples x {steps_per_sample} dependent op(s) x "
-            f"{FMA_LATENCY_CYCLES} cycles"}
+    t_ops = rows * t_len * REC_OPS_PER_SAMPLE[name] * n_sec / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_kind": f"{'bytes' if t_bytes >= t_ops else 'f32 operations'}: "
+                          f"{io_tensors} x {rows} x {t_len} f32 at 3.35 TB/s, "
+                          f"{REC_OPS_PER_SAMPLE[name] * n_sec} FLOP a sample at 67 TF/s",
+            "serial_chain_ms": t_len * steps_per_sample * FMA_LATENCY_CYCLES
+            / sm_clock_hz() * 1e3}
 
 
 def _envelope_f64(x, a_att, a_rel):
@@ -2770,15 +2791,19 @@ def _rel_rms_np(a, b) -> float:
 
 
 def phase_recurrence() -> dict:
-    """R1, R2 and R3 on the card at the xae path's shapes, and R1 and R3 at
-    the apps path's too: each against its twin (R1 at full length; R2 and R3, whose twins loop, at
+    """R1, R2 and R3 on the card at the xae path's shapes, R1 and R3 at the
+    apps path's too, and R1 where its chunked scan's edges lie: each
+    against its twin (R1 at full length; R2 and R3, whose twins loop, at
     REC_TWIN_T), at full length against a float64 recurrence on a subset
-    of rows, and timed beside its twin and its bound."""
+    of rows, and timed beside its twin, its bound and its serial chain.
+    R1's rows give the chunk length and count and the launches a call,
+    each checked."""
     import numpy as np
     import scipy.signal
     import torch
     from audio_algebra_torch.ops import effects as fx
     from audio_algebra_torch.ops import recurrence as rec
+    from audio_algebra_torch.ops.filters import butter_sos
     from audio_algebra_torch.ops.loudness import _k_weighting_sos
 
     dev = torch.device("cuda")
@@ -2794,19 +2819,27 @@ def phase_recurrence() -> dict:
         length); `full`: the kernel at full length; `f64`: the float64
         recurrence of rows `pick` at full length. The kernel must be as
         close to float64 as the twin (or within REC_REL_RMS), and as close
-        to the twin as twice the twin's own distance from float64."""
+        to the twin as twice the twin's own distance from float64; a case
+        of REC_SERIAL_REL_RMS_VS_F64 no further from float64 than the larger
+        of 1e-6 and twice its distance there."""
         n = want.shape[-1]
         row = {"max_abs_err": (got - want).abs().max().item(),
                "rel_rms_vs_twin": rel_rms(got.double(), want.double()),
                "rel_rms_vs_f64": _rel_rms_np(full[pick].cpu().numpy(), f64),
                "twin_rel_rms_vs_f64": _rel_rms_np(want[pick].cpu().numpy(), f64[:, :n]),
                "kernel_ms": ms["call"], "kernel_device_ms": ms["device"],
+               "bound_share": bound["bound_ms"] / ms["device"],
                "plain_ms": plain_ms, "plain_shape": plain_shape, "library_ms": None,
                "library": "chain: no PyTorch call computes a recurrence", **bound, **extra}
+        earlier = REC_SERIAL_REL_RMS_VS_F64.get((name, extra.get("case")))
+        if earlier is not None:
+            row["f64_limit"] = max(1e-6, 2 * earlier)
         out.setdefault(name, []).append(row)
         emit({"phase": "recurrence", "kernel": name, **row})
         if not (row["rel_rms_vs_f64"] <= max(REC_REL_RMS, row["twin_rel_rms_vs_f64"])
-                and row["rel_rms_vs_twin"] <= max(REC_REL_RMS, 2 * row["twin_rel_rms_vs_f64"])):
+                and row["rel_rms_vs_twin"] <= max(REC_REL_RMS, 2 * row["twin_rel_rms_vs_f64"])
+                and row["rel_rms_vs_f64"] <= row.get("f64_limit", math.inf)
+                and row["bound_share"] <= 1.0):
             raise AssertionError(f"{name}: {row}")
 
     def times(fn, iters):
@@ -2834,9 +2867,28 @@ def phase_recurrence() -> dict:
         k = torch.tensor(fx.knob_sweep(effect, APPS_KNOBS), dtype=torch.float32, device=dev)
         cases[f"apps_{kind}"] = (fx._tpt_first_order_sos(k, 48000, kind).repeat_interleave(2, 0),
                                  randn(2 * APPS_KNOBS, CHUNK))
+    # and where the chunked scan's edges lie: a last chunk shorter than L
+    # (100,000 = 781 x 128 + 32; 200,000 = 781 x 256 + 64), a row too short
+    # to cut (96 samples: one chunk, a thread a row), 8 sections with a
+    # row's own coefficients, 9 (two launches: 8 + 1)
+    cut = torch.linspace(1500.0, 12000.0, 64, device=dev)
+    butter = butter_sos(2, cut, 48000, "lowpass")                         # (64, 1, 6)
+    cases |= {"ragged": (butter.repeat(1, 2, 1), randn(64, 100_000)),
+              "ragged_l256": (butter[:2].repeat(1, 2, 1), randn(2, 200_000)),
+              "short": (butter[:16].repeat(1, 2, 1), randn(16, 96)),
+              "sections8": (butter[:32].repeat(1, 8, 1), randn(32, 20000)),
+              "sections9": (butter[:32].repeat(1, 9, 1), randn(32, 20000))}
     for case, (sos, x) in cases.items():
+        groups = -(-sos.shape[1] // rec.MAX_SECTIONS)
+        before = (rec.launches["sosfilt"], rec.cuda_launches["sosfilt"])
         y = rec.sosfilt_rows(sos, x)
         torch.cuda.synchronize()
+        length, chunks = rec.chunk_plan(x.shape[0], x.shape[1] + (-x.shape[1] % 4))
+        cuda_per_call = rec.cuda_launches["sosfilt"] - before[1]
+        if (rec.launches["sosfilt"] - before[0], cuda_per_call) != \
+                (groups, groups * (3 if chunks > 1 else 1)):
+            raise AssertionError(f"sosfilt ({case}): launches {before} -> "
+                                 f"{rec.launches['sosfilt']}, {rec.cuda_launches['sosfilt']}")
         want = rec.sosfilt_rows_ref(sos, x)
         pick = [0, x.shape[0] - 1]
         f64 = [scipy.signal.sosfilt(sos[min(r, sos.shape[0] - 1)].double().cpu().numpy(),
@@ -2844,8 +2896,10 @@ def phase_recurrence() -> dict:
         held("sosfilt", y, want, pick, y, np.stack(f64),
              times(lambda: rec.sosfilt_rows(sos, x), 10),
              cuda_ms(lambda: rec.sosfilt_rows_ref(sos, x), 2), list(x.shape),
-             rec_bound(x.shape[0], x.shape[1], 2), case=case, shape=list(x.shape),
-             sections=sos.shape[1], coefficients_per_row=sos.shape[0] != 1)
+             rec_bound("sosfilt", x.shape[0], x.shape[1], 2, n_sec=sos.shape[1]), case=case,
+             shape=list(x.shape), sections=sos.shape[1],
+             coefficients_per_row=sos.shape[0] != 1, chunk_len=length, chunks=chunks,
+             launches_a_call=groups, cuda_launches_a_call=cuda_per_call)
 
     # R2 at the compressor's (2 clips x 2 channels, 262144): against the twin
     # at REC_TWIN_T, at full length against float64 on one row
@@ -2861,7 +2915,7 @@ def phase_recurrence() -> dict:
     held("envelope", short, want, [0], env,
          _envelope_f64(x[0].cpu().numpy(), a_att, a_rel)[None],
          times(lambda: rec.envelope(x, a_att, a_rel), 10), plain_ms, [x.shape[0], t_short],
-         rec_bound(x.shape[0], XAE_CHUNK, 2), shape=list(x.shape))
+         rec_bound("envelope", x.shape[0], XAE_CHUNK, 2), shape=list(x.shape))
 
     # R3 at the reverb sweeps' knobs x 2 spreads: the xae path's 32 knobs,
     # n = 262144, and the apps path's APPS_KNOBS, n = CHUNK
@@ -2882,7 +2936,8 @@ def phase_recurrence() -> dict:
              _freeverb_ir_f64(float(fb[last]), float(dm[last]), t_len, 48000,
                               spreads[last])[None],
              times(lambda: rec.freeverb_irs(fb, dm, spreads, t_len), 5), plain_ms,
-             [2 * n_knobs, n_short], rec_bound(2 * n_knobs, t_len, 1, io_tensors=1),
+             [2 * n_knobs, n_short], rec_bound("freeverb_ir", 2 * n_knobs, t_len, 1,
+                                               io_tensors=1),
              case=case, shape=[2 * n_knobs, t_len],
              prefix_equal=bool(torch.equal(ir[:, :n_short], short)))
         if not out["freeverb_ir"][-1]["prefix_equal"]:
@@ -2998,6 +3053,7 @@ def _zero_effect_counts() -> None:
     from audio_algebra_torch.ops import stft_kernel as stk
     for key in rec.launches:
         rec.launches[key] = 0
+    rec.cuda_launches["sosfilt"] = 0
     stk.launches = stk.fft_launches = stk.dft_launches = 0
 
 
@@ -3880,10 +3936,13 @@ def main() -> int:
                 "launches_by_path": {"xae": xae[key], "effects": fx_counts[key],
                                      **({"apps": apps[key]} if key in apps else {})},
                 "device_ms": row["kernel_device_ms"], "plain_shape": row["plain_shape"],
-                "bound_kind": row["bound_kind"],
-                "cases": [{k: r.get(k) for k in ("case", "shape", "kernel_ms", "kernel_device_ms",
-                                                  "bound_ms", "max_abs_err", "rel_rms_vs_f64",
-                                                  "twin_rel_rms_vs_f64", "plain_ms")}
+                "bound_kind": row["bound_kind"], "serial_chain_ms": row["serial_chain_ms"],
+                "cases": [{k: r.get(k) for k in ("case", "shape", "sections", "chunk_len",
+                                                  "chunks", "cuda_launches_a_call", "kernel_ms",
+                                                  "kernel_device_ms", "bound_ms", "bound_share",
+                                                  "serial_chain_ms", "max_abs_err",
+                                                  "rel_rms_vs_f64", "twin_rel_rms_vs_f64",
+                                                  "plain_ms")}
                           for r in rows], **extra}
 
     emit({"kernels": [

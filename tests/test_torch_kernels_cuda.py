@@ -17,7 +17,8 @@ at other n_fft, against its twin and float64; the attention site of a
 training UNet at T = 1024 without the training kernels; the turbo int8 conv (int8 tensor cores) against the
 same integer arithmetic on the CPU; and the effects bank's recurrences R1
 (the biquad cascade, 1-12 sections, per-row or shared coefficients, ragged
-lengths), R2 (the compressor's envelope) and R3 (Freeverb's impulse
+lengths, its chunked scan with short last chunks, a row too short to
+cut and 8 or 9 sections), R2 (the compressor's envelope) and R3 (Freeverb's impulse
 responses, both spreads, at 48 and 44.1 kHz) against their twins and
 float64, with the effects that run on them. These tests need a
 CUDA device (marker `cuda`) and skip without one. The file imports no
@@ -768,6 +769,37 @@ def test_sosfilt_kernel_matches_twin_and_f64(cuda_device, rows, t_len, n_sec, pe
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,t_len,n_sec", [
+    (4, 5000, 2),               # 40 chunks of 128, the last 8 samples
+    (3, 96, 2),                 # too short to cut: one chunk, a thread a row
+    (8, 20000, 8),              # 8 sections, a row's own: 157 chunks of 128
+    (8, 20000, 9),              # 9 sections: two launches, 8 + 1
+    (2, 200000, 2),             # 782 chunks of 256, the last 64
+])
+def test_sosfilt_chunked_scan_edges(cuda_device, rows, t_len, n_sec):
+    """R1's chunked scan where its chunks end: against the twin and
+    float64, with its launches counted."""
+    import numpy as np
+    import scipy.signal
+    from audio_algebra_torch.ops.filters import butter_sos
+    g = torch.Generator(device=cuda_device).manual_seed(t_len + n_sec)
+    x = 0.3 * torch.randn((rows, t_len), generator=g, device=cuda_device)
+    cut = torch.linspace(1500.0, 12000.0, rows, device=cuda_device)
+    sos = butter_sos(2, cut, 48000, "lowpass").repeat(1, n_sec, 1)         # (R, n_sec, 6)
+    length, chunks = rec.chunk_plan(rows, t_len)
+    before = (rec.launches["sosfilt"], rec.cuda_launches["sosfilt"])
+    got = rec.sosfilt_rows(sos, x)
+    torch.cuda.synchronize()
+    groups = -(-n_sec // rec.MAX_SECTIONS)
+    assert (rec.launches["sosfilt"] - before[0], rec.cuda_launches["sosfilt"] - before[1]) \
+        == (groups, groups * (3 if chunks > 1 else 1))
+    assert (chunks > 1) == (t_len > rec.MIN_CHUNK)
+    assert _rel_rms(got, rec.sosfilt_rows_ref(sos, x)) < 1e-4
+    f64 = scipy.signal.sosfilt(sos[-1].double().cpu().numpy(), x[-1].double().cpu().numpy())
+    assert _rel_rms(got[-1], torch.from_numpy(np.asarray(f64))) < 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,t_len", [(1, 5), (4, 16384), (40, 2000)])
 def test_envelope_kernel_matches_twin(cuda_device, rows, t_len):
     g = torch.Generator(device=cuda_device).manual_seed(rows)
@@ -791,7 +823,8 @@ def test_freeverb_kernel_matches_twin(cuda_device, sr):
     torch.cuda.synchronize()
     assert rec.launches["freeverb_ir"] == before + 1
     assert _rel_rms(got, rec.freeverb_irs_ref(fb, dm, spreads, 3000, sr)) < 1e-6
-    assert torch.equal(rec.freeverb_irs(fb, dm, spreads, 1000, sr), got[:, :1000])
+    for n_short in (1, 243, 245, 1000):       # inside, at and past the first chunk's end
+        assert torch.equal(rec.freeverb_irs(fb, dm, spreads, n_short, sr), got[:, :n_short])
 
 
 @pytest.mark.cuda
