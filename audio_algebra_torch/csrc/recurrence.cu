@@ -14,7 +14,11 @@
 // R2 aa_envelope replaces audio_algebra_tpu/ops/effects.py:97-102 (the
 //   compressor's `lax.scan`): env = c env + (1 - c) |x|, c = a_att where
 //   |x| > env, else a_rel, from env = 0. It is not affine, so it has no
-//   associative form.
+//   associative form; but for a level l the step e -> c e + (1 - c) l is
+//   piecewise affine in e with two pieces, continuous (both give l at e =
+//   l) and monotone with slopes in (0, 1). So a chunk's map is affine for a
+//   fixed branch pattern, and an error in a chunk's start never grows
+//   within it: R2 cuts time apart by Newton rounds over chunks (below).
 // R3 aa_freeverb_ir replaces audio_algebra_tpu/ops/effects.py:178-223
 //   (`freeverb_ir`'s `lax.scan`): the impulse response of JUCE's Freeverb wet
 //   path, 8 damped feedback combs summed, then 4 series allpasses.
@@ -23,7 +27,7 @@
 // responses written), at the HBM rate; a few FLOP a sample are far under
 // the f32 peak. A design that walks a row with one thread is held instead
 // by its serial chain (T dependent steps), and the xae path's shapes have
-// too few rows to fill 132 SMs that way, so R1 and R3 cut time apart.
+// too few rows to fill 132 SMs that way, so all three cut time apart.
 //
 // The staging that R1 and R2 share: one warp runs 32 segments of rows, a
 // thread a segment, the state in registers. A thread reading its own
@@ -33,7 +37,8 @@
 // segment, 16 a lane) while each thread runs its segment's 128 samples of the
 // current one, 32 at a time moved into registers (float4 reads, row stride
 // 132 words: no bank conflict), so no load sits on the chain; the warp
-// stores the tile back with 16-byte stores. R2 runs a segment a row.
+// stores the tile back with 16-byte stores. R2's one-chunk route runs a
+// segment a row; its chunked route gives each warp of a block its own tile.
 //
 // R1, a chunked time scan. The cascade is linear in its 2N-float state s, so
 // each row's time is cut into C chunks of L samples (L a power of two, at
@@ -59,6 +64,26 @@
 // (`chunk_plan`); with one chunk only pass 3 runs, from zero state: a
 // thread a row. The cascade is instantiated for 1-8
 // sections, each unrolled with its state in registers.
+//
+// R2, Newton rounds over chunks (the DEER scheme of Lim et al., ICLR 2024,
+// at chunk granularity). Each row's time is cut into C chunks of L samples
+// (ops/recurrence.envelope_plan: L a power of two from 128, C <= 2,048), a
+// row to a cluster of up to 8 blocks of up to 8 warps, a thread a chunk, in
+// one launch, each block's chunks held in its shared memory where they fit
+// (`envelope_blocks`). Every chunk runs from a guessed start (0), keeping its end and
+// the product of the coefficients it took (counted as attack steps: a_att^n
+// a_rel^(L - n), in float64). A float64 scan of the affine maps s_{k+1} =
+// E_k + P_k (s_k - g_k) carries new starts across the row; every chunk
+// re-runs from them and its end is compared with the next chunk's start.
+// After round r the first r chunks are exact (chunk 0 starts at its true
+// 0), so the rounds end; in practice a few do (PERF.md). A chunk that
+// passes the check within tolerance tau has an output within tau |s| of
+// the walk from the exact start, since the step is 1-Lipschitz. After
+// kEnvMaxRounds carries a row still failing is walked serially from its
+// first failing chunk: at worst the serial walk's cost. The rounds, the
+// check and the carry run on the device between cluster barriers, so the
+// wrapper never waits on the host. Where rows alone fill the card or a row
+// is at most 128 samples, one chunk: envelope_kernel, a thread a row.
 //
 // R3: one block of 512 threads an impulse response, every delay line in
 // shared memory (8 x <= 1,785 + 4 x <= 630 floats at 48 kHz, plus the
@@ -92,13 +117,16 @@
 //
 // C interface (bound with ctypes): each function launches on the given
 // stream, allocates nothing (R1's scratch comes from the caller,
-// aa_sosfilt_scratch_bytes says how much), does not synchronise, and
-// returns cudaGetLastError(). R1 and R2 take rows of a length that is a
-// multiple of 4, 16-byte aligned (ops/recurrence.py pads), fewer than 2^31
-// elements in all.
+// aa_sosfilt_scratch_bytes says how much; R2's round counts go to the
+// caller's stats), does not synchronise, and returns cudaGetLastError().
+// R1 and R2 take rows of a length that is a multiple of 4, 16-byte aligned
+// (ops/recurrence.py pads), fewer than 2^31 elements in all.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cgs = cooperative_groups;
 
 namespace {
 
@@ -107,6 +135,16 @@ constexpr int kTile = 128;         // samples a staged tile
 constexpr int kLd = kTile + 4;     // a tile row's stride: 16-byte rows, no bank conflict
 constexpr int kChunk = 32;         // samples a thread holds in registers at once
 constexpr unsigned kFull = 0xffffffffu;
+// R2's chunked route: warps a block (a streamed block's: a tile each),
+// blocks a cluster (a row)
+constexpr int kEnvWarps = 8;
+constexpr int kEnvStreamWarps = 4;
+constexpr int kEnvMaxCluster = 8;
+constexpr int kEnvMaxRounds = 32;                 // carries before the repair
+constexpr float kEnvTol = 1.0f / 524288.0f;       // 2^-19, relative, at the chunk ends
+constexpr float kEnvFloor = 1e-30f;               // |s| below it compared as 1e-30
+constexpr int kNone = 0x7fffffff;                 // no failing chunk
+constexpr long long kEnvResidentBytes = 200 * 1024;   // a block's dynamic shared memory at most
 
 constexpr int kCombs = 8;
 constexpr int kAllpasses = 4;
@@ -214,15 +252,16 @@ template <bool WHOLE>
 __device__ __forceinline__ void load_tile(float (*dst)[kLd], const float* __restrict__ x,
                                           const Segs& sg, int row0, int k0, int n_seg,
                                           int t0) {
-  const int col = t0 + 4 * threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const int col = t0 + 4 * lane;
   if (WHOLE) {
     if (col < sg.t_len) {
       for (int r = 0; r < n_seg; ++r)
-        cp_async16(&dst[r][4 * threadIdx.x], x + (row0 + r) * sg.t_len + col);
+        cp_async16(&dst[r][4 * lane], x + (row0 + r) * sg.t_len + col);
     }
   } else {
     for (int r = 0, row = row0, k = k0; r < n_seg; ++r) {
-      if (col < sg.length(k)) cp_async16(&dst[r][4 * threadIdx.x], x + sg.offset(row, k) + col);
+      if (col < sg.length(k)) cp_async16(&dst[r][4 * lane], x + sg.offset(row, k) + col);
       if (++k == sg.per_row) {
         k = 0;
         ++row;
@@ -234,19 +273,19 @@ __device__ __forceinline__ void load_tile(float (*dst)[kLd], const float* __rest
 
 // One warp runs `step` along segments [v0, v0 + 32) of `sg` (those below
 // n_total), a thread a segment, over min(chunk_len, t_len) samples, in
-// tiles of 32 segments x kTile samples double-buffered in shared memory:
-// the next tile's cp.async copy is in flight while a thread steps through
-// its segment of the current one, kChunk samples at a time in registers.
-// With STORE the warp writes each segment's outputs back to y at the same
-// offsets with 16-byte stores; without, only the final state (in `step`)
-// is kept. Past its length a thread steps on whatever the tile holds; its
-// state there is never used. WHOLE: a segment a row (sg.per_row == 1), as
-// R2 runs.
+// tiles of 32 segments x kTile samples double-buffered in the warp's
+// `tile` (shared memory, [2][kRows][kLd]): the next tile's cp.async copy is
+// in flight while a thread steps through its segment of the current one,
+// kChunk samples at a time in registers. With STORE the warp writes each
+// segment's outputs back to y at the same offsets with 16-byte stores;
+// without, only the final state (in `step`) is kept. Past its length a
+// thread steps on whatever the tile holds; its state there is never used.
+// WHOLE: a segment a row (sg.per_row == 1), as R2's one-chunk route runs.
 template <bool STORE, bool WHOLE, typename Step>
-__device__ void scan_segments(const float* __restrict__ x, float* __restrict__ y,
-                              const Segs& sg, long long v0, long long n_total, Step& step) {
-  __shared__ __align__(16) float tile[2][kRows][kLd];
-  const int lane = threadIdx.x;
+__device__ void scan_segments(float (*tile)[kRows][kLd], const float* __restrict__ x,
+                              float* __restrict__ y, const Segs& sg, long long v0,
+                              long long n_total, Step& step) {
+  const int lane = threadIdx.x % 32;
   const int n_seg = static_cast<int>(min(static_cast<long long>(kRows), n_total - v0));
   const int row0 = static_cast<int>(v0 / sg.per_row), k0 = static_cast<int>(v0 % sg.per_row);
   const int span = min(sg.chunk_len, sg.t_len);
@@ -369,6 +408,7 @@ sosfilt_ends_kernel(const float* __restrict__ x, const float* __restrict__ sos,
                     float* __restrict__ ends, double* __restrict__ phi, int rows, int t_len,
                     int sos_stride, int chunk_len, int n_chunks, int n_phi) {
   constexpr int S = 2 * NSEC;
+  __shared__ __align__(16) float tile[2][kRows][kLd];
   const int n_phi_blocks = phi_blocks<NSEC>(n_phi);
   if (static_cast<int>(blockIdx.x) < n_phi_blocks) {
     step_unit_states<NSEC>(sos, sos_stride, phi, n_phi, blockIdx.x, chunk_len);
@@ -381,7 +421,7 @@ sosfilt_ends_kernel(const float* __restrict__ x, const float* __restrict__ sos,
   const int row = static_cast<int>(v / sg.per_row), k = static_cast<int>(v % sg.per_row);
   Biquads<NSEC> step;
   step.init(sos + static_cast<size_t>(row) * sos_stride, nullptr);
-  scan_segments<false, false>(x, nullptr, sg, v0, n_total, step);
+  scan_segments<false, false>(tile, x, nullptr, sg, v0, n_total, step);
   const int g = carry_groups(n_chunks);
   if (v0 + threadIdx.x < n_total)
     step.store_state(ends + (static_cast<size_t>(row) * 32 * g + carry_slot(k, g)) * S);
@@ -550,6 +590,7 @@ __global__ void __launch_bounds__(kRows)
 sosfilt_kernel(const float* __restrict__ x, const float* __restrict__ sos,
                const float* __restrict__ starts, float* __restrict__ y, int rows, int t_len,
                int sos_stride, int chunk_len, int n_chunks) {
+  __shared__ __align__(16) float tile[2][kRows][kLd];
   const Segs sg{n_chunks, chunk_len, t_len};
   const long long n_total = static_cast<long long>(rows) * n_chunks;
   const long long v0 = static_cast<long long>(blockIdx.x) * kRows;
@@ -560,16 +601,288 @@ sosfilt_kernel(const float* __restrict__ x, const float* __restrict__ sos,
   step.init(sos + static_cast<size_t>(row) * sos_stride,
             k > 0 ? starts + (static_cast<size_t>(row) * 32 * g + carry_slot(k - 1, g)) * 2 * NSEC
                   : nullptr);
-  scan_segments<true, false>(x, y, sg, v0, n_total, step);
+  scan_segments<true, false>(tile, x, y, sg, v0, n_total, step);
 }
 
 __global__ void __launch_bounds__(kRows)
 envelope_kernel(const float* __restrict__ x, float* __restrict__ env, int rows, int t_len,
                 float a_att, float a_rel) {
+  __shared__ __align__(16) float tile[2][kRows][kLd];
   Envelope step;
   step.init(a_att, a_rel);
-  scan_segments<true, true>(x, env, Segs{1, t_len, t_len},
+  scan_segments<true, true>(tile, x, env, Segs{1, t_len, t_len},
                             static_cast<long long>(blockIdx.x) * kRows, rows, step);
+}
+
+// The envelope step, counting the attack steps it takes (the chunk's slope
+// is a_att^n_att a_rel^(L - n_att)); the step itself is Envelope's.
+struct EnvelopeCount {
+  Envelope e;
+  int n_att;
+
+  __device__ void init(float att, float rel, float start) {
+    e.init(att, rel);
+    e.env = start;
+    n_att = 0;
+  }
+
+  __device__ __forceinline__ float operator()(float v) {
+    n_att += fabsf(v) > e.env;
+    return e(v);
+  }
+};
+
+// An affine map d -> a d + b, in float64; then(f, g) is g after f.
+struct Affine {
+  double a, b;
+};
+
+__device__ __forceinline__ Affine then(const Affine& f, const Affine& g) {
+  return {g.a * f.a, fma(g.a, f.b, g.b)};
+}
+
+// What a block of R2's chunked route publishes each pass for the blocks
+// after it: its chunks' carry maps composed (the link from the block
+// before left out), its first chunk's start, its last chunk's end and
+// slope, and its first chunk that failed against a predecessor in the
+// block.
+struct BlockSum {
+  Affine total;
+  double last_slope;
+  float first_start, last_end;
+  int first_fail;
+};
+
+// R2's resident staging: a warp's 32 chunks held whole in its part of the
+// shared memory, chunk r of the warp in row r (stride L + 4 words: a lane's
+// float4 reads of its own row then miss bank conflicts, as kLd does).
+// Copied in once, 16 bytes a lane of one chunk at a time; past a short last
+// chunk's end a row holds whatever was there, and the thread's state there
+// is never used.
+__device__ void load_resident(float* __restrict__ buf, int ld, const float* __restrict__ x,
+                              const Segs& sg, int row, int k0, int n_seg) {
+  const int lane = threadIdx.x % 32;
+  for (int r = 0; r < n_seg; ++r) {
+    const float* src = x + sg.offset(row, k0 + r);
+    const int len = sg.length(k0 + r);
+    for (int c = 4 * lane; c < len; c += 128) cp_async16(buf + r * ld + c, src + c);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+}
+
+// Each lane runs `step` along its resident chunk (chunk_len samples, kChunk
+// at a time in registers); with STORE the outputs replace the inputs in
+// place, and after each kChunk columns the warp copies them out to y with
+// 16-byte stores (8 lanes a chunk's 128 bytes, 4 chunks a store), which
+// then drain while the next columns run.
+template <bool STORE, typename Step>
+__device__ void run_resident(float* __restrict__ buf, int ld, float* __restrict__ y,
+                             const Segs& sg, int row, int k0, int n_seg, Step& step) {
+  const int lane = threadIdx.x % 32;
+  float* mine = buf + lane * ld;
+  for (int c = 0; c < sg.chunk_len; c += kChunk) {
+    if (lane < n_seg) {
+      float v[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; j += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(mine + c + j);
+        v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) v[j] = step(v[j]);
+      if (STORE) {
+#pragma unroll
+        for (int j = 0; j < kChunk; j += 4)
+          *reinterpret_cast<float4*>(mine + c + j) = make_float4(v[j], v[j + 1], v[j + 2],
+                                                                 v[j + 3]);
+      }
+    }
+    if (STORE) {
+      __syncwarp();
+      const int col = c + 4 * (lane % 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 4 * i + lane / 8;
+        if (r < n_seg && col < sg.length(k0 + r))
+          *reinterpret_cast<float4*>(y + sg.offset(row, k0 + r) + col) =
+              *reinterpret_cast<const float4*>(buf + r * ld + col);
+      }
+    }
+  }
+}
+
+// A warp's run over its chunks from the starts in `step`: RESIDENT from
+// its chunks in shared memory (`smem`: its rows), else streamed from x
+// through its double-buffered tile (`smem`: [2][kRows][kLd]).
+template <bool RESIDENT, bool STORE, typename Step>
+__device__ __forceinline__ void run_chunks(float* smem, int ld, const float* __restrict__ x,
+                                           float* __restrict__ y, const Segs& sg, int row,
+                                           int k0, Step& step) {
+  const int n_seg = min(32, sg.per_row - k0);
+  if (n_seg <= 0) return;
+  if constexpr (RESIDENT) {
+    run_resident<STORE>(smem, ld, y, sg, row, k0, n_seg, step);
+  } else {
+    const long long v0 = static_cast<long long>(row) * sg.per_row + k0;
+    scan_segments<STORE, false>(reinterpret_cast<float (*)[kRows][kLd]>(smem), x, y, sg, v0,
+                                v0 + n_seg, step);
+  }
+}
+
+// R2's chunked route: a cluster of blocks a row (grid rows x n_blocks,
+// clusters of n_blocks), a thread a chunk, chunk k = rank x blockDim.x +
+// threadIdx.x of the row. RESIDENT: each warp copies its 32 chunks into its
+// part of the dynamic shared memory once and every run reads them there
+// (streamed from L2 through scan_segments' tiles instead, a run's waits on
+// the copies took about half its time); else streamed, for rows too long
+// for the cluster's shared memory. The rounds:
+//   run    every chunk from its start s_k (at first the guess 0), keeping
+//          its end E_k and its count of attack steps;
+//   check  chunk k > 0 passes where |E_{k-1} - s_k| <= kEnvTol max(|s_k|,
+//          kEnvFloor); written as !(d > tol), so a NaN passes and carries
+//          on as the serial walk's does. All pass: done;
+//   carry  d_k = s'_k - s_k from d_0 = 0, d_k = P_{k-1} d_{k-1} + (E_{k-1}
+//          - s_k), P_{k-1} the product of chunk k - 1's coefficients: an
+//          inclusive scan of affine maps in float64, over the warp by
+//          shuffles, over the block's warps and the cluster's blocks (the
+//          blocks' totals read through distributed shared memory), then
+//          s_k := s'_k in f32.
+// One cluster barrier a round: each block composes its own links first
+// and publishes the sum (BlockSum, double-buffered by the pass's parity:
+// a block writes a slot again only after the next barrier, when every
+// reader is done), and the links between blocks are composed after the
+// barrier. The runs store nothing (stores in every run cost more than one
+// more pass); after the last round every chunk runs once more from the
+// same starts and writes its outputs. After
+// kEnvMaxRounds carries, the rows still failing are repaired: the thread of
+// the first failing chunk walks from there to the row's end from its
+// predecessor's end (checked exact), over those outputs. stats[row] = the
+// carries run, stats[rows + row] = 1 if the repair ran.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(kEnvWarps * 32)
+envelope_rounds_kernel(const float* __restrict__ x, float* __restrict__ env,
+                       int* __restrict__ stats, int rows, int t_len, int chunk_len,
+                       int n_chunks, float a_att, float a_rel) {
+  extern __shared__ __align__(16) float smem_env[];   // a warp's rows, or its tile
+  __shared__ float ends[kEnvWarps * 32];
+  __shared__ int counts[kEnvWarps * 32];
+  __shared__ Affine warp_total[kEnvWarps];
+  __shared__ int warp_first[kEnvWarps];
+  __shared__ BlockSum sums[2];                         // by the pass's parity
+  cgs::cluster_group cluster = cgs::this_cluster();
+  const int n_blocks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / n_blocks;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_threads = blockDim.x, n_warps = n_threads / 32;
+  const int k = rank * n_threads + tid;                // this thread's chunk
+  const int k0 = rank * n_threads + warp * 32;         // its warp's first
+  const bool inner = tid > 0 && k < n_chunks;          // its predecessor in the block
+  const Segs sg{n_chunks, chunk_len, t_len};
+  const int ld = chunk_len + 4;                        // a resident row's stride
+  float* mine = smem_env + warp * (RESIDENT ? 32 * ld : 2 * kRows * kLd);
+  if (RESIDENT && k0 < n_chunks) load_resident(mine, ld, x, sg, row, k0, min(32, n_chunks - k0));
+  const double ln_att = log(static_cast<double>(a_att));
+  const double ln_rel = log(static_cast<double>(a_rel));
+  auto slope = [&](int n_att) { return exp(n_att * ln_att + (chunk_len - n_att) * ln_rel); };
+  auto fails = [](float end, float s) {                // a NaN passes
+    return fabsf(end - s) > kEnvTol * fmaxf(fabsf(s), kEnvFloor);
+  };
+  auto gap = [](float end, float s) {                  // exact where equal (no inf - inf)
+    return end == s ? 0.0 : static_cast<double>(end) - s;
+  };
+
+  float start = 0.f;                 // s_k: the first guess is zero
+  float prev_end = 0.f;              // E_{k-1} of the last run
+  int rounds = 0, first = kNone;
+  for (int pass = 0;; ++pass) {
+    EnvelopeCount step;
+    step.init(a_att, a_rel, start);
+    run_chunks<RESIDENT, false>(mine, ld, x, nullptr, sg, row, k0, step);
+    ends[tid] = step.e.env;
+    counts[tid] = step.n_att;
+    __syncthreads();
+    // the links within the block; the block's first chunk's link, from the
+    // block before, is composed after the cluster barrier
+    Affine m{1.0, 0.0};
+    if (inner) {
+      prev_end = ends[tid - 1];
+      m = {slope(counts[tid - 1]), gap(prev_end, start)};
+    }
+    const unsigned failed = __ballot_sync(kFull, inner && fails(prev_end, start));
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const Affine up{__shfl_up_sync(kFull, m.a, o), __shfl_up_sync(kFull, m.b, o)};
+      if (lane >= o) m = then(up, m);
+    }
+    if (lane == 31) warp_total[warp] = m;
+    if (lane == 0) warp_first[warp] = failed ? k0 + __ffs(failed) - 1 : kNone;
+    __syncthreads();
+    Affine before{1.0, 0.0}, total{1.0, 0.0};
+    int block_first = kNone;
+    for (int w = 0; w < n_warps; ++w) {
+      if (w < warp) before = then(before, warp_total[w]);
+      total = then(total, warp_total[w]);
+      block_first = min(block_first, warp_first[w]);
+    }
+    const Affine m_local = then(before, m);   // d_k from d at the block's first chunk
+    if (tid == 0)
+      sums[pass & 1] = {total, slope(counts[n_threads - 1]), start, ends[n_threads - 1],
+                        block_first};
+    cluster.sync();                                    // every block's sum
+    // lane r reads block r's sum; each thread then walks the blocks in order:
+    // d at block r's first chunk = P_last(r - 1) d_last(r - 1) + (E_last(r -
+    // 1) - s_first(r)), and that link's check
+    BlockSum theirs{{1.0, 0.0}, 1.0, 0.f, 0.f, kNone};
+    if (lane < n_blocks) theirs = *cluster.map_shared_rank(&sums[pass & 1], lane);
+    double d_first = 0.0, d_mine = 0.0;
+    double a_prev = 1.0, b_prev = 0.0, slope_prev = 1.0;
+    float end_prev = 0.f;
+    first = kNone;
+#pragma unroll
+    for (int r = 0; r < kEnvMaxCluster; ++r) {
+      const double ta = __shfl_sync(kFull, theirs.total.a, r);
+      const double tb = __shfl_sync(kFull, theirs.total.b, r);
+      const double sl = __shfl_sync(kFull, theirs.last_slope, r);
+      const float s_first = __shfl_sync(kFull, theirs.first_start, r);
+      const float e_last = __shfl_sync(kFull, theirs.last_end, r);
+      first = min(first, __shfl_sync(kFull, theirs.first_fail, r));
+      if (r > 0 && r < n_blocks) {
+        d_first = slope_prev * fma(a_prev, d_first, b_prev) + gap(end_prev, s_first);
+        if (fails(end_prev, s_first)) first = min(first, r * n_threads);
+        if (r == rank && tid == 0) prev_end = end_prev;
+      }
+      if (r == rank) d_mine = d_first;
+      a_prev = ta;
+      b_prev = tb;
+      slope_prev = sl;
+      end_prev = e_last;
+    }
+    if (first == kNone || rounds == kEnvMaxRounds) break;
+    start = static_cast<float>(start + fma(m_local.a, d_mine, m_local.b));
+    ++rounds;
+  }
+  EnvelopeCount step;                // the outputs, from the last run's starts
+  step.init(a_att, a_rel, start);
+  run_chunks<RESIDENT, true>(mine, ld, x, env, sg, row, k0, step);
+  const bool repair = first != kNone;
+  if (repair) {
+    cluster.sync();                                    // the chunks' outputs first
+    if (k == first) {
+      Envelope walk;
+      walk.init(a_att, a_rel);
+      walk.env = prev_end;
+      const int base = row * t_len;
+      for (int t = k * chunk_len; t < t_len; ++t) env[base + t] = walk(x[base + t]);
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    stats[row] = rounds;
+    stats[rows + row] = repair;
+  }
+  cluster.sync();                    // no block leaves while its sums may be read
 }
 
 __host__ __device__ inline int delay_size(int sr, int tuning, int spread) {
@@ -835,13 +1148,72 @@ extern "C" int aa_sosfilt(const float* x, const float* sos, float* y, void* scra
 #undef AA_SOSFILT_CASE
 }
 
-extern "C" int aa_envelope(const float* x, float* env, int rows, int t_len, float a_att,
-                           float a_rel, void* stream) {
-  if (rows < 1 || t_len < 1 || t_len % 4 || static_cast<long long>(rows) * t_len >= (1LL << 31))
+// R2's chunked route: one cluster launch, a cluster of ceil(C / (32
+// warps)) blocks a row (at most kEnvMaxCluster), resident or streamed as
+// ops/recurrence.envelope_blocks picks: resident, a warp's 32 chunks in
+// (L + 4) x 32 words; streamed, a warp's double-buffered tile. A cluster of
+// at most 8 blocks of 256 threads and 201 KB fits a GPC of the H100; a
+// launch that does not fit returns its error.
+template <bool RESIDENT>
+static cudaError_t launch_envelope_rounds(const float* x, float* env, int* stats, int rows,
+                                          int t_len, int chunk_len, int n_chunks, int warps,
+                                          size_t smem, float a_att, float a_rel,
+                                          cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(envelope_rounds_kernel<RESIDENT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(kEnvResidentBytes));
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int threads = 32 * warps;
+  const int n_blocks = (n_chunks + threads - 1) / threads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * n_blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_blocks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, envelope_rounds_kernel<RESIDENT>, x, env, stats, rows, t_len,
+                            chunk_len, n_chunks, a_att, a_rel);
+}
+
+// x, env: (rows, t_len) f32. chunk_len 0, or at least t_len, is one chunk a
+// row (envelope_kernel, a thread a row; the rest unused); else a power of
+// two from kTile, the chunked route in blocks of `warps` warps (resident:
+// 1 to kEnvWarps; streamed: 1 to kEnvStreamWarps), at most kEnvMaxCluster
+// blocks a row, which writes stats: int[2 rows], the carries a row ran,
+// then 1 where its repair ran.
+extern "C" int aa_envelope(const float* x, float* env, int* stats, int rows, int t_len,
+                           int chunk_len, int warps, int resident, float a_att, float a_rel,
+                           void* stream) {
+  if (rows < 1 || t_len < 1 || t_len % 4 || chunk_len < 0 ||
+      static_cast<long long>(rows) * t_len >= (1LL << 31))
     return cudaErrorInvalidValue;
-  envelope_kernel<<<blocks_for(rows), kRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, env, rows, t_len, a_att, a_rel);
-  return cudaGetLastError();
+  const int2 c = sos_chunks(t_len, chunk_len);
+  if (c.x == 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c.y == 1) {
+    envelope_kernel<<<blocks_for(rows), kRows, 0, s>>>(x, env, rows, t_len, a_att, a_rel);
+    return cudaGetLastError();
+  }
+  const size_t smem = resident ? 32ULL * warps * (c.x + 4) * sizeof(float)
+                               : static_cast<size_t>(warps) * 2 * kRows * kLd * sizeof(float);
+  if (!stats || warps < 1 || warps > (resident ? kEnvWarps : kEnvStreamWarps) ||
+      c.y > 32 * warps * kEnvMaxCluster || smem > static_cast<size_t>(kEnvResidentBytes))
+    return cudaErrorInvalidValue;
+  if (resident)
+    return launch_envelope_rounds<true>(x, env, stats, rows, t_len, c.x, c.y, warps, smem,
+                                        a_att, a_rel, s);
+  return launch_envelope_rounds<false>(x, env, stats, rows, t_len, c.x, c.y, warps, smem, a_att,
+                                       a_rel, s);
 }
 
 // The chunk length and shared memory of a launch whose spreads lie in

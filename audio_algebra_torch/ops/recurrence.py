@@ -14,10 +14,14 @@ On a CUDA tensor each wrapper launches its hand-written kernel of
 `csrc/recurrence.cu` (built for sm_90a at first use) or raises; on a CPU
 tensor it takes its plain twin: R1 the log-depth associative scan of JAX's
 default `_biquad_assoc`, written in torch; R2 and R3 step-by-step loops,
-which the tests and `chip_smoke.py` hold at short lengths. `launches`
-counts each kernel's launches (R1: one a group of at most MAX_SECTIONS
-sections); `cuda_launches` counts R1's CUDA launches, three a group when
-its chunked scan cuts time into more than one chunk (`chunk_plan`).
+which the tests and `chip_smoke.py` hold at short lengths. R1 and R2 cut
+time into chunks: R1 as a linear scan (`chunk_plan`), R2 by Newton rounds
+over the chunks of its piecewise-affine step, run on the device in one
+cluster launch (`envelope_plan`; `envelope_stats` reads the rounds of the
+last call). `launches` counts each kernel's launches (R1: one a group of
+at most MAX_SECTIONS sections); `cuda_launches` counts the CUDA launches
+of R1 (three a group when it cuts time into more than one chunk) and R2
+(one a call).
 """
 from __future__ import annotations
 
@@ -29,11 +33,20 @@ SOURCE = "recurrence.cu"
 MAX_SECTIONS = 8                # R1's sections a launch; more are split
 MIN_CHUNK, MAX_CHUNK = 128, 1 << 16    # R1's chunk lengths: powers of two in between
 MAX_SEGMENTS = 1 << 16          # R1's (row, chunk) threads a pass: ~15 warps an SM
+MAX_ENV_CHUNKS = 2048           # R2's chunks a row: a cluster of 8 blocks of 8 warps
+ENV_MAX_CLUSTER = 8             # R2's blocks a row (one cluster)
+ENV_WARPS, ENV_STREAM_WARPS = 8, 4   # R2's warps a block, resident / streamed
+ENV_SMEM_BYTES = 200 * 1024     # R2's shared memory a block: its chunks, or its tiles
+ENV_TILE_BYTES = 2 * 32 * 132 * 4    # a streamed warp's double-buffered tile
+ENV_MAX_ROUNDS = 32             # R2's carries before a row is repaired by a serial walk
+ENV_TOL = 2.0 ** -19            # R2's check at the chunk ends, relative to the start
+ENV_FLOOR = 1e-30               # starts below it are compared as 1e-30
 COMB_TUNINGS = (1116, 1188, 1277, 1356, 1422, 1491, 1557, 1617)
 ALLPASS_TUNINGS = (556, 441, 341, 225)
 
 launches = {"sosfilt": 0, "envelope": 0, "freeverb_ir": 0}
-cuda_launches = {"sosfilt": 0}
+cuda_launches = {"sosfilt": 0, "envelope": 0}
+_envelope_last: dict = {}       # the last call of `envelope` on the card
 
 
 def _lib():
@@ -44,7 +57,7 @@ def _lib():
         lib.aa_sosfilt.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.aa_sosfilt_scratch_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.aa_sosfilt_scratch_bytes.restype = ctypes.c_longlong
-        lib.aa_envelope.argtypes = [vp, vp, ci, ci, cf, cf, vp]
+        lib.aa_envelope.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp]
         lib.aa_freeverb_ir.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         for fn in (lib.aa_sosfilt, lib.aa_envelope, lib.aa_freeverb_ir):
             fn.restype = ci
@@ -218,9 +231,47 @@ def envelope_ref(x: torch.Tensor, a_att: float, a_rel: float) -> torch.Tensor:
     return out
 
 
+def envelope_blocks(chunk_len: int, chunks: int) -> tuple[bool, int] | None:
+    """How R2's chunked route runs C chunks of L: (resident, warps a block),
+    a cluster of at most ENV_MAX_CLUSTER blocks a row. Resident (each warp's
+    32 chunks held in shared memory for every round) with the fewest warps
+    that keep the cluster within ENV_MAX_CLUSTER blocks, where they fit
+    ENV_SMEM_BYTES; else streamed from L2 through a tile a warp, at most
+    ENV_STREAM_WARPS warps; None where neither fits."""
+    warps = -(-chunks // (32 * ENV_MAX_CLUSTER))
+    if warps <= ENV_WARPS and 32 * warps * (chunk_len + 4) * 4 <= ENV_SMEM_BYTES:
+        return True, warps
+    warps = min(ENV_STREAM_WARPS, -(-chunks // 32))
+    if chunks <= 32 * warps * ENV_MAX_CLUSTER and warps * ENV_TILE_BYTES <= ENV_SMEM_BYTES:
+        return False, warps
+    return None
+
+
+def envelope_plan(rows: int, t_len: int) -> tuple[int, int]:
+    """R2's chunk length L and chunk count C for (rows, t_len), t_len as the
+    kernel takes it (a multiple of 4). A row goes to one cluster, a thread
+    a chunk, and every round runs each chunk's L dependent steps, so L is
+    the least power of two from MIN_CHUNK with C <= MAX_ENV_CHUNKS, rows x
+    C <= MAX_SEGMENTS and a launch that `envelope_blocks` can place. One
+    chunk (L = t_len, C = 1: a thread a row) where t_len <= MIN_CHUNK or
+    where the rows alone fill the card: a warp of chunks a row would then
+    take more threads than MAX_SEGMENTS."""
+    if t_len <= MIN_CHUNK or 32 * rows > MAX_SEGMENTS:
+        return t_len, 1
+    length = MIN_CHUNK
+    while True:
+        chunks = -(-t_len // length)
+        if chunks <= MAX_ENV_CHUNKS and rows * chunks <= MAX_SEGMENTS \
+                and envelope_blocks(length, chunks) is not None:
+            break
+        length *= 2
+    return (length, chunks) if chunks > 1 else (t_len, 1)
+
+
 def envelope(x: torch.Tensor, a_att: float, a_rel: float) -> torch.Tensor:
     """R2: the attack / release envelope of |x| for x (rows, T) f32. CPU
-    tensors take the twin; CUDA tensors launch the kernel."""
+    tensors take the twin; CUDA tensors launch the kernel, time cut into
+    chunks by `envelope_plan` and solved by Newton rounds on the device."""
     if x.dim() != 2:
         raise ValueError(f"envelope wants (rows, T), got {tuple(x.shape)}")
     x = x.float()
@@ -228,13 +279,41 @@ def envelope(x: torch.Tensor, a_att: float, a_rel: float) -> torch.Tensor:
         return envelope_ref(x, a_att, a_rel)
     t_len = x.shape[1]
     x = _kernel_rows(x)
+    rows = x.shape[0]
+    length, chunks = envelope_plan(rows, x.shape[1])
+    resident, warps = envelope_blocks(length, chunks) if chunks > 1 else (False, 0)
     env = torch.empty_like(x)
-    err = _lib().aa_envelope(x.data_ptr(), env.data_ptr(), x.shape[0], x.shape[1],
-                             float(a_att), float(a_rel), _stream(x))
+    stats = torch.empty(2 * rows, dtype=torch.int32, device=x.device) if chunks > 1 else None
+    err = _lib().aa_envelope(x.data_ptr(), env.data_ptr(),
+                             stats.data_ptr() if stats is not None else None, rows, x.shape[1],
+                             length if chunks > 1 else 0, warps, int(resident), float(a_att),
+                             float(a_rel), _stream(x))
     if err != 0:
         raise RuntimeError(f"envelope kernel launch failed: CUDA error {err}")
     launches["envelope"] += 1
+    cuda_launches["envelope"] += 1
+    _envelope_last.clear()
+    _envelope_last.update(shape=(rows, x.shape[1]), chunk_len=length, chunks=chunks,
+                          resident=resident, warps=warps, stats=stats)
     return env[:, :t_len]
+
+
+def envelope_stats() -> dict | None:
+    """What the last `envelope` call on the card did: its chunk length and
+    count, resident or streamed and its warps a block (`envelope_blocks`),
+    and per row the carries its rounds ran and whether the repair
+    (a serial walk from the first failing chunk) ran; None before any such
+    call. Reading the round counts waits for the card: chip_smoke.py,
+    profile_kernel.py and the CUDA tests call it, the effects never do."""
+    if not _envelope_last:
+        return None
+    rows = _envelope_last["shape"][0]
+    stats = _envelope_last["stats"]
+    counts = stats.cpu().tolist() if stats is not None else [0] * (2 * rows)
+    return {"chunk_len": _envelope_last["chunk_len"], "chunks": _envelope_last["chunks"],
+            "resident": _envelope_last["resident"], "warps": _envelope_last["warps"],
+            "rounds": counts[:rows], "repaired": [bool(r) for r in counts[rows:]],
+            "cuda_launches_a_call": 1}
 
 
 # --------------------------------------------------------- R3 freeverb_ir ---

@@ -27,11 +27,15 @@ device ms of each block the f32 route can take (1 or 2 batch rows, 64 or
 128 query rows, 64 or 32 keys a tile), in turns. r1 (the biquad cascade
 at chip_smoke.py's xae and apps shapes: the TPT filters' (128, 262144),
 the phaser's (1024, 32768) x 2 sections, loudness's (2, 1440000) x 2
-shared, the apps' (16, 65536)) and r3 (Freeverb's responses, 64 x 262144
-and 16 x 65536), one JSON line a shape with the CUDA-event ms and the
-device ms a call (`--trace`: each CUDA kernel's device µs a call, by
-torch.profiler); they call only the wrappers `sosfilt_rows` and
-`freeverb_irs`, so this script times an earlier checkout's R1 and R3 when
+shared, the apps' (16, 65536)), r2 (the compressor's envelope at the xae
+path's (4, 262144) on noise and on a gate whose level jumps on chunk
+starts, and on its one-chunk route at (4, 96) and (4096, 4096), each line
+with a SHA-256 of the output's bits and, where the checkout has them, the
+chunk plan and the rounds) and r3 (Freeverb's responses, 64 x 262144 and
+16 x 65536), one JSON line a shape with the CUDA-event ms and the device
+ms a call (`--trace`: each CUDA kernel's device µs a call, by
+torch.profiler); they call only the wrappers `sosfilt_rows`, `envelope`
+and `freeverb_irs`, so this script times an earlier checkout's R1-R3 when
 it runs from that checkout's root. Every line names the card.
 """
 from __future__ import annotations
@@ -55,6 +59,8 @@ K4A_BLOCKS = [(1, 64, 64), (2, 64, 64), (2, 64, 32), (1, 128, 64), (2, 128, 64),
 R1_SHAPES = [("tpt", 128, 262144, 1), ("phaser", 1024, 32768, 2), ("loudness", 2, 1440000, 2),
              ("apps", 16, 65536, 1)]        # (case, rows, T, sections)
 R3_SHAPES = [(64, 262144), (16, 65536)]      # (responses, samples)
+R2_CASES = [("noise", 4, 262144), ("gate", 4, 262144), ("one_chunk", 4, 96),
+            ("one_chunk", 4096, 4096)]      # (input, rows, T)
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]
@@ -193,12 +199,47 @@ def kernel_device_us(fn, iters: int) -> dict:
     return out
 
 
+def profile_envelope(dev, card, g, trace: bool) -> int:
+    """R2 through the wrapper alone: R2_CASES, the gate a decaying 220 Hz
+    tone on for 1,024 samples from every multiple of 2,048."""
+    import hashlib
+    import math
+    import torch
+    from audio_algebra_torch.ops import recurrence as rec
+    a_att, a_rel = math.exp(-1.0 / 48.0), math.exp(-1.0 / 4800.0)
+    for kind, rows, t_len in R2_CASES:
+        x = 0.3 * torch.randn((rows, t_len), generator=g, device=dev)
+        if kind == "gate":
+            t = torch.arange(t_len, device=dev, dtype=torch.float32)
+            tone = torch.sin(2 * math.pi * 220.0 * t / 48000) * torch.exp(-(t % 2048) / 600)
+            x = torch.where(t % 2048 < 1024, 0.8 * tone, 0.0).repeat(rows, 1)
+
+        def call():
+            return rec.envelope(x, a_att, a_rel)
+        y = call()
+        torch.cuda.synchronize()
+        row = {"kernel": "r2", "tree": os.getcwd(), "case": kind, "shape": [rows, t_len],
+               "sha256": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
+               "ms": events_ms(call, 20), "device_ms": device_ms(call, 20), "device": card}
+        if hasattr(rec, "envelope_stats"):
+            stats = rec.envelope_stats()
+            row |= {"chunk_len": stats["chunk_len"], "chunks": stats["chunks"],
+                    "resident": stats.get("resident"), "rounds": max(stats["rounds"]),
+                    "rows_repaired": sum(stats["repaired"])}
+        if trace:
+            row["kernel_device_us"] = kernel_device_us(call, 20)
+        print(json.dumps(row), flush=True)
+    return 0
+
+
 def profile_recurrence(kernel, dev, card, g, trace: bool) -> int:
-    """R1 or R3 at their main-path shapes, through the wrappers alone."""
+    """R1, R2 or R3 at their main-path shapes, through the wrappers alone."""
     import torch
     from audio_algebra_torch.ops import recurrence as rec
     from audio_algebra_torch.ops.filters import butter_sos
     from audio_algebra_torch.ops.loudness import _k_weighting_sos
+    if kernel == "r2":
+        return profile_envelope(dev, card, g, trace)
     if kernel == "r1":
         for case, rows, t_len, n_sec in R1_SHAPES:
             x = 0.3 * torch.randn((rows, t_len), generator=g, device=dev)
@@ -237,7 +278,7 @@ def profile_recurrence(kernel, dev, card, g, trace: bool) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5",
-                                         "r1", "r3"], required=True)
+                                         "r1", "r2", "r3"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
@@ -249,7 +290,8 @@ def main(argv=None) -> int:
                          "(batch rows, query rows, keys a tile) of the f32 route, "
                          "in turns")
     ap.add_argument("--trace", action="store_true",
-                    help="r1, r3: the device µs a call of each CUDA kernel, by torch.profiler")
+                    help="r1, r2, r3: the device µs a call of each CUDA kernel, by "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -323,7 +365,7 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, bias_t
         return 0
-    if args.kernel in ("r1", "r3"):
+    if args.kernel in ("r1", "r2", "r3"):
         return profile_recurrence(args.kernel, dev, card, g, args.trace)
     if args.kernel == "k5":
         for i, (shape, dtype, film) in enumerate(K5_SHAPES):

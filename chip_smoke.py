@@ -179,7 +179,10 @@ Phases, each printing one JSON line:
                 at the xae path's shapes: R1 (biquad cascade) at (128,
                 262144) one section a row, (1024, 32768) the phaser's two,
                 (2, 1440000) loudness's K-weighting; R2 (the compressor's
-                envelope) at (4, 262144), its twin at 16384 samples; R3
+                envelope, Newton rounds over chunks) at (4, 262144) on noise,
+                a burst, a gate on chunk starts, a crescendo, DC and zeros
+                (its twin at 16384 samples; rounds and repair flag read),
+                and at (4, 16035), (4, 96) and (40, 2000); R3
                 (Freeverb's impulse response) 64 responses of 262144, its
                 twin at 4096; each timed beside its bound (bytes or the
                 serial chain at the SM clock)
@@ -2716,6 +2719,7 @@ IO_FX_CLI_PHASES = ("io", "mirage_cli", "recurrence", "effects", "xae")   # budg
 PITCH_STFT = (XAE_CLIPS * 2, XAE_CHUNK)   # PitchShift's stft rows: clips x stereo
 REC_TWIN_T = {"envelope": 16384, "freeverb_ir": 4096}    # the loop twins' lengths
 REC_REL_RMS = 1e-4             # R1-R3 vs twin and vs float64 (filters, compressor, reverb)
+REC_ENV_MAX_ERR = 1e-5         # R2's largest error from float64, over the row's peak
 IO_SECONDS, IO_SR = 30, 44100
 MIRAGE_CLI_STEPS = (50, 25)    # inner, outer: cut from 150 + 100 for the time limit
 SERVE_BATCH_STEPS = (20, 10)   # the micro-batcher's requests, cut likewise
@@ -2751,12 +2755,34 @@ def rec_bound(name: str, rows: int, t_len: int, steps_per_sample: int, n_sec: in
 
 def _envelope_f64(x, a_att, a_rel):
     import numpy as np
-    env, out = 0.0, np.empty(x.shape[-1])
-    for t, l in enumerate(np.abs(np.asarray(x, np.float64))):
-        c = a_att if l > env else a_rel
-        env = c * env + (1 - c) * l
-        out[t] = env
-    return out
+    env, out = 0.0, []
+    for level in np.abs(np.asarray(x, np.float64)).tolist():
+        c = a_att if level > env else a_rel
+        env = c * env + (1 - c) * level
+        out.append(env)
+    return np.asarray(out)
+
+
+def envelope_inputs(rows: int, t_len: int, gen) -> dict:
+    """R2's kinds of input, (rows, t_len) f32 on the card each: white noise;
+    a burst of 4,000 samples then silence; a decaying 220 Hz tone gated on
+    for 1,024 samples from every multiple of 2,048 (so its level jumps on
+    chunk starts for L <= 1,024) and silent between; a crescendo (a 440 Hz
+    sine under a linear ramp); a constant 0.5 (ties: l == env); zeros."""
+    import torch
+    dev = gen.device
+    t = torch.arange(t_len, device=dev, dtype=torch.float32)
+    scale = torch.linspace(0.6, 1.0, rows, device=dev)[:, None]
+    burst = 0.8 * torch.randn((rows, t_len), generator=gen, device=dev)
+    burst[:, 4000:] = 0.0
+    tone = torch.sin(2 * math.pi * 220.0 * t / 48000) * torch.exp(-(t % 2048) / 600)
+    phase = torch.arange(rows, device=dev)[:, None]
+    return {"noise": 0.3 * torch.randn((rows, t_len), generator=gen, device=dev),
+            "burst": burst,
+            "gate": scale * torch.where(t % 2048 < 1024, 0.8 * tone, 0.0),
+            "crescendo": torch.sin(2 * math.pi * 440.0 * t / 48000 + phase) * t / t_len,
+            "dc": torch.full((rows, t_len), 0.5, device=dev),
+            "zeros": torch.zeros((rows, t_len), device=dev)}
 
 
 def _freeverb_ir_f64(feedback, damp, n, sr, spread):
@@ -2831,7 +2857,8 @@ def phase_recurrence() -> dict:
                "bound_share": bound["bound_ms"] / ms["device"],
                "plain_ms": plain_ms, "plain_shape": plain_shape, "library_ms": None,
                "library": "chain: no PyTorch call computes a recurrence", **bound, **extra}
-        earlier = REC_SERIAL_REL_RMS_VS_F64.get((name, extra.get("case")))
+        earlier = REC_SERIAL_REL_RMS_VS_F64.get((name, extra.get("case")),
+                                                REC_SERIAL_REL_RMS_VS_F64.get((name, None)))
         if earlier is not None:
             row["f64_limit"] = max(1e-6, 2 * earlier)
         out.setdefault(name, []).append(row)
@@ -2901,21 +2928,76 @@ def phase_recurrence() -> dict:
              coefficients_per_row=sos.shape[0] != 1, chunk_len=length, chunks=chunks,
              launches_a_call=groups, cuda_launches_a_call=cuda_per_call)
 
-    # R2 at the compressor's (2 clips x 2 channels, 262144): against the twin
-    # at REC_TWIN_T, at full length against float64 on one row
+    # R2 at the compressor's (2 clips x 2 channels, 262144) on six kinds of
+    # input (envelope_inputs), then where its plan's edges lie: a length that
+    # is no multiple of 4 or of L, one chunk (the serial route), 40 rows x
+    # 2,000, and a 30 s row whose chunks stream from L2 (too long for the
+    # cluster's shared memory). Each against the twin (the six at REC_TWIN_T
+    # in one twin call, the 30 s row's prefix alone, the others at full
+    # length, on the CPU, where a loop of small steps runs faster), at full
+    # length against float64 on its first row; its rounds, repair flag and
+    # launches read and checked
     a_att, a_rel = math.exp(-1.0 / 48.0), math.exp(-1.0 / 4800.0)
-    x = randn(XAE_CLIPS * 2, XAE_CHUNK)
-    env = rec.envelope(x, a_att, a_rel)
     t_short = REC_TWIN_T["envelope"]
-    short = rec.envelope(x[:, :t_short].contiguous(), a_att, a_rel)
+    env_cases = envelope_inputs(XAE_CLIPS * 2, XAE_CHUNK, gen)
+    stacked = torch.cat([x[:, :t_short] for x in env_cases.values()])
     t0 = time.perf_counter()
-    want = rec.envelope_ref(x[:, :t_short], a_att, a_rel)
+    want_all = rec.envelope_ref(stacked, a_att, a_rel)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    held("envelope", short, want, [0], env,
-         _envelope_f64(x[0].cpu().numpy(), a_att, a_rel)[None],
-         times(lambda: rec.envelope(x, a_att, a_rel), 10), plain_ms, [x.shape[0], t_short],
-         rec_bound("envelope", x.shape[0], XAE_CHUNK, 2), shape=list(x.shape))
+    for name_x, shape in (("ragged", (4, 16035)), ("one_chunk", (4, 96)),
+                          ("rows40", (40, 2000)), ("streamed", (1, IO_SECONDS * 48000))):
+        x = randn(*shape)
+        x[:, shape[1] // 3: shape[1] // 2] *= 6.0
+        env_cases[name_x] = x
+    for i, (case, x) in enumerate(env_cases.items()):
+        rows_x, t_len = x.shape
+        before = (rec.launches["envelope"], rec.cuda_launches["envelope"])
+        env = rec.envelope(x, a_att, a_rel)
+        stats = rec.envelope_stats()
+        if (rec.launches["envelope"] - before[0], rec.cuda_launches["envelope"] - before[1]) \
+                != (1, 1) or stats["repaired"] != [False] * rows_x:
+            raise AssertionError(f"envelope ({case}): launches {before} -> "
+                                 f"{rec.launches['envelope']}, {rec.cuda_launches['envelope']}; "
+                                 f"{stats}")
+        if t_len == XAE_CHUNK:
+            short = rec.envelope(x[:, :t_short].contiguous(), a_att, a_rel)
+            want, twin_ms, twin_shape = (want_all[i * rows_x:(i + 1) * rows_x], plain_ms,
+                                         list(stacked.shape))
+        else:               # at full length (the 30 s row: its prefix), on the CPU
+            twin_x = x[:, :t_short].contiguous() if case == "streamed" else x
+            short = rec.envelope(twin_x, a_att, a_rel) if case == "streamed" else env
+            t0 = time.perf_counter()
+            want = rec.envelope_ref(twin_x.cpu(), a_att, a_rel).to(dev)
+            twin_ms, twin_shape = (time.perf_counter() - t0) * 1e3, list(twin_x.shape)
+        pick = [0]
+        xs = x[pick].double().cpu().numpy()
+        # float64 walks with the coefficients the kernel takes (f32-rounded:
+        # the kernel's own arithmetic) and with exact ones (their rounding
+        # alone puts any f32 walk 1.6e-5 rel-RMS off over a burst's release)
+        f64 = np.stack([_envelope_f64(r, float(np.float32(a_att)), float(np.float32(a_rel)))
+                        for r in xs])
+        f64_exact = np.stack([_envelope_f64(r, a_att, a_rel) for r in xs])
+        peak = max(float(np.abs(f64).max()), 1e-30)
+        got = env[pick].double().cpu().numpy()
+        held("envelope", short, want, pick, env, f64,
+             times(lambda: rec.envelope(x, a_att, a_rel), 10), twin_ms, twin_shape,
+             rec_bound("envelope", rows_x, t_len, 2), case=case, shape=list(x.shape),
+             chunk_len=stats["chunk_len"], chunks=stats["chunks"],
+             resident=stats["resident"], warps_a_block=stats["warps"],
+             rounds=max(stats["rounds"]), rounds_by_row=stats["rounds"],
+             repaired=any(stats["repaired"]), cuda_launches_a_call=1,
+             max_err_over_peak_vs_f64=float(np.abs(got - f64).max()) / peak,
+             rel_rms_vs_f64_exact_coefficients=_rel_rms_np(got, f64_exact),
+             max_err_over_peak_vs_f64_exact_coefficients=float(np.abs(got - f64_exact).max())
+             / peak)
+        row = out["envelope"][-1]
+        # the noise row as the serial design's was held: against exact
+        # coefficients too
+        if not (row["max_err_over_peak_vs_f64"] <= REC_ENV_MAX_ERR
+                and (case != "noise" or row["rel_rms_vs_f64_exact_coefficients"]
+                     <= row["f64_limit"])):
+            raise AssertionError(f"envelope ({case}): {row}")
 
     # R3 at the reverb sweeps' knobs x 2 spreads: the xae path's 32 knobs,
     # n = 262144, and the apps path's APPS_KNOBS, n = CHUNK
@@ -3053,7 +3135,8 @@ def _zero_effect_counts() -> None:
     from audio_algebra_torch.ops import stft_kernel as stk
     for key in rec.launches:
         rec.launches[key] = 0
-    rec.cuda_launches["sosfilt"] = 0
+    for key in rec.cuda_launches:
+        rec.cuda_launches[key] = 0
     stk.launches = stk.fft_launches = stk.dft_launches = 0
 
 
@@ -3942,7 +4025,8 @@ def main() -> int:
                                                   "kernel_device_ms", "bound_ms", "bound_share",
                                                   "serial_chain_ms", "max_abs_err",
                                                   "rel_rms_vs_f64", "twin_rel_rms_vs_f64",
-                                                  "plain_ms")}
+                                                  "plain_ms", "rounds", "repaired",
+                                                  "max_err_over_peak_vs_f64")}
                           for r in rows], **extra}
 
     emit({"kernels": [

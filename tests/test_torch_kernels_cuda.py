@@ -800,16 +800,73 @@ def test_sosfilt_chunked_scan_edges(cuda_device, rows, t_len, n_sec):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,t_len", [(1, 5), (4, 16384), (40, 2000)])
-def test_envelope_kernel_matches_twin(cuda_device, rows, t_len):
+@pytest.mark.parametrize("rows,t_len,kind", [
+    (1, 5, "noise"),            # one chunk: a thread a row
+    (4, 16384, "noise"),        # 128 chunks of 128
+    (40, 2000, "noise"),        # 16 chunks a row, a warp's lanes half used
+    (4, 16384, "gate"),         # the level jumps on chunk starts
+    (4, 16384, "dc"),           # ties: l == env from the first chunk on
+    (3, 16035, "noise"),        # no multiple of 4 or of L: padded, a last chunk of 36
+    (4, 16384, "nan"),          # NaN from sample 5,000 on, as the twin
+])
+def test_envelope_kernel_matches_twin(cuda_device, rows, t_len, kind):
+    """R2 on both routes against the twin, one launch a call, its rounds
+    and repair flag read: every row ends its rounds with no repair."""
+    import math
     g = torch.Generator(device=cuda_device).manual_seed(rows)
     x = 0.3 * torch.randn((rows, t_len), generator=g, device=cuda_device)
     x[:, t_len // 3: t_len // 2] *= 6.0
-    before = rec.launches["envelope"]
+    t = torch.arange(t_len, device=cuda_device, dtype=torch.float32)
+    if kind == "gate":
+        tone = 0.8 * torch.sin(2 * math.pi * 220.0 * t / 48000) * torch.exp(-(t % 2048) / 600)
+        x = torch.where(t % 2048 < 1024, tone, 0.0).repeat(rows, 1)
+    elif kind == "dc":
+        x = torch.full_like(x, 0.5)
+    elif kind == "nan":
+        x[:, 5000] = float("nan")
+    before = (rec.launches["envelope"], rec.cuda_launches["envelope"])
     got = rec.envelope(x, 0.97938, 0.99979)
+    stats = rec.envelope_stats()
     torch.cuda.synchronize()
-    assert rec.launches["envelope"] == before + 1
-    assert _rel_rms(got, rec.envelope_ref(x, 0.97938, 0.99979)) < 1e-5
+    assert (rec.launches["envelope"] - before[0], rec.cuda_launches["envelope"] - before[1]) \
+        == (1, 1)
+    length, chunks = rec.envelope_plan(rows, t_len + (-t_len % 4))
+    assert (stats["chunk_len"], stats["chunks"]) == (length, chunks)
+    assert stats["resident"] == (chunks > 1)
+    assert (chunks > 1) == (t_len > rec.MIN_CHUNK)
+    assert stats["repaired"] == [False] * rows
+    assert max(stats["rounds"]) <= (2 if kind == "dc" else rec.ENV_MAX_ROUNDS)
+    want = rec.envelope_ref(x, 0.97938, 0.99979)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if kind == "nan":
+        assert torch.isnan(got[:, 5000:]).all() and torch.isfinite(got[:, :5000]).all()
+        got, want = got[:, :5000], want[:, :5000]
+    assert _rel_rms(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+def test_envelope_streamed_route_matches_f64(cuda_device):
+    """A 30 s row at 48 kHz: 704 chunks of 2,048, too long for the cluster's
+    shared memory, so every run streams its chunks from L2; against a
+    float64 walk with the kernel's f32 coefficients (the twin would take
+    minutes), within 1e-5 of the peak elementwise."""
+    import numpy as np
+    a_att, a_rel = 0.97938, 0.99979
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    x = 0.3 * torch.randn((1, 1_440_000), generator=g, device=cuda_device)
+    x[:, 500_000:700_000] *= 6.0
+    got = rec.envelope(x, a_att, a_rel)
+    stats = rec.envelope_stats()
+    assert (stats["chunk_len"], stats["chunks"], stats["resident"]) == (2048, 704, False)
+    assert stats["repaired"] == [False]
+    att, rel = float(np.float32(a_att)), float(np.float32(a_rel))
+    env, want = 0.0, []
+    for level in np.abs(x[0].double().cpu().numpy()).tolist():
+        c = att if level > env else rel
+        env = c * env + (1 - c) * level
+        want.append(env)
+    want = torch.tensor(want, dtype=torch.float64)
+    assert float((got[0].double().cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.cuda

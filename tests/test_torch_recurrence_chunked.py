@@ -9,6 +9,16 @@ every chunk re-run from its start state (f32). Held against JAX's sequential `_b
 scipy's float64 `sosfilt`: no further from float64 than twice the
 sequential scan's own distance.
 
+R2, Newton rounds over chunks: each row's time cut into C chunks of L
+samples; every chunk run in f32 from a start (at first 0) for its end and
+its count of attack steps; each chunk's start checked against its
+predecessor's end (relative tolerance ENV_TOL); the starts carried in
+float64 by the kernel's scan of affine maps (lanes by doubling, then warps
+and the blocks' links in order); after ENV_MAX_ROUNDS carries a serial
+walk from the first failing chunk. Held against JAX's compressor `lax.scan` in f32 and a
+float64 serial walk: no further from float64, elementwise, than twice the
+serial f32 walk (or 1e-6 of the row's peak).
+
 R3, the damping chain as a warp scan inside Freeverb's chunk loop: each of
 32 lanes steps its run of ceil(chunk / 32) samples from zero, the lanes'
 maps (damp^run, offset) composed in the kernel's shuffle order, each run
@@ -17,6 +27,9 @@ re-stepped from its true start. Held against JAX's `freeverb_ir`.
 The kernels themselves are held against their twins on the card by
 chip_smoke.py's recurrence phase and tests/test_torch_kernels_cuda.py.
 """
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,6 +248,258 @@ def test_chunk_plan(rows, t_len, want):
         assert length & (length - 1) == 0 and rec.MIN_CHUNK <= length <= rec.MAX_CHUNK
         assert (chunks - 1) * length < t_len <= chunks * length
         assert rows * chunks <= rec.MAX_SEGMENTS and chunks <= 8 * length
+
+
+# ------------------------------------------------------------------- R2 ---
+
+A_ATT, A_REL = F32(math.exp(-1.0 / 48.0)), F32(math.exp(-1.0 / 4800.0))   # 1 ms / 100 ms
+ENV_T = 20_000               # ragged at every L below: a last chunk of 32 or 544
+ENV_KINDS = ("noise", "burst", "gate", "crescendo", "dc", "dc_0.3", "zeros", "nan")
+
+
+def _env_inputs() -> np.ndarray:
+    """One row a kind, ENV_T samples: white noise; a burst of 4,000 samples
+    then silence; a decaying 220 Hz tone gated on for 1,024 samples from
+    every multiple of 2,048 (the level jumps at chunk starts for L <= 1024)
+    and silent between; a 440 Hz sine under a linear ramp; DC at 0.5 (ties
+    held exactly) and at 0.3 (ties jitter by an ulp); zeros; noise with a
+    NaN at sample 12,345."""
+    rng = np.random.default_rng(17)
+    t = np.arange(ENV_T)
+    noise = 0.3 * rng.standard_normal(ENV_T)
+    burst = np.where(t < 4000, 0.8 * rng.standard_normal(ENV_T), 0.0)
+    gate = np.where(t % 2048 < 1024,
+                    0.8 * np.sin(2 * np.pi * 220 * t / 48000) * np.exp(-(t % 2048) / 600), 0.0)
+    crescendo = np.sin(2 * np.pi * 440 * t / 48000) * t / ENV_T
+    nan = 0.3 * rng.standard_normal(ENV_T)
+    nan[12345] = np.nan
+    rows = [noise, burst, gate, crescendo, np.full(ENV_T, 0.5), np.full(ENV_T, 0.3),
+            np.zeros(ENV_T), nan]
+    return np.stack(rows).astype(F32)
+
+
+def _fma32(a, b, c):
+    """a b + c rounded once to f32 (the f32 product is exact in float64)."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(F32)
+
+
+def _env_run(level, env):
+    """The kernel's step in f32 along rows of `level` (n, m) from `env` (n,):
+    c = a_att where l > env, else a_rel; env = c env + (1 - c) l with the
+    product c env fused into the sum -> (outputs, ends, attack steps)."""
+    om_att, om_rel = F32(1) - A_ATT, F32(1) - A_REL
+    env = np.asarray(env, F32).copy()
+    out = np.empty(level.shape, F32)
+    n_att = np.zeros(level.shape[0], np.int64)
+    for t in range(level.shape[1]):
+        lv = level[:, t]
+        att = lv > env
+        env = np.where(att, _fma32(A_ATT, env, om_att * lv), _fma32(A_REL, env, om_rel * lv))
+        n_att += att
+        out[:, t] = env
+    return out, env, n_att
+
+
+def _then(f, g):
+    """The affine map g after f, each (a, b) for d -> a d + b."""
+    return g[0] * f[0], g[0] * f[1] + g[1]
+
+
+def _carry_scan(a, b, warps):
+    """The kernel's inclusive scan of the maps (a_k, b_k) over a row's C
+    chunks in float64, applied to d_0 = 0, in its order: within each block
+    of `warps` warps (its first chunk's map, the link from the block
+    before, left out) lanes of 32 by doubling (the shuffles), then the
+    warps in order; then the blocks' links in order, d at block r's first
+    chunk = a_first(r) (T_{r-1} applied to d at block r - 1's first chunk)
+    + b_first(r), T the block's composed maps. Chunks past C carry the
+    identity."""
+    n = len(a)
+    threads = 32 * warps
+    pad = -n % threads
+    a = np.concatenate([a, np.ones(pad)]).reshape(-1, warps, 32)
+    b = np.concatenate([b, np.zeros(pad)]).reshape(-1, warps, 32)
+    link = (a[:, 0, 0].copy(), b[:, 0, 0].copy())
+    a[:, 0, 0], b[:, 0, 0] = 1.0, 0.0
+    for o in (1, 2, 4, 8, 16):
+        up = (np.concatenate([np.ones(a.shape[:2] + (o,)), a[..., :-o]], -1),
+              np.concatenate([np.zeros(b.shape[:2] + (o,)), b[..., :-o]], -1))
+        a, b = _then(up, (a, b))
+    local_a, local_b = np.empty_like(a), np.empty_like(b)
+    totals = []
+    for blk in range(len(a)):
+        before = (1.0, 0.0)
+        for w in range(warps):
+            local_a[blk, w], local_b[blk, w] = _then(before, (a[blk, w], b[blk, w]))
+            before = _then(before, (a[blk, w, 31], b[blk, w, 31]))
+        totals.append(before)
+    d_first = [0.0]
+    for r in range(1, len(a)):
+        ta, tb = totals[r - 1]
+        d_first.append(link[0][r] * (ta * d_first[-1] + tb) + link[1][r])
+    d = local_a * np.asarray(d_first)[:, None, None] + local_b
+    return d.reshape(-1)[:n]
+
+
+def chunked_envelope(x, chunk_len, max_rounds=rec.ENV_MAX_ROUNDS):
+    """R2's rounds on one row x (T,) f32 -> (envelope, carries, repaired)."""
+    t_len, L = len(x), chunk_len
+    chunks = -(-t_len // L)
+    level = np.zeros(chunks * L, F32)
+    level[:t_len] = np.abs(x)
+    segs = level.reshape(chunks, L)
+    ln_att, ln_rel = math.log(float(A_ATT)), math.log(float(A_REL))
+    warps = rec.envelope_blocks(L, chunks)[1]
+    chained = np.arange(chunks) > 0
+    start = np.zeros(chunks, F32)
+    rounds = 0
+    with np.errstate(invalid="ignore"):
+        while True:
+            _, ends, n_att = _env_run(segs, start)
+            prev_end = np.concatenate([[F32(0)], ends[:-1]]).astype(F32)
+            prev_n = np.concatenate([[0], n_att[:-1]])
+            tol = F32(rec.ENV_TOL) * np.maximum(np.abs(start), F32(rec.ENV_FLOOR))
+            fail = chained & (np.abs(prev_end - start) > tol)         # a NaN passes
+            if not fail.any() or rounds == max_rounds:
+                break
+            a = np.where(chained, np.exp(prev_n * ln_att + (L - prev_n) * ln_rel), 1.0)
+            b = np.where(chained & (prev_end != start), prev_end.astype(np.float64) - start, 0.0)
+            start = (start + _carry_scan(a, b, warps)).astype(F32)
+            rounds += 1
+        out = _env_run(segs, start)[0].reshape(-1)[:t_len]
+        if fail.any():                              # the repair: a serial walk
+            k = int(np.argmax(fail))
+            out[k * L:] = _env_run(level[None, k * L:t_len], prev_end[k:k + 1])[0][0]
+    return out, rounds, bool(fail.any())
+
+
+@jax.jit
+def _jax_envelope(x):
+    """The compressor's scan (audio_algebra_tpu/ops/effects.py:97-102)."""
+    lt = jnp.moveaxis(jnp.abs(x), -1, 0)
+
+    def step(env, level):
+        coeff = jnp.where(level > env, float(A_ATT), float(A_REL))
+        env2 = coeff * env + (1 - coeff) * level
+        return env2, env2
+
+    return jnp.moveaxis(jax.lax.scan(step, jnp.zeros(lt.shape[1:], lt.dtype), lt)[1], 0, -1)
+
+
+def _env_f64(x):
+    """The float64 walk of one row with the coefficients the kernel is given
+    (f32): what remains is the arithmetic's error, not the coefficients'
+    rounding (which moves a release by ~1e-5 of the peak over 5,000
+    samples, in every f32 implementation alike)."""
+    att, rel = float(A_ATT), float(A_REL)
+    env, out = 0.0, []
+    for lv in np.abs(x.astype(np.float64)).tolist():
+        c = att if lv > env else rel
+        env = c * env + (1 - c) * lv
+        out.append(env)
+    return np.asarray(out)
+
+
+@functools.lru_cache(maxsize=1)
+def _env_references():
+    """Every kind's serial f32 walk, JAX's scan and the float64 walk."""
+    x = _env_inputs()
+    serial = _env_run(np.abs(x), np.zeros(len(x)))[0]
+    jax_out = np.asarray(_jax_envelope(jnp.asarray(x)))
+    return x, serial, jax_out, np.stack([_env_f64(row) for row in x])
+
+
+def _max_err(got, f64):
+    finite = np.isfinite(f64)
+    return float(np.abs(got[finite].astype(np.float64) - f64[finite]).max(initial=0.0))
+
+
+def _env_held(got, serial, f64):
+    """NaN exactly where the serial walk has it; elsewhere no further from
+    float64 than twice the serial walk (or 1e-6 of the row's peak)."""
+    assert np.array_equal(np.isnan(got), np.isnan(serial))
+    assert np.array_equal(np.isnan(serial), np.isnan(f64))
+    peak = float(np.nanmax(np.abs(f64)))
+    limit = max(2 * _max_err(serial, f64), 1e-6 * peak)
+    assert _max_err(got, f64) <= limit, (_max_err(got, f64), _max_err(serial, f64), peak)
+
+
+@pytest.mark.parametrize("chunk_len", [128, 256, 1024])
+@pytest.mark.parametrize("kind", ENV_KINDS)
+def test_envelope_rounds_model_matches_jax_scan_and_f64(kind, chunk_len):
+    """The rounds end within ENV_MAX_ROUNDS carries with no repair, DC within
+    2 carries and zeros with none; the result as close to float64 as the
+    serial walk allows, and to JAX's f32 scan as twice JAX's own distance
+    from float64."""
+    x, serial, jax_out, f64 = _env_references()
+    r = ENV_KINDS.index(kind)
+    got, rounds, repaired = chunked_envelope(x[r], chunk_len)
+    assert rounds <= rec.ENV_MAX_ROUNDS and not repaired
+    if kind.startswith("dc"):
+        assert rounds <= 2
+    if kind == "zeros":
+        assert rounds == 0 and not got.any()
+    _env_held(got, serial[r], f64[r])
+    finite = np.isfinite(f64[r])
+    assert np.array_equal(np.isnan(jax_out[r]), np.isnan(got))
+    own = rel_rms(jax_out[r][finite], f64[r][finite])
+    assert rel_rms(got[finite], jax_out[r][finite]) <= max(2 * own, 1e-6)
+    if kind == "nan":
+        assert np.isnan(got[12345:]).all() and np.isfinite(got[:12345]).all()
+
+
+@pytest.mark.parametrize("max_rounds", [0, 1, 3])
+def test_envelope_repair_walks_from_the_first_failing_chunk(max_rounds):
+    """With the carries capped below what the gated row needs, the repair
+    walks it serially from the first chunk that failed: the result holds
+    as the converged rounds' does."""
+    x, serial, _, f64 = _env_references()
+    r = ENV_KINDS.index("gate")
+    got, rounds, repaired = chunked_envelope(x[r], 256, max_rounds=max_rounds)
+    assert rounds == max_rounds and repaired
+    _env_held(got, serial[r], f64[r])
+
+
+@pytest.mark.parametrize("n_chunks,warps", [(2, 1), (31, 1), (33, 1), (128, 1), (300, 2),
+                                            (704, 4), (2048, 8)])
+def test_envelope_carry_scan_equals_the_serial_carry(n_chunks, warps):
+    """The kernel's scan order (lanes by doubling, warps, the blocks' links)
+    against one chain d_k = a_k d_{k-1} + b_k in float64: within 1e-12 of
+    the largest d, far below the f32 rounding of the starts."""
+    rng = np.random.default_rng(n_chunks)
+    a = np.exp(-rng.uniform(0.05, 6.0, n_chunks))
+    a[0] = 1.0
+    b = rng.standard_normal(n_chunks)
+    b[0] = 0.0
+    serial = np.zeros(n_chunks)
+    for k in range(1, n_chunks):
+        serial[k] = a[k] * serial[k - 1] + b[k]
+    got = _carry_scan(a, b, warps)
+    assert np.abs(got - serial).max() <= 1e-12 * np.abs(serial).max()
+
+
+@pytest.mark.parametrize("rows,t_len,want,blocks", [
+    (4, 262144, (128, 2048), (True, 8)),    # the compressor on the xae path: 2 clips x stereo
+    (40, 2000, (128, 16), (True, 1)),
+    (4, 16036, (128, 126), (True, 1)),      # a ragged last chunk of 36
+    (2, 1440000, (2048, 704), (False, 4)),  # a 30 s track at 48 kHz: streamed
+    (128, 262144, (512, 512), (True, 2)),   # rows x C capped at MAX_SEGMENTS
+    (2048, 65536, (2048, 32), (False, 1)),  # a warp a row
+    (4, 96, (96, 1), None),                 # at most MIN_CHUNK: one chunk
+    (3000, 4096, (4096, 1), None),          # rows alone fill the card: one chunk
+])
+def test_envelope_plan(rows, t_len, want, blocks):
+    length, chunks = rec.envelope_plan(rows, t_len)
+    assert (length, chunks) == want
+    if chunks > 1:
+        assert length & (length - 1) == 0 and length >= rec.MIN_CHUNK
+        assert (chunks - 1) * length < t_len <= chunks * length
+        assert chunks <= rec.MAX_ENV_CHUNKS and rows * chunks <= rec.MAX_SEGMENTS
+        resident, warps = rec.envelope_blocks(length, chunks)
+        assert (resident, warps) == blocks
+        assert chunks <= 32 * warps * rec.ENV_MAX_CLUSTER
+        smem = 32 * warps * (length + 4) * 4 if resident else warps * rec.ENV_TILE_BYTES
+        assert smem <= rec.ENV_SMEM_BYTES
 
 
 # ------------------------------------------------------------------- R3 ---
