@@ -12,7 +12,9 @@ loss, while the given model's encoder stays frozen.
   * the loss of a step is two stages: `encode_mixer_inputs` (one batched
     encode of the S·B faded stems and the mix, then one of the raw batch,
     frozen under `torch.no_grad()`) and `mixer_loss` on those latents.
-    `make_mixer_loss_fn` composes them as JAX's loss function.
+    `make_mixer_loss_fn` composes them as JAX's loss function; the encode
+    runs in f32, or in bf16 on bf16 copies of the encoder's weights
+    (`mixed_encode_fn`, JAX's bf16 training tool).
   * `OneCycleAdam` is optax.adam over optax.cosine_onecycle_schedule,
     wrapped in optax.MultiSteps when gradients accumulate.
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .device import resolve_device
+from .device import call_with, cast_params, resolve_device
 from .models.aa import AudioAlgebra, EmbedBlock  # noqa: F401 (the JAX module's surface)
 from .parallel.train import MultiSteps
 from .train_clapdae import onecycle_lr
@@ -39,7 +41,8 @@ from .utils.params import random_init_
 __all__ = ['mseloss', 'EmbedBlock', 'AudioAlgebra', 'AABundle', 'OneCycleAdam',
            'get_stems_faders', 'do_mixing', 'aa_demo', 'vicreg_var_loss',
            'off_diagonal', 'vicreg_cov_loss', 'encode_mixer_inputs', 'mixer_loss',
-           'make_mixer_loss_fn', 'train_aa_model', 'given_model_encode_fn']
+           'make_mixer_loss_fn', 'train_aa_model', 'given_model_encode_fn',
+           'mixed_encode_fn']
 
 
 # ------------------------------------------------------------------ losses ---
@@ -344,6 +347,22 @@ def train_aa_model(given_model, train_dl, args, aa_model: Optional[AABundle] = N
             history.append(logs)
             step += 1
     return aa_model, history
+
+
+def mixed_encode_fn(module: torch.nn.Module, method: str = "encode_it") -> Callable:
+    """The frozen encode in bf16, as JAX's bf16 training tool runs it
+    (tools/bench_train.py:158-167, :224-231): fn(x) -> module.<method> on
+    bf16 copies of the encoder's parameters and a bf16 input, the latents
+    returned in f32, with no graph behind them. The copies are of `module.ENCODER_PARTS` only (the submodules the
+    encode reads) and are made once, here, as the tool casts its frozen tree
+    once: later changes to the module's weights do not reach fn."""
+    with torch.no_grad():
+        params = cast_params(module, torch.bfloat16, module.ENCODER_PARTS)
+
+    def fn(x):
+        with torch.no_grad():
+            return call_with(module, params, x.to(torch.bfloat16), method=method).float()
+    return fn
 
 
 def given_model_encode_fn(given_model) -> Callable:

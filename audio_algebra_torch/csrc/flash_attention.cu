@@ -16,33 +16,33 @@
 // l of every query are also written, as f32 (H, B, T): what the backward
 // kernels recompute the probabilities from.
 //
-// Three designs. flash_serve_bf16 (K3 in bf16, the serving route; its own
-// comment below): a block serves every batch row of its (query tile,
-// head), so each bias tile is read once for all of them, with a cp.async
-// ring, ldmatrix fragments and a base-2 softmax. flash_fwd_tf32 (K4a and K3
+// Two designs. flash_serve_bf16 (K3 and K4a in bf16; its own comment
+// below): a block serves a group of up to four batch rows of its (query
+// tile, head), so each bias tile is read once for all of them, with a
+// cp.async ring, ldmatrix fragments and a base-2 softmax; with l_out and
+// m_out it is K4a's bf16 route, the trainer's bf16 step's forward (rather
+// than a block per (batch*head, query tile) with synchronous staging, which
+// reads the bias once per batch row). flash_fwd_tf32 (K4a and K3
 // in f32; its own comment below): the same sharing for a group of one or
 // two batch rows, both products as 3xTF32 mma.sync m16n8k8 (each operand
 // split into its TF32 rounding hi and the TF32 rounding of the remainder
 // lo; lo.hi + hi.lo + hi.hi accumulated in f32), which keeps f32's
-// tolerance where one TF32 pass does not. Its softmax runs in base 2:
+// tolerance where one TF32 pass does not. Both run the softmax in base 2:
 // log2 e is folded into sm_scale and into the bias as it is read, the
 // exponentials are ex2.approx, and the residual m is written back in
 // natural units (times ln 2), so that the backward kernels recompute
-// p = exp(s - m) / l from it as before. flash_fwd_bf16 (K4a in bf16, the
-// earlier design, off the trainer's strict-f32 path): one block per
-// (batch*head, 64-query tile) with a loop over 64-key tiles, the K, V and
-// bias tiles staged synchronously, the bias read once per batch row; four
-// warps of 16 query rows, both products as mma.sync m16n8k16, the score
-// fragments re-packed in registers as P.V's A operand.
-// In all three the online softmax state and the output accumulator stay
-// in registers: no score goes to device memory.
+// p = exp(s - m) / l from it.
+// In both the online softmax state and the output accumulator stay in
+// registers: no score goes to device memory.
 //
 // Bound. bf16 (K3 serving): HBM bytes. The least traffic is one read of q,
 // k, v and the bias and one write of o: 50.3 MB at (2, 16, 1024, 64) bf16
 // with a bf16 bias, 15.0 us on an H100 SXM, against 8.7 us for its 8.6
 // GFLOP at the bf16 tensor-core peak and ~9 us for its 33.5 M exponentials
 // on the MUFU pipe; the serving kernel runs at ~29 % of it with one
-// 256-thread block an SM (PERF.md). f32 (K4a): operations. Its two
+// 256-thread block an SM (PERF.md). bf16 at the trainer's (8, 16, 1024, 64)
+// (K4a): operations, its 34.4 GFLOP at the bf16 peak, 0.0347 ms, against
+// 0.030 ms for its 101 MB. f32 (K4a): operations. Its two
 // products of 2 B H T^2 D as three TF32 passes each at the dense TF32
 // peak: 0.208 ms at (8, 16, 1024, 64) (0.513 ms for the f32 CUDA-core
 // peak; 0.060 ms for its 202 MB of q, k, v, o, bias, l and m; ~0.03 ms for
@@ -59,186 +59,26 @@ namespace {
 
 using namespace aa_flash;
 
-// ---------------------------------------------------------------- bf16 ---
-// 128 threads; warp w owns query rows 16w..16w+15 of the tile. In the
-// m16n8k16 fragments, lane = 4*g + tg: a thread holds rows g and g + 8 and
-// columns 2*tg, 2*tg + 1 of each 8-wide column tile.
-template <int D, typename TB>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, const TB* __restrict__ bias,
-               uint16_t* __restrict__ o, float* __restrict__ l_out,
-               float* __restrict__ m_out, int heads, int t_len, float sm_scale) {
-  constexpr int LD = D + 8;          // bf16 stride: fragment reads hit 32 banks
-  constexpr int KD = D / 16;         // k-steps of Q.K^T
-  constexpr int ND = D / 8;          // 8-wide dim tiles of the output
-  constexpr int NK = kBK / 8;        // 8-wide key tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* ks = qs + kBQ * LD;
-  uint16_t* vs = ks + kBK * LD;
-  float* bs = reinterpret_cast<float*>(vs + kBK * LD);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int bh = blockIdx.y, h = bh % heads;
-  const int t0 = blockIdx.x * kBQ;
-  const size_t head = static_cast<size_t>(bh) * t_len * D;
-  const TB* bias_h = bias + static_cast<size_t>(h) * t_len * t_len;
-
-  load_tile<uint16_t, D>(q + head + static_cast<size_t>(t0) * D, qs, LD, kBQ, tid, 128);
-  __syncthreads();
-  const int r0 = warp * 16;
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = 16 * kk + 2 * tg;
-    qf[kk][0] = ld32(qs + (r0 + g) * LD + c);
-    qf[kk][1] = ld32(qs + (r0 + g + 8) * LD + c);
-    qf[kk][2] = ld32(qs + (r0 + g) * LD + c + 8);
-    qf[kk][3] = ld32(qs + (r0 + g + 8) * LD + c + 8);
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int s0 = 0; s0 < t_len; s0 += kBK) {
-    __syncthreads();                 // every warp is done with the last tile
-    load_tile<uint16_t, D>(k + head + static_cast<size_t>(s0) * D, ks, LD, kBK, tid, 128);
-    load_tile<uint16_t, D>(v + head + static_cast<size_t>(s0) * D, vs, LD, kBK, tid, 128);
-    load_bias_tile<TB>(bias_h, t_len, s0, t0, bs, tid, 128);
-    __syncthreads();
-
-    float s[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const uint16_t* kr = ks + (8 * j + g) * LD + 16 * kk + 2 * tg;
-        mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const float* b = bs + (8 * j + 2 * tg) * kBiasLD + r0 + g;
-      s[j][0] = s[j][0] * sm_scale + b[0];
-      s[j][1] = s[j][1] * sm_scale + b[kBiasLD];
-      s[j][2] = s[j][2] * sm_scale + b[8];
-      s[j][3] = s[j][3] * sm_scale + b[kBiasLD + 8];
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * al0 + ps0;             // this thread's share of the row sums
-    l1 = l1 * al1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      acc[d][0] *= al0; acc[d][1] *= al0;
-      acc[d][2] *= al1; acc[d][3] *= al1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // the score fragments of key tiles 2kk, 2kk+1 are the A fragment of P.V
-      const uint32_t pa[4] = {aa::bf16_pack(s[2 * kk][0], s[2 * kk][1]),
-                              aa::bf16_pack(s[2 * kk][2], s[2 * kk][3]),
-                              aa::bf16_pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              aa::bf16_pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint16_t* vr = vs + (16 * kk + 2 * tg) * LD + g;
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        const uint16_t* vc = vr + 8 * d;
-        mma_bf16(acc[d], pa, pack16(vc[0], vc[LD]), pack16(vc[8 * LD], vc[9 * LD]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  uint16_t* o0 = o + head + static_cast<size_t>(t0 + r0 + g) * D + 2 * tg;
-  uint16_t* o1 = o0 + 8 * D;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    *reinterpret_cast<uint32_t*>(o0 + 8 * d) = aa::bf16_pack(acc[d][0] / l0, acc[d][1] / l0);
-    *reinterpret_cast<uint32_t*>(o1 + 8 * d) = aa::bf16_pack(acc[d][2] / l1, acc[d][3] / l1);
-  }
-  if (l_out != nullptr && tg == 0) {   // residuals, (H, B, T)
-    const int batch = gridDim.y / heads;
-    const size_t r = (static_cast<size_t>(h) * batch + bh / heads) * t_len + t0 + r0 + g;
-    l_out[r] = l0;
-    l_out[r + 8] = l1;
-    m_out[r] = m0;
-    m_out[r + 8] = m1;
-  }
-}
-
-// ------------------------------------------------- bf16 serving (K3) ---
-// One block per (query tile of BQ = 64 MT rows, head h, group of NB batch
-// rows): four warps a batch row, warp w serving batch row w / 4 of the
+// ------------------------------------------- bf16 serving (K3, K4a) ---
+// One block per (group of NB batch rows, query tile of BQ = 64 MT rows,
+// head h): four warps a batch row, warp w serving batch row w / 4 of the
 // group and MT m-tiles of 16 query rows from 16 MT (w % 4). Every key tile
 // of the (H, S, T) bias is copied from device memory ONCE for the NB batch
-// rows that use it. K, V and bias tiles arrive by cp.async into a ring of
+// rows that use it; the grid's fastest axis is the batch group, so the
+// groups of one (query tile, head) run side by side and share the tile in
+// L2 as well. K, V and bias tiles arrive by cp.async into a ring of
 // ST stages (2, or 3 with one barrier a key tile): the next key tile is in
 // flight while the tensor cores work on this one. The bias stays in its own dtype in shared memory. Q and K
 // fragments load by ldmatrix, V's B fragments by ldmatrix.trans (each K
 // and V fragment serves the warp's MT m-tiles), a bf16 bias's by
 // ldmatrix.trans (each register is the pair of scores it is added to).
 // The softmax runs in base 2: log2 e is folded into sm_scale and into the
-// bias as it is read, and the exponentials are ex2.approx. Q's fragments
-// are reloaded from shared memory each key tile: at MT = 1 that keeps a
-// thread at 128 registers, so that an SM holds two 256-thread blocks.
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 2^x in one MUFU instruction (flush to zero below 2^-126).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// (lo, hi) rounded to bf16 and packed in one cvt.rn.bf16x2.f32.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
+// bias as it is read, and the exponentials are ex2.approx. At MT = 1 Q's
+// fragments are reloaded from shared memory each key tile, which keeps a
+// thread at 128 registers, so that an SM holds two 256-thread blocks; at
+// MT = 2 (one block an SM) they are loaded into registers once.
+// With l_out and m_out (K4a) each query's final row max (in natural units)
+// and normaliser are written after the output.
 template <int D, typename TB, int MT, int NB, int ST = 2>
 struct ServeTiles {
   static constexpr int BQ = 64 * MT;                     // query rows of a block
@@ -261,7 +101,8 @@ __global__ void __launch_bounds__(ServeTiles<D, TB, MT, NB, ST>::kThreads,
                                   ServeTiles<D, TB, MT, NB, ST>::kMinBlocks)
 flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, const TB* __restrict__ bias,
-                 uint16_t* __restrict__ o, int batch, int heads, int t_len, float sm_scale) {
+                 uint16_t* __restrict__ o, float* __restrict__ l_out,
+                 float* __restrict__ m_out, int batch, int heads, int t_len, float sm_scale) {
   using L = ServeTiles<D, TB, MT, NB, ST>;
   constexpr int BQ = L::BQ, LD = L::LD, LDB = L::LDB, NT = L::kThreads;
   constexpr int KD = D / 16;         // k-steps of Q.K^T
@@ -276,7 +117,7 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int slot = warp / 4, r0 = (warp % 4) * 16 * MT;   // batch row; first query row
-  const int h = blockIdx.y, t0 = blockIdx.x * BQ, b0 = blockIdx.z * NB;
+  const int b0 = blockIdx.x * NB, t0 = blockIdx.y * BQ, h = blockIdx.z;
   const int nb = min(NB, batch - b0);                      // batch rows of this group
   const bool active = slot < nb;
   const TB* bias_h = bias + static_cast<size_t>(h) * t_len * t_len;
@@ -323,6 +164,10 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   // ldmatrix lane roles: rows lane & 7 of the four 8 x 8 matrices
   const int lr = lane & 7, lhi = (lane >> 4) & 1, lmid = (lane >> 3) & 1;
 
+  // two m-tiles a warp run one block an SM: Q's fragments stay in registers
+  constexpr bool kQReg = MT == 2;
+  uint32_t qreg[kQReg ? MT : 1][kQReg ? KD : 1][4];
+
   if (ST == 3 && n_tiles > 1) issue(1, kBK);
   for (int it = 0; it < n_tiles; ++it) {
     if constexpr (ST == 2) {
@@ -345,6 +190,16 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       const uint16_t* vs = ks + L::kKV;
       const TB* bs = reinterpret_cast<const TB*>(
           reinterpret_cast<const uint16_t*>(stages + stage * L::kStage) + 2 * L::kKV);
+      if constexpr (kQReg) {
+        if (it == 0) {               // Q arrived with the first key tile
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk)
+              ldsm_x4(qreg[mt][kk], qs + (slot * BQ + r0 + 16 * mt + lr + 8 * lmid) * LD
+                                        + 16 * kk + 8 * lhi);
+        }
+      }
       float s[MT][NK][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -352,11 +207,18 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         for (int j = 0; j < NK; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        uint32_t qf[MT][4];          // Q stays in shared memory: registers for occupancy
+        // at one m-tile Q stays in shared memory: registers for occupancy
+        uint32_t qf[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldsm_x4(qf[mt], qs + (slot * BQ + r0 + 16 * mt + lr + 8 * lmid) * LD + 16 * kk
-                              + 8 * lhi);
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (kQReg) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qf[mt][e] = qreg[mt][kk][e];
+          } else {
+            ldsm_x4(qf[mt], qs + (slot * BQ + r0 + 16 * mt + lr + 8 * lmid) * LD + 16 * kk
+                                + 8 * lhi);
+          }
+        }
 #pragma unroll
         for (int jp = 0; jp < NK / 2; ++jp) {
           uint32_t kb[4];            // one K fragment for every m-tile
@@ -472,6 +334,14 @@ flash_serve_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           pack_bf16x2(acc[mt][d][0] / l0, acc[mt][d][1] / l0);
       *reinterpret_cast<uint32_t*>(o1 + 8 * d) =
           pack_bf16x2(acc[mt][d][2] / l1, acc[mt][d][3] / l1);
+    }
+    if (l_out != nullptr && tg == 0) {   // K4a's residuals, (H, B, T), m in natural units
+      const size_t r = (static_cast<size_t>(h) * batch + b0 + slot) * t_len
+                       + t0 + r0 + 16 * mt + g;
+      l_out[r] = l0;
+      l_out[r + 8] = l1;
+      m_out[r] = mrow[mt][0] * kLn2;
+      m_out[r + 8] = mrow[mt][1] * kLn2;
     }
   }
 }
@@ -765,31 +635,14 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, typename TB>
-int launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
-                float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
-                cudaStream_t st) {
-  constexpr int LD = D + 8;
-  constexpr size_t kSmem = (kBQ + 2 * kBK) * LD * sizeof(uint16_t)
-                           + kBK * kBiasLD * sizeof(float);
-  auto kernel = flash_fwd_bf16<D, TB>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(t_len / kBQ, b * heads), 128, kSmem, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const TB*>(bias),
-      static_cast<uint16_t*>(o), l_out, m_out, heads, t_len, sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Two m-tiles a warp run one block an SM, so they take a third stage
 // where it fits the block's shared memory (one barrier a key tile); one
 // m-tile keeps two stages and two blocks an SM.
 template <int D, typename TB, int MT, int NB,
           int ST = MT == 2 && ServeTiles<D, TB, MT, NB, 3>::kSmem <= 227 * 1024 ? 3 : 2>
 int launch_serve(const void* q, const void* k, const void* v, const void* bias, void* o,
-                 int b, int heads, int t_len, float sm_scale, cudaStream_t st) {
+                 float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
+                 cudaStream_t st) {
   using L = ServeTiles<D, TB, MT, NB, ST>;
   auto kernel = flash_serve_bf16<D, TB, MT, NB, ST>;
   static bool configured = false;    // the attribute is set once per instantiation
@@ -799,10 +652,10 @@ int launch_serve(const void* q, const void* k, const void* v, const void* bias, 
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  kernel<<<dim3(t_len / L::BQ, heads, (b + NB - 1) / NB), L::kThreads, L::kSmem, st>>>(
+  kernel<<<dim3((b + NB - 1) / NB, t_len / L::BQ, heads), L::kThreads, L::kSmem, st>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const TB*>(bias),
-      static_cast<uint16_t*>(o), b, heads, t_len, sm_scale);
+      static_cast<uint16_t*>(o), l_out, m_out, b, heads, t_len, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -818,39 +671,42 @@ int sm_count() {
 }
 
 // The query tile when the caller leaves it to the kernel (bq = 0): 128
-// rows (two m-tiles a warp, one 256-thread block an SM) where D <= 64 and
-// B <= 2, unless that grid's last wave would leave more than a quarter of
-// the SMs idle; else 64 (two blocks an SM). Measured on an H100 (PERF.md,
-// PR 8): 128 rows 10 % faster at T = 1024 and 3072, 12 % slower at 1536.
+// rows (two m-tiles a warp, one 256-thread block of up to two batch rows an
+// SM) where D <= 64, unless that grid's last wave would leave more than a
+// quarter of the SMs idle; else 64 (two blocks an SM). Measured on an H100
+// (PERF.md): at B <= 2, 128 rows 10 % faster at T = 1024 and 3072, 12 %
+// slower at 1536; at B = 8 and 16, two batch rows of 128 queries 20 % faster
+// than four of 64.
 template <int D>
 int pick_query_tile(int b, int heads, int t_len) {
-  if (D > 64 || b > 2 || t_len % 128 != 0) return 64;
+  if (D > 64 || t_len % 128 != 0) return 64;
   const int sms = sm_count();
-  const int tail = (t_len / 128) * heads % sms;
+  const int tail = (b + 1) / 2 * (t_len / 128) * heads % sms;
   return tail == 0 || 4 * tail >= 3 * sms ? 128 : 64;
 }
 
 // The batch rows a block serves: all of them up to 4 (2 at D = 128, where
-// four rows' tiles do not fit a block's shared memory and registers).
+// four rows' tiles do not fit a block's shared memory and registers, and
+// at 128 query rows).
 template <int D, typename TB>
 int dispatch_serve(const void* q, const void* k, const void* v, const void* bias, void* o,
-                   int b, int heads, int t_len, float sm_scale, int bq, cudaStream_t st) {
+                   float* l_out, float* m_out, int b, int heads, int t_len, float sm_scale,
+                   int bq, cudaStream_t st) {
   if (bq == 0) bq = pick_query_tile<D>(b, heads, t_len);
-  if (bq == 128) {
-    if constexpr (D <= 64) {
-      if (b == 1) return launch_serve<D, TB, 2, 1>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-      if (b == 2) return launch_serve<D, TB, 2, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = b == 1 ? 1 : (b == 2 || D == 128 || bq == 128) ? 2 : 4;
+#define AA_SERVE(MT, NB)                                                               \
+  if (bq == 64 * MT && nb == NB)                                                       \
+    return launch_serve<D, TB, MT, NB>(q, k, v, bias, o, l_out, m_out, b, heads, t_len, \
+                                       sm_scale, st);
+  AA_SERVE(1, 1)
+  AA_SERVE(1, 2)
+  if constexpr (D <= 64) {
+    AA_SERVE(1, 4)
+    AA_SERVE(2, 1)
+    AA_SERVE(2, 2)
   }
-  if (b == 1) return launch_serve<D, TB, 1, 1>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-  if constexpr (D == 128) {
-    return launch_serve<D, TB, 1, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-  } else {
-    if (b == 2)
-      return launch_serve<D, TB, 1, 2>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-    return launch_serve<D, TB, 1, 4>(q, k, v, bias, o, b, heads, t_len, sm_scale, st);
-  }
+#undef AA_SERVE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The f32 route's arguments.
@@ -918,8 +774,9 @@ template <typename TB>
 int dispatch(int dtype, int d, const Tf32Args& a, int nb, int bq, int bk) {
 #define AA_FLASH_D(DV)                                                                  \
   case DV:                                                                              \
-    return dtype == 1 ? launch_bf16<DV, TB>(a.q, a.k, a.v, a.bias, a.o, a.l_out, a.m_out, \
-                                            a.b, a.heads, a.t_len, a.sm_scale, a.st)    \
+    return dtype == 1 ? dispatch_serve<DV, TB>(a.q, a.k, a.v, a.bias, a.o, a.l_out,     \
+                                               a.m_out, a.b, a.heads, a.t_len,          \
+                                               a.sm_scale, 0, a.st)                  \
                       : dispatch_tf32<DV, TB>(a, nb, bq, bk);
   switch (d) {
     AA_FLASH_D(16)
@@ -972,26 +829,31 @@ extern "C" int aa_flash_fwd_tf32(int bias_dtype, const void* q, const void* k, c
   return forward(0, bias_dtype, a, d, nb, bq, bk);
 }
 
-// K3, the bf16 serving route: q, k, v, o contiguous bf16 (B, H, T, D),
-// 16-byte aligned; bias (H, T, T) transposed, bias_dtype 0 = float32, 1 =
-// bfloat16. T a multiple of 64 (of bq), D one of 16, 32, 64, 128; bq the
-// query tile: 0 lets the kernel choose (pick_query_tile), else 64, or 128
-// at D <= 64 and B <= 2. Returns cudaGetLastError().
+// The bf16 route (K3, and K4a with l_out and m_out): q, k, v, o contiguous
+// bf16 (B, H, T, D), 16-byte aligned; bias (H, T, T) transposed,
+// bias_dtype 0 = float32, 1 = bfloat16; l_out, m_out both null, or
+// contiguous f32 (H, B, T) for the residuals. T a multiple of 64 (of bq),
+// D one of 16, 32, 64, 128; bq the query tile: 0 lets the kernel choose
+// (pick_query_tile), else 64, or 128 at D <= 64. Returns
+// cudaGetLastError().
 extern "C" int aa_flash_serve_bf16(int bias_dtype, const void* q, const void* k,
-                                   const void* v, const void* bias, void* o, int b,
-                                   int heads, int t_len, int d, float sm_scale, int bq,
-                                   void* stream) {
+                                   const void* v, const void* bias, void* o, void* l_out,
+                                   void* m_out, int b, int heads, int t_len, int d,
+                                   float sm_scale, int bq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(l_out);
+  float* m = static_cast<float*>(m_out);
   if ((bias_dtype != 0 && bias_dtype != 1) || (bq != 0 && bq != 64 && bq != 128) ||
+      (l == nullptr) != (m == nullptr) ||
       t_len % (bq ? bq : 64) != 0 ||
       b < 1 || heads < 1 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
 #define AA_SERVE_D(DV)                                                                  \
   case DV:                                                                              \
     return bias_dtype == 1                                                              \
-               ? dispatch_serve<DV, __nv_bfloat16>(q, k, v, bias, o, b, heads, t_len,   \
-                                                   sm_scale, bq, st)                    \
-               : dispatch_serve<DV, float>(q, k, v, bias, o, b, heads, t_len,           \
+               ? dispatch_serve<DV, __nv_bfloat16>(q, k, v, bias, o, l, m, b, heads,    \
+                                                   t_len, sm_scale, bq, st)         \
+               : dispatch_serve<DV, float>(q, k, v, bias, o, l, m, b, heads, t_len,     \
                                            sm_scale, bq, st);
   switch (d) {
     AA_SERVE_D(16)

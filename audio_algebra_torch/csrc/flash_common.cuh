@@ -1,7 +1,7 @@
 // Pieces shared by the rel-pos flash attention kernels (flash_attention.cu:
 // the forward, K3 and K4a; flash_attention_dkv.cu: K4b; flash_attention_dq.cu:
-// K4c): the 64 x 64 tiling, the tile loaders, cp.async, and the bf16 and
-// 3xTF32 mma.sync wrappers.
+// K4c): the 64 x 64 tiling, the tile loaders, cp.async, ldmatrix, the bf16
+// and 3xTF32 mma.sync wrappers, and the base-2 exponential.
 #pragma once
 
 #include "common.cuh"
@@ -30,20 +30,6 @@ __device__ __forceinline__ void load_bias_tile(const TB* __restrict__ bias_h, in
     for (int k = 0; k < V; k += 4)
       *reinterpret_cast<float4*>(bs + r * kBiasLD + c + k) =
           make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-  }
-}
-
-// Copy rows [0, rows) of a (rows, D) tile of 16-bit or 32-bit elements from
-// global memory (contiguous) into shared memory with row stride ld.
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(const E* __restrict__ src, E* dst, int ld,
-                                          int rows, int tid, int n_threads) {
-  constexpr int V = 16 / sizeof(E);
-  constexpr int kChunks = D / V;
-  for (int i = tid; i < rows * kChunks; i += n_threads) {
-    const int r = i / kChunks, c = (i % kChunks) * V;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
   }
 }
 
@@ -153,6 +139,34 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[
   split(b0, bhi[0], blo[0]);
   split(b1, bhi[1], blo[1]);
   mma_3xtf32(c, ahi, alo, bhi, blo);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// 2^x in one MUFU instruction (flush to zero below 2^-126).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// (lo, hi) rounded to bf16 and packed in one cvt.rn.bf16x2.f32.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 }  // namespace aa_flash

@@ -3,13 +3,16 @@
 Every entry point takes an explicit `device`. The default is the card
 ("cuda"); without one it raises rather than quietly running on the CPU.
 The CPU is used only when the caller asks for it, as the tests do.
-`full_f32` keeps the float32 products of a block out of TF32.
+`full_f32` keeps the float32 products of a block out of TF32;
+`cast_params` and `call_with` run a module on copies of its parameters in a
+lower precision.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+from torch import nn
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -40,3 +43,35 @@ def full_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+class _Method(nn.Module):
+    """`module.<method>` as a module's forward, for functional_call."""
+
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.module, self.method = module, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.module, self.method)(*args, **kwargs)
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype, parts: tuple[str, ...] = ()) -> dict:
+    """Copies of the module's floating parameters cast to `dtype`, by name:
+    all of them, or those of the submodules named in `parts`. Made under a
+    graph, the casts are in it, so gradients reach the parameters in their
+    own dtype."""
+    prefixes = tuple(f"{part}." for part in parts)
+    return {name: p.to(dtype) for name, p in module.named_parameters()
+            if p.is_floating_point() and name.startswith(prefixes or ("",))}
+
+
+def call_with(module: nn.Module, params: dict, *args, method: str = "forward", **kwargs):
+    """`module.<method>(*args, **kwargs)` computed with `params` (by name, as
+    cast_params gives them) in place of those parameters
+    (torch.func.functional_call), as JAX's bf16 steps apply a cast params
+    tree. The other parameters, the buffers and the arguments are left as
+    they are."""
+    params = {f"module.{name}": p for name, p in params.items()}
+    return torch.func.functional_call(_Method(module, method), params, args, kwargs,
+                                      strict=False)

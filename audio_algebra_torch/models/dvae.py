@@ -24,6 +24,8 @@ from .unet1d import DiffusionAttnUnet1D
 
 
 class DiffusionDVAE(nn.Module):
+    ENCODER_PARTS = ("encoder", "quantizer")   # what encode() and encode_it() read
+
     def __init__(self, latent_dim: int = 64, io_channels: int = 2,
                  pqmf_bands: int = 1, num_quantizers: int = 0, num_heads: int = 8,
                  codebook_size: int = 1024, capacity: int = 32, c_mults: Sequence[int] = (2, 4, 8, 16, 32),

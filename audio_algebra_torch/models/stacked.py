@@ -8,7 +8,9 @@ Port of audio_algebra_tpu/models/stacked.py:
   attention). encode = AE.encode -> latent_encoder -> tanh; the decode
   path is the v-diffusion (`diffusion_v`, the sampler's model; its
   turbo amax carry `diffusion_v_aux`) and `decode_first_stage` (the AE
-  decoder). The module carries every
+  decoder); `ENCODER_PARTS` names the submodules the encode reads (a
+  frozen encode in bf16 casts only those: aa_mixer.mixed_encode_fn). The
+  module carries every
   submodule of the flax tree (the AE encoder and Encoder1d too), so the
   seeded random weights and the flax bridge see the same leaves.
 * StackedAELatentDiffusionCond: UNetCFG1d over the 32-d stage-2 latents
@@ -33,6 +35,8 @@ from .unet_cfg1d import UNetCFG1d
 
 
 class LatentAudioDiffusionAutoencoder(nn.Module):
+    ENCODER_PARTS = ("autoencoder.encoder", "latent_encoder")   # what encode() reads
+
     def __init__(self, latent_dim: int = 32, second_stage_latent_dim: int = 32,
                  factors: Sequence[int] = (2, 2, 2, 2), ae_capacity: int = 64,
                  ae_c_mults: Sequence[int] = (2, 4, 8, 16, 32),

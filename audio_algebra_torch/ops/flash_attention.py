@@ -10,13 +10,13 @@ scores and softmax statistics and P cast to v's dtype before P·V.
 
 `flash_attention_relpos_train` is the port of `flash_attention_relpos_train`
 there, a `torch.autograd.Function` of three kernels: the forward with its
-residuals (K4a: the 3xTF32 tensor-core forward kernel that K3 also takes
-in f32, a block serving one or two batch rows so that each bias tile is
-read once for them, writing the final row max m and normaliser l, f32
-(H, B, T)), dK/dV
-(K4b) and dQ with d(biasT) summed over the batch (K4c). K3 in bf16 takes
-the serving kernel, whose blocks serve every batch row so that each bias
-tile is read once. delta = Σ_d do·o is a plain reduction, as in JAX.
+residuals (K4a, writing the final row max m and normaliser l, f32
+(H, B, T)), dK/dV (K4b) and dQ with d(biasT) summed over the batch (K4c).
+The forward is K3's kernel with the residuals: in f32 the 3xTF32
+tensor-core kernel, a block serving one or two batch rows; in bf16 the
+serving kernel, a block serving up to four. K4b in bf16 serves a group of
+batch rows of a key tile too. Either way each bias tile is read once for
+the rows a block serves. delta = Σ_d do·o is a plain reduction, as in JAX.
 
 On a CUDA tensor each launches the hand-written CUDA kernels of
 `csrc/flash_attention*.cu` (built for sm_90a at first use) or raises; on a
@@ -141,7 +141,7 @@ _ARGTYPES = {
     "aa_flash_attention_dkv": "iippppppppppiiiifp",
     "aa_flash_attention_dq": "iippppppppppiiiifp",
     "aa_flash_fwd_tf32": "ipppppppiiiifiiip",
-    "aa_flash_serve_bf16": "ipppppiiiifip",
+    "aa_flash_serve_bf16": "ipppppppiiiifip",
 }
 
 
@@ -158,22 +158,24 @@ def _lib(source: str, name: str):
 def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool,
                   block: tuple[int, int, int] | None = None):
     """Launch the forward kernel; returns (o, l, m), l and m None without
-    `residuals`. `block` = (batch rows 1 or 2, query rows 64 or 128 (D <=
-    64), keys a tile 64 or 32) chooses the f32 route's block; None leaves it
-    to the kernel."""
+    `residuals`. bf16 takes the serving kernel. `block` = (batch rows 1 or
+    2, query rows 64 or 128 (D <= 64), keys a tile 64 or 32) chooses the
+    f32 route's block; None leaves it to the kernel."""
     b, h, t, d = q.shape
-    o = torch.empty_like(q)
-    _check_cuda(q, biasT, k, v, o)
     l = m = None
     if residuals:
         l = torch.empty((h, b, t), dtype=torch.float32, device=q.device)
         m = torch.empty_like(l)
+    if block is not None and q.dtype != torch.float32:
+        raise ValueError("flash_attention_relpos: `block` chooses the f32 route's block")
+    if q.dtype == torch.bfloat16:
+        return _serve_cuda(q, k, v, biasT, sm_scale, 0, l, m), l, m
+    o = torch.empty_like(q)
+    _check_cuda(q, biasT, k, v, o)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), biasT.data_ptr(), o.data_ptr(),
             l.data_ptr() if residuals else None, m.data_ptr() if residuals else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_handle(q.get_device())
     if block is not None:
-        if q.dtype != torch.float32:
-            raise ValueError("flash_attention_relpos: `block` chooses the f32 route's block")
         err = _lib(SOURCE, "aa_flash_fwd_tf32")(
             _DTYPES[biasT.dtype], *ptrs, b, h, t, d, float(sm_scale), *block, stream)
     else:
@@ -184,16 +186,18 @@ def _forward_cuda(q, k, v, biasT, sm_scale: float, residuals: bool,
     return o, l, m
 
 
-def _serve_cuda(q, k, v, biasT, sm_scale: float, bq: int = 0):
-    """Launch K3's bf16 serving kernel (each bias tile read once for all
-    batch rows); `bq` the query tile: 0 lets the kernel choose by shape,
-    64, or 128 at D <= 64 and B <= 2."""
+def _serve_cuda(q, k, v, biasT, sm_scale: float, bq: int = 0, l=None, m=None):
+    """Launch the bf16 serving kernel (each bias tile read once for a group
+    of batch rows): K3, or K4a when `l` and `m` (f32 (H, B, T)) are given
+    for the residuals. `bq` the query tile: 0 lets the kernel choose by
+    shape, 64, or 128 at D <= 64."""
     b, h, t, d = q.shape
     o = torch.empty_like(q)
-    _check_cuda(q, biasT, k, v, o)
+    _check_cuda(q, biasT, k, v, o, *(x for x in (l, m) if x is not None))
     err = _lib(SOURCE, "aa_flash_serve_bf16")(
         _DTYPES[biasT.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), biasT.data_ptr(),
-        o.data_ptr(), b, h, t, d, float(sm_scale), bq, stream_handle(q.get_device()))
+        o.data_ptr(), None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
+        b, h, t, d, float(sm_scale), bq, stream_handle(q.get_device()))
     if err != 0:
         raise RuntimeError(f"flash_attention_relpos kernel launch failed: CUDA error {err}")
     return o
@@ -251,11 +255,11 @@ def _backward_cuda(which: str, q, k, v, biasT, do, l, m, delta, sm_scale: float,
         raise ValueError("do must be contiguous and match q in shape, dtype and device")
     _check_cuda(q, biasT, k, v, do, l, m, delta, *outs)
     source = SOURCE_DKV if which == "dkv" else SOURCE_DQ
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib(source, f"aa_flash_attention_{which}")(
         _DTYPES[q.dtype], _DTYPES[biasT.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         biasT.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(), delta.data_ptr(),
-        outs[0].data_ptr(), outs[1].data_ptr(), b, h, t, d, float(sm_scale), stream)
+        outs[0].data_ptr(), outs[1].data_ptr(), b, h, t, d, float(sm_scale),
+        stream_handle(q.get_device()))
     if err != 0:
         raise RuntimeError(f"flash attention {which} kernel launch failed: CUDA error {err}")
 

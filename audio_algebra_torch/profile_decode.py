@@ -3,7 +3,7 @@ card.
 
     python -m audio_algebra_torch.profile_decode [--model destructo]
         [--batch 4] [--sample-size 65536] [--iters 3] [--out PATH] [--turbo]
-        [--tf32]
+        [--tf32] [--bf16]
 
 `--model` picks the UNet forward that one step runs, in bf16 with seeded
 random weights:
@@ -19,7 +19,9 @@ random weights:
                 (train_clapdae.make_train_step: v_objective_loss forward and
                 backward of the songs UNetCFG1d through K4 and K5, Adam, EMA)
                 in f32 on --batch x (32, --sample-size / 512) latents, the
-                frozen encoders left out; TF32 off unless --tf32
+                frozen encoders left out; TF32 off unless --tf32; --bf16:
+                the bf16 step (make_train_step's compute_dtype bf16, f32
+                masters)
 `--turbo` (destructo only) runs the UNet's int8 route as a decode step
 after the first does: with the amax carry of one earlier forward (K2a,
 K2b, K2c and the int8 convs); it engages at --batch 16 or more.
@@ -39,10 +41,10 @@ from pathlib import Path
 import torch
 
 KINDS = [("k2_turbo_gn_apply", ("gn_turbo_kernel",)),
-         ("k3_k4a_flash_attention_forward", ("flash_fwd",)),
+         ("k3_k4a_flash_attention_forward", ("flash_fwd", "flash_serve")),
          ("k4b_flash_attention_dkv", ("flash_dkv",)),
          ("k4c_flash_attention_dq", ("flash_dq",)),
-         ("k5_grouped_gn_apply", ("ggn_apply_kernel",)),
+         ("k5_grouped_gn", ("ggn_apply_kernel", "ggn_cluster_kernel")),
          ("k1_groupnorm_apply", ("gn_apply_kernel",)),
          ("gn_stats_k1_k5", ("gn_stats_kernel",)),
          ("convolution", ("conv", "cudnn", "implicit", "fprop", "winograd")),
@@ -61,7 +63,8 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False):
+def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False,
+             bf16_train: bool = False):
     """The UNet forward of one sampler step of `model`, on bf16 inputs."""
     from .models.unet1d import DiffusionAttnUnet1D
     from .utils.params import random_init_
@@ -95,7 +98,7 @@ def _forward(model: str, b: int, n: int, dev: torch.device, turbo: bool = False)
             torch.randn((b, 1, 512), generator=g, device=dev), dim=-1)
         steps = torch.rand((b,), generator=g, device=dev)
         keep = torch.arange(b, device=dev) != 1            # one row's embedding dropped
-        step = make_train_step(state)
+        step = make_train_step(state, compute_dtype=bf16 if bf16_train else torch.float32)
         return lambda: step(latents, emb, steps, noise, keep)
     if model == "mirage_inner":
         from .models.unet_cfg1d import UNetCFG1d, precompute_rel_biases
@@ -122,6 +125,8 @@ def main(argv=None) -> None:
                    help="destructo: profile an int8 turbo step (amax carry)")
     p.add_argument("--tf32", action="store_true",
                    help="mirage_train: allow TF32 in cuDNN and cuBLAS (off: strict f32)")
+    p.add_argument("--bf16", action="store_true",
+                   help="mirage_train: the bf16 step on f32 masters")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -133,7 +138,9 @@ def main(argv=None) -> None:
     if training:
         torch.backends.cuda.matmul.allow_tf32 = args.tf32
         torch.backends.cudnn.allow_tf32 = args.tf32
-    forward = _forward(args.model, args.batch, args.sample_size, dev, args.turbo)
+    if args.bf16 and not training:
+        raise SystemExit("--bf16 profiles the mirage_train step only")
+    forward = _forward(args.model, args.batch, args.sample_size, dev, args.turbo, args.bf16)
     b, n = args.batch, args.sample_size
     with torch.enable_grad() if training else torch.inference_mode():
         for _ in range(2):
@@ -170,7 +177,8 @@ def main(argv=None) -> None:
     device_ms = sum(by_kind.values())
     result = {"device": torch.cuda.get_device_name(0), "model": args.model,
               "batch": b, "sample_size": n,
-              "dtype": "float32" if training else "bfloat16", "turbo": args.turbo,
+              "dtype": "float32" if training and not args.bf16 else "bfloat16",
+              "turbo": args.turbo,
               "allow_tf32": args.tf32 if training else None,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "wall_ms_per_forward": wall_ms,

@@ -24,7 +24,11 @@ f32 training forward with its residuals, 3xTF32 on the tensor cores) at
 the trainer's (8, 16, 1024 / 512, 64), at B = 1 and at K3's f32 row (2,
 16, 1024, 64), one JSON line a shape like k3's; `--variants` adds the
 device ms of each block the f32 route can take (1 or 2 batch rows, 64 or
-128 query rows, 64 or 32 keys a tile), in turns. r1 (the biquad cascade
+128 query rows, 64 or 32 keys a tile), in turns. k4a and k4b with
+`--dtype bfloat16`: the bf16 routes at the bf16 training step's (8 and
+16, 16, 1024, 64) and (8, 16, 512, 64), each with a bf16 and an f32 bias;
+they call only the wrappers, so an earlier checkout's bf16 kernels are
+timed by running this script from that checkout's root. r1 (the biquad cascade
 at chip_smoke.py's xae and apps shapes: the TPT filters' (128, 262144),
 the phaser's (1024, 32768) x 2 sections, loudness's (2, 1440000) x 2
 shared, the apps' (16, 65536)), r2 (the compressor's envelope at the xae
@@ -56,6 +60,8 @@ K3_SHAPES = [(2, 16, 1024, 64), (2, 16, 3072, 64), (2, 16, 1536, 64), (1, 16, 10
 K4A_SHAPES = [(8, 16, 1024, 64), (8, 16, 512, 64), (1, 16, 1024, 64), (2, 16, 1024, 64)]
 K4A_BLOCKS = [(1, 64, 64), (2, 64, 64), (2, 64, 32), (1, 128, 64), (2, 128, 64),
               (2, 128, 32)]                     # (batch rows, query rows, keys a tile)
+# the bf16 training step's flash sites (batch 8 and the tool's 16) and T = 512
+K4_BF16_SHAPES = [(8, 16, 1024, 64), (16, 16, 1024, 64), (8, 16, 512, 64)]
 R1_SHAPES = [("tpt", 128, 262144, 1), ("phaser", 1024, 32768, 2), ("loudness", 2, 1440000, 2),
              ("apps", 16, 65536, 1)]        # (case, rows, T, sections)
 R3_SHAPES = [(64, 262144), (16, 65536)]      # (responses, samples)
@@ -275,12 +281,42 @@ def profile_recurrence(kernel, dev, card, g, trace: bool) -> int:
     return 0
 
 
+def profile_k4_bf16(kernel: str, dev, card, g) -> int:
+    """K4a's or K4b's bf16 route at K4_BF16_SHAPES with a bf16 and an f32
+    bias: one JSON line a case, CUDA-event and device ms a call. Only the
+    wrappers flash_attention_relpos_fwd / _dkv are called, so an earlier
+    checkout's kernels are timed from its root."""
+    import torch
+    from audio_algebra_torch.ops import flash_attention as fa
+    for shape in K4_BF16_SHAPES:
+        h, t = shape[1], shape[2]
+        for bias_dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev).bfloat16()
+                           for _ in range(4))
+            bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).to(bias_dtype)
+            o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+            delta = fa.flash_delta(o, do)
+            if kernel == "k4a":
+                def call():
+                    return fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+            else:
+                def call():
+                    return fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+            row = {"kernel": kernel, "tree": os.getcwd(), "shape": list(shape),
+                   "dtype": "bfloat16", "bias_dtype": str(bias_dtype).removeprefix("torch."),
+                   "ms": events_ms(call, 20), "device_ms": device_ms(call, 20), "device": card}
+            print(json.dumps(row), flush=True)
+            del q, k, v, do, bias_t, o, l, m, delta
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5",
                                          "r1", "r2", "r3"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                    help="k4b: float32 (default) or bfloat16; K2 runs in bfloat16")
+                    help="k4a, k4b: float32 (default) or bfloat16 (the bf16 training "
+                         "step's shapes, both bias dtypes); K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
     ap.add_argument("--host-split", action="store_true",
                     help="k5: the wrapper's host microseconds a call, by part")
@@ -345,6 +381,8 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, bias_t
         return 0
+    if args.kernel in ("k4a", "k4b") and args.dtype == "bfloat16":
+        return profile_k4_bf16(args.kernel, dev, card, g)
     if args.kernel == "k4a":
         for shape in K4A_SHAPES:
             q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))

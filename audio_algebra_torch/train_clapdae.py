@@ -20,7 +20,10 @@ config.get_all_args; `--device cpu` runs it off the card):
   * a JSONL run log and checkpoints {params, ema_params, opt_state, step};
     `--ckpt_path` resumes from the newest one there
 
-f32 parameters and activations, no autocast, as in JAX. The step's noise
+f32 parameters and activations, no autocast, as in JAX's trainer;
+`make_train_step(..., compute_dtype=torch.bfloat16)` is JAX's bf16 training
+step of tools/bench_train.py (bf16 compute on the f32 masters), which the
+CLI does not expose, as JAX's trainer does not. The step's noise
 and CFG-dropout mask come from a torch.Generator seeded per step from
 (seed, step) on the host, for the global batch (`step_draws`); the step
 of `make_train_step` takes them as arguments. `--num_gpus N` > 1 runs
@@ -47,7 +50,7 @@ import torch
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .config import get_all_args
 from .datasets import AudioDataset, DataLoader
-from .device import resolve_device
+from .device import call_with, cast_params, resolve_device
 from .given_models import CLAPDAE
 from .models.ema import EMASchedule
 from .models.stacked import v_objective_loss
@@ -171,12 +174,30 @@ def build_state(args, device, clap_module=None):
     return clapdae, state
 
 
-def clapdae_loss_fn(model: torch.nn.Module):
+def mixed_precision(model: torch.nn.Module, compute_dtype: torch.dtype) -> Callable:
+    """The model as the v-objective calls it, computing in `compute_dtype`
+    on f32 master parameters, as JAX's bf16 training step does
+    (tools/bench_train.py:86-92): every floating parameter and the input x
+    cast to `compute_dtype` inside the graph (t and the embedding as given),
+    v returned in f32. The model itself in f32."""
+    if compute_dtype == torch.float32:
+        return model
+
+    def apply(x, t, **kwargs):
+        return call_with(model, cast_params(model, compute_dtype), x.to(compute_dtype), t,
+                         **kwargs).float()
+    return apply
+
+
+def clapdae_loss_fn(model: torch.nn.Module, compute_dtype: torch.dtype = torch.float32):
     """loss_fn(latents, emb, t, noise, keep, gather=None) -> (loss, logs) for
     parallel.train: the v-objective of this rank's rows, averaged over the
-    ranks' equal shards through `gather` (the global batch's mean)."""
+    ranks' equal shards through `gather` (the global batch's mean); the
+    model's forward in `compute_dtype` (mixed_precision), the loss in f32."""
+    apply = mixed_precision(model, compute_dtype)
+
     def loss_fn(latents, emb, t, noise, keep, gather=None):
-        loss = v_objective_loss(model, latents, emb, t, noise, embedding_mask_proba=0.0,
+        loss = v_objective_loss(apply, latents, emb, t, noise, embedding_mask_proba=0.0,
                                 keep=keep)
         if gather is not None:
             loss = gather(loss[None]).mean()
@@ -184,17 +205,30 @@ def clapdae_loss_fn(model: torch.nn.Module):
     return loss_fn
 
 
-def make_train_step(state: TrainState, world: Optional[World] = None) -> Callable:
+def make_train_step(state: TrainState, world: Optional[World] = None,
+                    compute_dtype: torch.dtype = torch.float32) -> Callable:
     """`step(latents, emb, t, noise, keep=None) -> loss`: one optimiser step
     on (latents (B, 32, n), emb (B, 1, 512), t (B,), noise like latents,
     keep (B, 1, 1) bool or None: no CFG dropout), this rank's rows of the
     global batch where `world` (parallel.World) has more than one:
     parallel.train's step, built once. Each call updates the parameters,
     the optimiser's state and the EMA in place, advances `state.step`, and
-    returns the loss of the global batch (before the update)."""
+    returns the loss of the global batch (before the update).
+
+    `compute_dtype` torch.bfloat16 runs the UNet's forward and backward in
+    bf16 on the f32 parameters (mixed_precision): the gradients, Adam and
+    the EMA stay f32. The data-parallel step takes it; a state sharded by
+    FSDP2 does not (its parameters are gathered by FSDP's own hooks, which
+    the cast copies would bypass) and raises."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"make_train_step: compute_dtype {compute_dtype} is not "
+                         "float32 or bfloat16")
+    if state.sharded and compute_dtype != torch.float32:
+        raise ValueError("make_train_step: a state sharded by FSDP (--fsdp 1) trains in "
+                         "float32 only; compute_dtype bfloat16 needs a replicated state")
     device = next(state.model.parameters()).device
     # sharded, FSDP2 reduce-scatters (sums) the gradients in backward
-    dp_step = make_data_parallel_step(clapdae_loss_fn(state.model), state.opt,
+    dp_step = make_data_parallel_step(clapdae_loss_fn(state.model, compute_dtype), state.opt,
                                       world or World(1, 0, device),
                                       reduce_grads=not state.sharded)
 

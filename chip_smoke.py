@@ -118,11 +118,14 @@ Phases, each printing one JSON line:
   kernels (K4)  the differentiable flash attention: K4a's (o, l, m), K4b's
                 (dk, dv) and K4c's (dq, dbT) against the twins at the
                 trainer's sites (8, 16, 1024 / 512, 64) in f32 (atol = rtol =
-                2e-4, the JAX package's) and bf16, at (16, 16, 1024, 64) bf16
-                and at B = 1, each timed beside the twin, SDPA forward /
-                backward and its bound (K4a, K4b and K4c in f32: 3xTF32 on
-                the tensor cores, and the f32 CUDA-core bound beside it); two
-                launches each of K4b and K4c at (8, 16, 1024, 64) f32 and
+                2e-4, the JAX package's), at the bf16 step's (8 and 16, 16,
+                1024, 64) and (8, 16, 512, 64) in bf16 with a bf16 and an f32
+                bias, at a ragged (3, 5, 320, 64) in bf16 and at B = 1 in f32,
+                each timed beside the twin, SDPA forward / backward (in q's
+                dtype) and its bound, with the bound's share (K4a, K4b and
+                K4c in f32: 3xTF32 on the tensor cores, and the f32
+                CUDA-core bound beside it); two launches each of K4b and K4c
+                at (8, 16, 1024, 64) f32 and bf16 and at (16, 16, 1024, 64)
                 bf16 give the same bits; and the autograd Functions around
                 K1 and K5: forward through the kernel, backward() against
                 autograd of the twin
@@ -132,6 +135,25 @@ Phases, each printing one JSON line:
                 embeddings and keep mask: the loss and every parameter's
                 gradient under a bound, all finite, none zero that the
                 twin's is not; 8 / 8 / 8 K4, 63 K5 and 0 K3 launches
+  train_bf16    the JAX repo's bf16 mixed-precision training measurements
+                (tools/bench_train.py) on the port: train_model's UNetCFG1d
+                under train_clapdae.make_train_step(compute_dtype=bf16) at
+                batch 16 (halved while it does not fit) x (32, 2048): the
+                bf16 loss and every f32 master gradient through the kernels
+                against the same through the twins (loss rel < 1e-3, each
+                gradient rel-RMS < 2e-2, all f32 and finite, none zero that
+                the twin's is not), the step shown to compute in bf16 (its
+                modules' outputs bf16; its worst gradient more than bf16's
+                roundoff 2^-8 from the f32 step's on the same batch), 1
+                warm-up and 3 timed optimiser steps (ms, peak memory, 8 / 8
+                / 8 K4 and 63 K5 launches a step); the bf16 frozen stage-1
+                encode (aa_mixer.mixed_encode_fn on the whole
+                LatentAudioDiffusionAutoencoder, its encoder's weights cast
+                once, that cast timed) at 4 x 1,048,576 against the f32
+                encode (rel-RMS < 0.1, 65 K5 an encode), ms of each; the
+                mixer step at 128 x 65,536 with the
+                DVAE encode in bf16 and in f32, in turns, ms split into host
+                data, encode and algebra + Adam
   train         audio_algebra_torch.train_clapdae.main on 16 seeded synthetic
                 48 kHz stereo WAVs of 1,048,576 samples: CLAPDAE() defaults at
                 full width in f32, batch 8, 2 epochs (4 steps), a checkpoint;
@@ -297,6 +319,19 @@ TRAIN_BATCH, TRAIN_FILES, TRAIN_EPOCHS = 8, 16, 2
 K4_PER_STEP, K5_PER_STEP, K5_PER_ENCODE = 8, 63, 65
 K4_TOL = {"float32": (2e-4, 2e-4), "bfloat16": TOL["bfloat16"]}      # (atol, rtol)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_RMS = 1e-4, 1e-3
+# the bf16 training step of tools/bench_train.py (train_clapdae.make_train_step
+# with compute_dtype bf16): batch 16 (halved on running out of memory, as the
+# tool does) x (32, 2048) latents, 1 warm-up and 3 timed steps; kernels against
+# twins on the same bf16 step: loss rel < 1e-3, each gradient rel-RMS < 2e-2.
+# The bf16 frozen encode at the tool's batch 4 x 1,048,576: rel-RMS from the
+# f32 encode under 0.1 (the tests' tiny stage-1 stack on the CPU: 4.0e-2 for
+# the port, 4.1e-2 for JAX's own bf16 encode). The mixer step at 128 x 65,536
+# with the DVAE encode in bf16 and in f32
+BF16_TRAIN_BATCH, BF16_TRAIN_STEPS = 16, 3
+BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL_RMS = 1e-3, 2e-2
+BF16_ENCODE_BATCH, BF16_ENCODE_REL_RMS = 4, 0.1
+BF16_VS_F32_FLOOR = 2.0 ** -8  # bf16's unit roundoff: the least worst-gradient gap
+BF16_MIXER_STEPS = 2
 # the algebra layer at one card's share of defaults.ini (batch_size 1024 over
 # num_gpus 8): batch 128 x 65536 samples, latent 64, hidden 64, 2 stems. Its
 # one frozen DVAEWrapper encode launches no kernel; each demo decodes zsum and
@@ -1718,14 +1753,21 @@ def phase_kernels_k4() -> dict:
 
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [((8, 16, 1024, 64), f32), ((8, 16, 512, 64), f32), ((8, 16, 1024, 64), bf16),
-             ((8, 16, 512, 64), bf16), ((16, 16, 1024, 64), bf16), ((1, 16, 1024, 64), f32)]
+    # (shape, dtype, bias dtype): the f32 trainer's sites, the bf16 step's
+    # (batch 8 and 16, T = 1024 and 512) with a bf16 bias (the step's) and an
+    # f32 one, a ragged bf16 shape (3 rows, 5 heads, T = 320), B = 1
+    cases = [((8, 16, 1024, 64), f32, f32), ((8, 16, 512, 64), f32, f32),
+             ((8, 16, 1024, 64), bf16, bf16), ((8, 16, 1024, 64), bf16, f32),
+             ((8, 16, 512, 64), bf16, bf16), ((8, 16, 512, 64), bf16, f32),
+             ((16, 16, 1024, 64), bf16, bf16), ((16, 16, 1024, 64), bf16, f32),
+             ((3, 5, 320, 64), bf16, bf16), ((3, 5, 320, 64), bf16, f32),
+             ((1, 16, 1024, 64), f32, f32)]
     rows = []
-    for shape, dt in cases:
+    for shape, dt, bias_dt in cases:
         g = torch.Generator(device=dev).manual_seed(500 + len(rows))
         q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(4))
         h, t = shape[1], shape[2]
-        bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).to(dt)
+        bias_t = (torch.randn((h, t, t), generator=g, device=dev) * 0.5).to(bias_dt)
         scale = shape[3] ** -0.5
         name = str(dt).removeprefix("torch.")
         atol, rtol = K4_TOL[name]
@@ -1749,9 +1791,14 @@ def phase_kernels_k4() -> dict:
         def both(a, b):
             return max(a[0], b[0]), a[1] + b[1]
 
+        # d(biasT) sums bf16 products' ds where q or the bias is bf16
+        db_tol = K4_TOL["float32" if dt == bias_dt == f32 else "bfloat16"]
+        db_err = (db.float() - db_ref.float()).abs()
         errs = {"k4a": compare(o, o_ref),
                 "k4b": both(compare(dk, dk_ref), compare(dv, dv_ref)),
-                "k4c": both(compare(dq, dq_ref), compare(db, db_ref))}
+                "k4c": both(compare(dq, dq_ref),
+                            (float(db_err.max()), int((db_err > db_tol[0] + db_tol[1]
+                                                       * db_ref.float().abs()).sum())))}
         bad_resid = int(resid["l_max_rel_err"] > 1e-3) + int(resid["m_max_abs_err"] > 1e-3)
         del o_ref, l_ref, m_ref, dq_ref, dk_ref, dv_ref, db_ref, dk, dv, dq, db
         torch.cuda.empty_cache()
@@ -1782,10 +1829,11 @@ def phase_kernels_k4() -> dict:
         bwd_plain = cuda_ms(lambda: fa.flash_attention_relpos_bwd_ref(
             q, k, v, bias_t, o, l, m, do, scale), 3 if big else 10, warmup=1)
         bwd_library = cuda_ms(sdpa_backward, 10)
-        bounds = k4_bounds(shape, dt, dt)
+        bounds = k4_bounds(shape, dt, bias_dt)
         for kern in ("k4a", "k4b", "k4c"):
             rows.append({
-                "kernel": kern, "shape": list(shape), "dtype": name, "atol": atol, "rtol": rtol,
+                "kernel": kern, "shape": list(shape), "dtype": name,
+                "bias_dtype": str(bias_dt).removeprefix("torch."), "atol": atol, "rtol": rtol,
                 "max_abs_err": errs[kern][0],
                 "n_outside_tol": errs[kern][1] + (bad_resid if kern == "k4a" else 0),
                 **(resid if kern == "k4a" else {}),
@@ -1794,12 +1842,15 @@ def phase_kernels_k4() -> dict:
                 "library_ms": times[kern][2] if kern == "k4a" else bwd_library,
                 "plain_and_library_cover": "K4a" if kern == "k4a" else "K4b + K4c",
                 "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
+                "bound_share": bounds[kern][0] / times[kern][0],
                 **({"bound_f32_cuda_cores_ms": bounds[f"{kern}_f32_cuda_cores"][0]}
                    if f"{kern}_f32_cuda_cores" in bounds else {})})
         del q, k, v, do, bias_t, mask, o, l, m, delta, leaves, o_lib
         torch.cuda.empty_cache()
     main = {r["kernel"]: r for r in rows
             if r["shape"] == [8, 16, 1024, 64] and r["dtype"] == "float32"}
+    main.update({f"{r['kernel']}_bf16": r for r in rows if r["shape"] == [8, 16, 1024, 64]
+                 and r["dtype"] == r["bias_dtype"] == "bfloat16"})
     emit({"phase": "kernels", "kernel": "flash_attention_relpos_train", "cases": rows,
           "k4b_f32_under_sdpa_backward": main["k4b"]["kernel_ms"] <= main["k4b"]["library_ms"]})
     failed = [r for r in rows if r["n_outside_tol"]]
@@ -1807,10 +1858,11 @@ def phase_kernels_k4() -> dict:
         raise AssertionError(f"K4 disagrees with its twin: {failed}")
 
     # K4b and K4c sum in a fixed order: two launches of each, the same bits
+    # (the bf16 step's batch 16 too)
     same = {}
-    for dt in (f32, bf16):
+    for dt, batch in ((f32, TRAIN_BATCH), (bf16, TRAIN_BATCH), (bf16, BF16_TRAIN_BATCH)):
         g = torch.Generator(device=dev).manual_seed(530)
-        q, k, v, do = (torch.randn((TRAIN_BATCH, 16, 1024, 64), generator=g,
+        q, k, v, do = (torch.randn((batch, 16, 1024, 64), generator=g,
                                    device=dev).to(dt) for _ in range(4))
         bias_t = (torch.randn((16, 1024, 1024), generator=g, device=dev) * 0.5).to(dt)
         o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
@@ -1819,12 +1871,12 @@ def phase_kernels_k4() -> dict:
                          ("k4c", fa.flash_attention_relpos_dq)):
             first = fn(q, k, v, bias_t, do, l, m, delta, 0.125)
             second = fn(q, k, v, bias_t, do, l, m, delta, 0.125)
-            same[f"{kern}_{str(dt).removeprefix('torch.')}"] = all(
+            same[f"{kern}_{str(dt).removeprefix('torch.')}_b{batch}"] = all(
                 torch.equal(a, b) for a, b in zip(first, second))
             del first, second
         del q, k, v, do, bias_t, o, l, m, delta
     emit({"phase": "kernels", "kernel": "flash_attention_relpos_train_dkv_dq",
-          "shape": [TRAIN_BATCH, 16, 1024, 64], "bitwise_equal_across_two_runs": same})
+          "shape": [None, 16, 1024, 64], "bitwise_equal_across_two_runs": same})
     if not all(same.values()):
         raise AssertionError(f"K4b or K4c gave other bits on a second run: {same}")
 
@@ -1888,10 +1940,10 @@ def _zero_train_counts():
     ggn.launches = ggn.cluster_launches = ggn.two_pass_launches = stk.launches = 0
 
 
-def phase_train_model() -> None:
+def phase_train_model():
     """One training forward + backward of the full-width songs UNetCFG1d
     through the kernels and through their twins: the check that no kernel
-    wrapper cuts the graph."""
+    wrapper cuts the graph. Returns the UNet (train_bf16 takes it)."""
     import torch
     from audio_algebra_torch.models import blocks, unet_cfg1d
     from audio_algebra_torch.models.stacked import v_objective_loss
@@ -1970,6 +2022,255 @@ def phase_train_model() -> None:
             "k5": K5_PER_STEP, "k6": 0, "k5_cluster": K5_PER_STEP, "k5_two_pass": 0}
     if counts != want:
         raise AssertionError(f"training forward + backward launched {counts}, expected {want}")
+    return unet
+
+
+def _synced() -> float:
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_train_bf16(unet=None) -> dict:
+    """The JAX repo's bf16 mixed-precision training measurements
+    (tools/bench_train.py) on the port: the songs UNetCFG1d's bf16 step
+    (make_train_step with compute_dtype bf16) at batch 16 x (32, 2048), the
+    kernels against their twins and the f32 step on the same batch; the
+    bf16 frozen stage-1 encode; the mixer step with the DVAE encode in bf16
+    against f32. `unet`: train_model's UNetCFG1d (else one is built).
+    Returns the launch counts of the timed steps."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch import train_clapdae
+    from audio_algebra_torch.aa_mixer import (AABundle, OneCycleAdam, as_tensors,
+                                              encode_mixer_inputs, given_model_encode_fn,
+                                              mixed_encode_fn, mixer_loss)
+    from audio_algebra_torch.given_models import DVAEWrapper
+    from audio_algebra_torch.models import blocks, unet_cfg1d
+    from audio_algebra_torch.models.stacked import (LatentAudioDiffusionAutoencoder,
+                                                    v_objective_loss)
+    from audio_algebra_torch.ops import flash_attention as fa
+    from audio_algebra_torch.ops import groupnorm_grouped as ggn
+    from audio_algebra_torch.utils.params import random_init_
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    t_len = MIRAGE_SAMPLES // 512
+    if unet is None:
+        unet = random_init_(unet_cfg1d.UNetCFG1d(), 0).to(dev)
+    unet.requires_grad_(True)
+
+    def draw(b):
+        g = torch.Generator(device=dev).manual_seed(17)
+        latents = torch.tanh(torch.randn((b, 32, t_len), generator=g, device=dev))
+        noise = torch.randn((b, 32, t_len), generator=g, device=dev)
+        t = torch.rand((b,), generator=g, device=dev)
+        emb = torch.randn((b, 1, 512), generator=g, device=dev)
+        keep = torch.rand((b, 1, 1), generator=g, device=dev) < 0.9
+        keep[0] = False                      # the null embedding learns in every run
+        return latents, emb / emb.norm(dim=-1, keepdim=True), t, noise, keep
+
+    seen = set()                             # dtypes of the modules' floating outputs
+
+    def hook(module, inputs, out):
+        if torch.is_tensor(out) and out.is_floating_point():
+            seen.add(out.dtype)
+
+    def loss_and_grads(batch, dtype):
+        unet.zero_grad(set_to_none=True)
+        latents, emb, t, noise, keep = batch
+        seen.clear()
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        try:
+            loss = v_objective_loss(train_clapdae.mixed_precision(unet, dtype), latents, emb,
+                                    t, noise, keep=keep)
+        finally:
+            handle.remove()
+        loss.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                 for n, p in unet.named_parameters()}
+        unet.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    # the step's batch: 16, halved while it does not fit (the tool's rule)
+    b = BF16_TRAIN_BATCH
+    while True:
+        batch = draw(b)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = _synced()
+            loss_k, grads_k = loss_and_grads(batch, bf16)
+            first_s = _synced() - t0
+            seen_k = set(seen)
+            break
+        except torch.cuda.OutOfMemoryError:
+            del batch
+            unet.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            b //= 2
+            print(f"train_bf16: batch {2 * b} does not fit; batch {b}", flush=True)
+            if b < 1:
+                raise
+    unet_cfg1d.flash_attention_relpos_train = fa.flash_attention_relpos_train_ref
+    blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu_ref
+    try:
+        loss_p, grads_p = loss_and_grads(batch, bf16)
+    finally:
+        unet_cfg1d.flash_attention_relpos_train = fa.flash_attention_relpos_train
+        blocks.grouped_gn_film_silu = ggn.grouped_gn_film_silu
+    errs = {n: rel_rms(gk, grads_p[n]) for n, gk in grads_k.items()}
+    not_f32 = [n for n, gk in grads_k.items() if gk.dtype != torch.float32]
+    not_finite = [n for n, gk in grads_k.items() if not bool(torch.isfinite(gk).all())]
+    zero = [n for n, gk in grads_k.items() if not bool(gk.any()) and bool(grads_p[n].any())]
+    del grads_p
+    try:                                      # the f32 step's distance: a floor only
+        loss_f, grads_f = loss_and_grads(batch, torch.float32)
+        f32 = {"loss_rel_diff": abs(loss_k - loss_f) / abs(loss_f),
+               "grad_rel_rms_max": max(rel_rms(gk, grads_f[n]) for n, gk in grads_k.items()),
+               "grad_rel_rms_floor": BF16_VS_F32_FLOOR}
+        f32["grad_rel_rms_median"] = float(np.median([rel_rms(gk, grads_f[n])
+                                                      for n, gk in grads_k.items()]))
+        del grads_f
+    except torch.cuda.OutOfMemoryError:
+        f32 = "not measured: the f32 step at this batch does not fit"
+    del grads_k
+    torch.cuda.empty_cache()
+
+    # the optimiser steps: 1 warm-up, then BF16_TRAIN_STEPS timed
+    state = train_clapdae.make_state(unet)
+    step = train_clapdae.make_train_step(state, compute_dtype=bf16)
+    loss0 = float(step(*batch))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    step_ms, losses = [], []
+    for _ in range(BF16_TRAIN_STEPS):
+        t0 = _synced()
+        losses.append(float(step(*batch)))
+        step_ms.append((_synced() - t0) * 1e3)
+    counts = _k4_k5_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    master_f32 = all(p.dtype == torch.float32 for p in unet.parameters()) and all(
+        e.dtype == torch.float32 for e in state.ema_params.values())
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # the frozen stage-1 encode at the tool's batch 4 x 1,048,576, bf16 and
+    # f32, on the whole module as a caller holds it (its decoder and stage-1
+    # UNet too); mixed_encode_fn casts the encoder's weights once
+    ae = random_init_(LatentAudioDiffusionAutoencoder(), 1).to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((BF16_ENCODE_BATCH, 2, MIRAGE_SAMPLES), generator=g, device=dev) * 0.2
+    encode_ms = {}
+    t0 = _synced()
+    encode16 = mixed_encode_fn(ae, "encode")
+    cast_ms = (_synced() - t0) * 1e3
+    with torch.no_grad():
+        lat32 = ae.encode(x)
+        lat16 = encode16(x)
+        _zero_train_counts()
+        for name, fn in (("bfloat16", encode16), ("float32", ae.encode),
+                         ("float32_again", ae.encode), ("bfloat16_again", encode16)):
+            t0 = _synced()
+            fn(x)
+            encode_ms[name] = (_synced() - t0) * 1e3
+        k5_per_encode = _k4_k5_counts()["k5"] / 4
+    encoder_params = sum(p.numel() for n, p in ae.named_parameters()
+                         if n.startswith(tuple(f"{s}." for s in ae.ENCODER_PARTS)))
+    encode_rel = rel_rms(lat16, lat32)
+    encode_ok = bool(torch.isfinite(lat16).all()) and lat16.dtype == torch.float32 \
+        and lat16.shape == lat32.shape
+    module_params = sum(p.numel() for p in ae.parameters())
+    del ae, encode16, x, lat16, lat32
+    torch.cuda.empty_cache()
+
+    # the mixer step with the frozen DVAE encode in bf16 and in f32, in turns
+    wrapper = DVAEWrapper(args_dict={"latent_dim": AA_DIMS, "sample_size": CHUNK},
+                          device="cuda")
+    rng = np.random.default_rng(52)
+    stems = (0.3 * rng.standard_normal((2, AA_BATCH, 2, CHUNK))).astype(np.float32)
+    faders = np.asarray(AA_FADERS, np.float32)
+    batch_x = (0.3 * rng.standard_normal((AA_BATCH, 2, CHUNK))).astype(np.float32)
+    aa = AABundle(dims=AA_DIMS, hidden_dims=AA_DIMS, seed=0, device="cuda")
+    opt = OneCycleAdam(aa.module, 100, 1e-3)
+    encoders = {"float32": given_model_encode_fn(wrapper),
+                "bfloat16": mixed_encode_fn(wrapper.model)}
+    latents_of = {}
+
+    def mixer_step(dtype):
+        t0 = _synced()
+        args = as_tensors("cuda", stems, faders, batch_x)
+        t1 = _synced()
+        y_all, y_batch = encode_mixer_inputs(encoders[dtype], *args)
+        t2 = _synced()
+        loss, _ = mixer_loss(aa.module, y_all, y_batch, stems.shape[0])
+        loss.backward()
+        opt.step()
+        t3 = _synced()
+        latents_of[dtype] = y_batch
+        return {"host_data_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3,
+                "algebra_adam_ms": (t3 - t2) * 1e3, "loss": float(loss.detach())}
+
+    mixer_step("float32")
+    mixer_step("bfloat16")                    # warm-ups: cuDNN plans
+    runs = {"float32": [], "bfloat16": []}
+    for dtype in ("float32", "bfloat16") * BF16_MIXER_STEPS:     # in turns
+        runs[dtype].append(mixer_step(dtype))
+    mixer = {dtype: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+             for dtype, rs in runs.items()}
+    for dtype, row in mixer.items():
+        row["step_ms"] = row["host_data_ms"] + row["encode_ms"] + row["algebra_adam_ms"]
+    mixer["bf16_latents_rel_rms_vs_f32"] = rel_rms(latents_of["bfloat16"],
+                                                   latents_of["float32"])
+    del wrapper, aa, opt, encoders, latents_of
+    torch.cuda.empty_cache()
+
+    per_step = {k: v / BF16_TRAIN_STEPS for k, v in counts.items()}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(errs, key=errs.get, reverse=True)[:5]
+    emit({"phase": "train_bf16", "model": "UNetCFG1d() (songs, 499 M parameters)",
+          "parameters": sum(p.numel() for p in unet.parameters()),
+          "batch": [b, 32, t_len], "batch_asked": BF16_TRAIN_BATCH,
+          "compute_dtype": "bfloat16", "masters": "float32", "allow_tf32": False,
+          "first_forward_backward_s": first_s, "warmup_loss": loss0, "losses": losses,
+          "ms_per_step": float(np.mean(step_ms)), "step_ms": step_ms, "peak_mem_gb": peak,
+          "launches_per_step": per_step, "masters_and_ema_f32": master_f32,
+          "module_output_dtypes": sorted(str(d) for d in seen_k),
+          "kernels_vs_twins": {"loss_kernels": loss_k, "loss_twins": loss_p,
+                               "loss_rel_diff": loss_rel, "loss_bound": BF16_TRAIN_LOSS_REL,
+                               "grad_rel_rms_max": max(errs.values()),
+                               "grad_rel_rms_bound": BF16_TRAIN_GRAD_REL_RMS,
+                               "grad_rel_rms_worst": {n: errs[n] for n in worst},
+                               "not_f32": not_f32, "not_finite": not_finite,
+                               "zero_where_twin_is_not": zero},
+          "bf16_vs_f32_step": f32,
+          "frozen_encode": {"batch": [BF16_ENCODE_BATCH, 2, MIRAGE_SAMPLES], "ms": encode_ms,
+                            "cast_once_ms": cast_ms, "module_parameters": module_params,
+                            "encoder_parameters_cast": encoder_params,
+                            "k5_per_encode": k5_per_encode, "rel_rms_vs_f32": encode_rel,
+                            "bound": BF16_ENCODE_REL_RMS},
+          "mixer_step": {"batch": [2, AA_BATCH, 2, CHUNK], **mixer}})
+    if not math.isfinite(loss_k) or not_f32 or not_finite or zero or not master_f32 \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bf16 step: loss {loss_k}, gradients not f32 {not_f32}, not "
+                             f"finite {not_finite}, zero where the twin's is not {zero}")
+    # the step computed in bf16: its modules' outputs, and (where the f32
+    # step fit) its gradients at least bf16's roundoff from the f32 step's
+    if bf16 not in seen_k or (isinstance(f32, dict)
+                              and not f32["grad_rel_rms_max"] > BF16_VS_F32_FLOOR):
+        raise AssertionError(f"bf16 step did not compute in bf16: module outputs {seen_k}, "
+                             f"against the f32 step {f32}")
+    if not loss_rel < BF16_TRAIN_LOSS_REL or not max(errs.values()) < BF16_TRAIN_GRAD_REL_RMS:
+        raise AssertionError(f"bf16 step, kernels vs twins: loss rel {loss_rel}, worst "
+                             f"gradients { {n: errs[n] for n in worst} }")
+    want = {"k3": 0, "k4a": K4_PER_STEP, "k4b": K4_PER_STEP, "k4c": K4_PER_STEP,
+            "k5": K5_PER_STEP, "k6": 0, "k5_cluster": K5_PER_STEP, "k5_two_pass": 0}
+    if per_step != want:
+        raise AssertionError(f"bf16 step launched {per_step} a step, expected {want}")
+    if not encode_ok or not encode_rel < BF16_ENCODE_REL_RMS or k5_per_encode != K5_PER_ENCODE:
+        raise AssertionError(f"bf16 frozen encode: rel-RMS {encode_rel}, K5 {k5_per_encode}")
+    if not all(math.isfinite(r["loss"]) for rs in runs.values() for r in rs):
+        raise AssertionError(f"mixer steps: {runs}")
+    return counts
 
 
 def phase_train(clap_module) -> dict:
@@ -3981,7 +4282,10 @@ def main() -> int:
     del model, destructo, mirage_ref
     torch.cuda.empty_cache()
     k4 = run(phase_kernels_k4)
-    run(phase_train_model)
+    unet = run(phase_train_model)
+    train_bf16 = run(phase_train_bf16, unet)
+    del unet
+    torch.cuda.empty_cache()
     train = run(phase_train, clap_module)
     del clap_module
     torch.cuda.empty_cache()
@@ -4065,23 +4369,26 @@ def main() -> int:
               launches_by_path={"mirage": counts["k3"], "checkpoints": ckpt["k3"],
                                 "mirage_cli": cli["k3"]},
               device_ms=k3["kernel_device_ms"]),
-        entry("flash_attention_relpos_train_fwd", "flash_attention.cu",
-              "audio_algebra_tpu/ops/pallas/flash_attention.py:294", train["k4a"], k4["k4a"],
-              bound_f32_cuda_cores_ms=k4["k4a"]["bound_f32_cuda_cores_ms"]),
-        entry("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu",
-              "audio_algebra_tpu/ops/pallas/flash_attention.py:170", train["k4b"], k4["k4b"],
-              plain_and_library_cover="K4b + K4c",
-              bound_f32_cuda_cores_ms=k4["k4b"]["bound_f32_cuda_cores_ms"]),
-        entry("flash_attention_relpos_train_dq", "flash_attention_dq.cu",
-              "audio_algebra_tpu/ops/pallas/flash_attention.py:211", train["k4c"], k4["k4c"],
-              plain_and_library_cover="K4b + K4c",
-              bound_f32_cuda_cores_ms=k4["k4c"]["bound_f32_cuda_cores_ms"]),
+        *(entry(name, source, f"audio_algebra_tpu/ops/pallas/flash_attention.py:{line}",
+                train[kern], k4[kern],
+                bound_f32_cuda_cores_ms=k4[kern]["bound_f32_cuda_cores_ms"],
+                launches_by_path={"train": train[kern], "train_bf16": train_bf16[kern]},
+                bf16_route={key: k4[f"{kern}_bf16"][key] for key in (
+                    "shape", "bias_dtype", "max_abs_err", "kernel_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "bound_share")},
+                **({} if kern == "k4a" else {"plain_and_library_cover": "K4b + K4c"}))
+          for name, source, line, kern in (
+              ("flash_attention_relpos_train_fwd", "flash_attention.cu", 294, "k4a"),
+              ("flash_attention_relpos_train_dkv", "flash_attention_dkv.cu", 170, "k4b"),
+              ("flash_attention_relpos_train_dq", "flash_attention_dq.cu", 211, "k4c"))),
         entry("grouped_gn_film_silu", "grouped_gn.cu",
               "audio_algebra_tpu/ops/pallas/groupnorm_grouped.py:142", counts["k5"], k5,
               launches_by_path={"mirage": counts["k5"], "train": train["k5"],
+                                "train_bf16": train_bf16["k5"],
                                 "checkpoints": ckpt["k5"], "mirage_cli": cli["k5"]},
-              launches_by_route={"cluster": counts["k5"] + train["k5_cluster"],
-                                 "two_pass": train["k5_two_pass"]},
+              launches_by_route={"cluster": counts["k5"] + train["k5_cluster"]
+                                 + train_bf16["k5_cluster"],
+                                 "two_pass": train["k5_two_pass"] + train_bf16["k5_two_pass"]},
               device_ms=k5["kernel_device_ms"], host_us=k5["host_us"],
               planner_route=k5["route"]),
         entry("stft", "stft.cu", "audio_algebra_tpu/ops/pallas/stft_kernel.py:35",

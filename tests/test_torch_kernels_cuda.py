@@ -8,8 +8,9 @@ above the group's budget, channels changing inside a vector); K4 (the
 differentiable flash attention: forward with residuals, dK/dV, dQ and
 d-bias) at the trainer's shapes and batch sizes 1 to 16, K4a's 3xTF32 f32
 route at every head dim, B = 1, 3, 8, T = 64 to 1024, both bias dtypes and
-each block it can take, K4a, K4b and K4c each alone with a same-bits check
-of two launches; the
+each block it can take, K4a's and K4b's bf16 routes at D = 32 to 128, B =
+1 to 16, both bias dtypes and each block they can take, K4a, K4b and K4c
+each alone with a same-bits check of two launches; the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
@@ -511,6 +512,80 @@ def test_flash_dkv_kernel_gives_the_same_bits_every_run(cuda_device, dtype, bias
     """K4b sums in a fixed order (no atomics; the query halves of a key
     tile add in one order): two launches, equal bits."""
     q, k, v, do, bias_t = _flash_inputs(cuda_device, (5, 3, 1024, 64), dtype, bias_dtype, 15)
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+    delta = fa.flash_delta(o, do)
+    first = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+    second = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("batch", [1, 2, 8, 16])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_bf16_fwd_and_dkv_match_twins_on_card(cuda_device, d, batch, bias_dtype):
+    """K4a's bf16 route (the serving kernel writing l and m) and K4b's bf16
+    route (a block serving a group of batch rows of a key tile) at each head
+    dim, B = 1 to 16, with a bf16 and an f32 bias, against the twins."""
+    shape = (batch, 4, 512, d)
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, torch.bfloat16, bias_dtype,
+                                        80 + batch + d)
+    scale = d ** -0.5
+    before = (fa.launches, fa.train_fwd_launches, fa.dkv_launches)
+    o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
+    delta = fa.flash_delta(o, do)
+    dk, dv = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.train_fwd_launches, fa.dkv_launches) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, scale)
+    torch.testing.assert_close(o.float(), o_ref.float(), **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-3)
+    _, want_dk, want_dv, _ = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do,
+                                                               scale)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    torch.testing.assert_close(dk.float(), want_dk.float(), **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(dv.float(), want_dv.float(), **K4_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,t_len", [(64, 448), (64, 512), (128, 512)])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_bf16_blocks_match_twins_on_card(cuda_device, bq, t_len, batch, bias_dtype):
+    """Every block the bf16 routes take: K4a with its residuals at 64 and
+    128 query rows (the serving kernel's `bq`), so at B = 3 a part group of
+    four or two batch rows and at B = 1 one; K4b's two-row groups of 128
+    keys (B = 3, T = 512: a part group) and its one-row block of 64 keys (B
+    = 1, and T = 448, not a multiple of 128)."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, (batch, 3, t_len, 64), torch.bfloat16,
+                                        bias_dtype, 90 + bq + batch + t_len)
+    l = torch.empty((3, batch, t_len), dtype=torch.float32, device=cuda_device)
+    m = torch.empty_like(l)
+    o = fa._serve_cuda(q, k, v, bias_t, 0.125, bq, l, m)
+    delta = fa.flash_delta(o, do)
+    dk, dv = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+    torch.cuda.synchronize()
+    o_ref, l_ref, m_ref = fa.flash_attention_relpos_fwd_ref(q, k, v, bias_t, 0.125)
+    torch.testing.assert_close(o.float(), o_ref.float(), **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-3)
+    _, want_dk, want_dv, _ = fa.flash_attention_relpos_bwd_ref(q, k, v, bias_t, o, l, m, do,
+                                                               0.125)
+    torch.testing.assert_close(dk.float(), want_dk.float(), **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(dv.float(), want_dv.float(), **K4_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,t_len", [(16, 1024), (1, 1024), (7, 1024), (7, 960)])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_bf16_dkv_gives_the_same_bits_every_run(cuda_device, batch, t_len, bias_dtype):
+    """K4b's bf16 route owns each key's dk, dv rows in one warp, or adds its
+    two query parts in one order (B = 1, and T = 960, not a multiple of
+    128): two launches, equal bits."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, (batch, 4, t_len, 64), torch.bfloat16,
+                                        bias_dtype, 17 + batch)
     o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
     delta = fa.flash_delta(o, do)
     first = fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
