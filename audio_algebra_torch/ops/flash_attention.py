@@ -277,8 +277,7 @@ def flash_attention_relpos_dkv(q, k, v, biasT, do, l, m, delta, sm_scale: float 
 
 def flash_attention_relpos_dq(q, k, v, biasT, do, l, m, delta, sm_scale: float = 1.0):
     """K4c on CUDA tensors: (dq, dbT). dbT is summed over the batch in f32
-    in ascending batch order (the same bits every run) and cast to biasT's
-    dtype."""
+    in a fixed order (the same bits every run) and cast to biasT's dtype."""
     global dq_launches
     _check(q, k, v, biasT)
     h, t = q.shape[1], q.shape[2]

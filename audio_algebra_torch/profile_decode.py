@@ -27,7 +27,8 @@ after the first does: with the amax carry of one earlier forward (K2a,
 K2b, K2c and the int8 convs); it engages at --batch 16 or more.
 It runs two warm-up forwards, times `--iters` forwards with CUDA events,
 then traces `--iters` forwards with torch.profiler. Prints one JSON line:
-wall ms per forward, device kernel ms per forward (the sum of kernel
+wall ms per forward (and of each timed forward, from an event recorded
+after each), device kernel ms per forward (the sum of kernel
 times), the device's busy share, device ms per forward grouped by kind of
 kernel, and the top kernels; `--out` gets the same with the top 40. Needs
 a CUDA device.
@@ -146,13 +147,14 @@ def main(argv=None) -> None:
         for _ in range(2):
             forward()
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.iters):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(args.iters + 1)]
+        marks[0].record()
+        for i in range(args.iters):
             forward()
-        end.record()
-        end.synchronize()
-        wall_ms = start.elapsed_time(end) / args.iters
+            marks[i + 1].record()
+        marks[-1].synchronize()
+        each_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        wall_ms = sum(each_ms) / args.iters
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.iters):
                 forward()
@@ -181,7 +183,7 @@ def main(argv=None) -> None:
               "turbo": args.turbo,
               "allow_tf32": args.tf32 if training else None,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "wall_ms_per_forward": wall_ms,
+              "wall_ms_per_forward": wall_ms, "wall_ms_each": each_ms,
               "device_kernel_ms_per_forward": device_ms,
               "busy_share": device_ms / wall_ms if wall_ms else None,
               "ms_by_kind": by_kind}

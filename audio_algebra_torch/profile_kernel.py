@@ -28,7 +28,10 @@ device ms of each block the f32 route can take (1 or 2 batch rows, 64 or
 `--dtype bfloat16`: the bf16 routes at the bf16 training step's (8 and
 16, 16, 1024, 64) and (8, 16, 512, 64), each with a bf16 and an f32 bias;
 they call only the wrappers, so an earlier checkout's bf16 kernels are
-timed by running this script from that checkout's root. r1 (the biquad cascade
+timed by running this script from that checkout's root. k4c (dQ and the
+batch-summed d-bias) the same way: f32 at the trainer's (8, 16, 1024 /
+512, 64), `--dtype bfloat16` at the bf16 shapes above with both bias
+dtypes. r1 (the biquad cascade
 at chip_smoke.py's xae and apps shapes: the TPT filters' (128, 262144),
 the phaser's (1024, 32768) x 2 sections, loudness's (2, 1440000) x 2
 shared, the apps' (16, 65536)), r2 (the compressor's envelope at the xae
@@ -282,10 +285,10 @@ def profile_recurrence(kernel, dev, card, g, trace: bool) -> int:
 
 
 def profile_k4_bf16(kernel: str, dev, card, g) -> int:
-    """K4a's or K4b's bf16 route at K4_BF16_SHAPES with a bf16 and an f32
-    bias: one JSON line a case, CUDA-event and device ms a call. Only the
-    wrappers flash_attention_relpos_fwd / _dkv are called, so an earlier
-    checkout's kernels are timed from its root."""
+    """K4a's, K4b's or K4c's bf16 route at K4_BF16_SHAPES with a bf16 and an
+    f32 bias: one JSON line a case, CUDA-event and device ms a call. Only the
+    wrappers flash_attention_relpos_fwd / _dkv / _dq are called, so an
+    earlier checkout's kernels are timed from its root."""
     import torch
     from audio_algebra_torch.ops import flash_attention as fa
     for shape in K4_BF16_SHAPES:
@@ -299,9 +302,12 @@ def profile_k4_bf16(kernel: str, dev, card, g) -> int:
             if kernel == "k4a":
                 def call():
                     return fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
-            else:
+            elif kernel == "k4b":
                 def call():
                     return fa.flash_attention_relpos_dkv(q, k, v, bias_t, do, l, m, delta, 0.125)
+            else:
+                def call():
+                    return fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
             row = {"kernel": kernel, "tree": os.getcwd(), "shape": list(shape),
                    "dtype": "bfloat16", "bias_dtype": str(bias_dtype).removeprefix("torch."),
                    "ms": events_ms(call, 20), "device_ms": device_ms(call, 20), "device": card}
@@ -312,11 +318,11 @@ def profile_k4_bf16(kernel: str, dev, card, g) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k2a", "k2b", "k2c", "k3", "k5",
-                                         "r1", "r2", "r3"], required=True)
+    ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k4c", "k2a", "k2b", "k2c", "k3",
+                                         "k5", "r1", "r2", "r3"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                    help="k4a, k4b: float32 (default) or bfloat16 (the bf16 training "
-                         "step's shapes, both bias dtypes); K2 runs in bfloat16")
+                    help="k4a, k4b, k4c: float32 (default) or bfloat16 (the bf16 "
+                         "training step's shapes, both bias dtypes); K2 runs in bfloat16")
     ap.add_argument("--launches", type=int, default=3)
     ap.add_argument("--host-split", action="store_true",
                     help="k5: the wrapper's host microseconds a call, by part")
@@ -381,8 +387,24 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
             del q, k, v, bias_t
         return 0
-    if args.kernel in ("k4a", "k4b") and args.dtype == "bfloat16":
+    if args.kernel in ("k4a", "k4b", "k4c") and args.dtype == "bfloat16":
         return profile_k4_bf16(args.kernel, dev, card, g)
+    if args.kernel == "k4c":
+        for shape in K4A_SHAPES[:2]:               # the f32 trainer's sites
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+            h, t = shape[1], shape[2]
+            bias_t = torch.randn((h, t, t), generator=g, device=dev) * 0.5
+            o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
+            delta = fa.flash_delta(o, do)
+
+            def call():
+                return fa.flash_attention_relpos_dq(q, k, v, bias_t, do, l, m, delta, 0.125)
+            print(json.dumps({"kernel": "k4c", "tree": os.getcwd(), "shape": list(shape),
+                              "dtype": "float32", "bias_dtype": "float32",
+                              "ms": events_ms(call, 20), "device_ms": device_ms(call, 20),
+                              "device": card}), flush=True)
+            del q, k, v, do, bias_t, o, l, m, delta
+        return 0
     if args.kernel == "k4a":
         for shape in K4A_SHAPES:
             q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))

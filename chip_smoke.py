@@ -124,7 +124,10 @@ Phases, each printing one JSON line:
                 each timed beside the twin, SDPA forward / backward (in q's
                 dtype) and its bound, with the bound's share (K4a, K4b and
                 K4c in f32: 3xTF32 on the tensor cores, and the f32
-                CUDA-core bound beside it); two launches each of K4b and K4c
+                CUDA-core bound beside it; K4c in bf16: wgmma on TMA tiles,
+                two batch rows a step, dq in registers, its share of the
+                bf16 peak held by the step's phases running one after the
+                other); two launches each of K4b and K4c
                 at (8, 16, 1024, 64) f32 and bf16 and at (16, 16, 1024, 64)
                 bf16 give the same bits; and the autograd Functions around
                 K1 and K5: forward through the kernel, backward() against

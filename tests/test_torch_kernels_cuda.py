@@ -10,7 +10,8 @@ d-bias) at the trainer's shapes and batch sizes 1 to 16, K4a's 3xTF32 f32
 route at every head dim, B = 1, 3, 8, T = 64 to 1024, both bias dtypes and
 each block it can take, K4a's and K4b's bf16 routes at D = 32 to 128, B =
 1 to 16, both bias dtypes and each block they can take, K4a, K4b and K4c
-each alone with a same-bits check of two launches; the
+each alone with a same-bits check of two launches (K4c at every head
+dim, B = 1 to 17 and both bias dtypes); the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
@@ -438,18 +439,26 @@ def test_flash_train_kernels_match_twins_on_card(cuda_device, shape, dtype, bias
         torch.testing.assert_close(a.float(), b.float(), msg=lambda s: f"{name}: {s}", **btol)
 
 
+# K4b's shapes (the trainer's, T = 64, B.H not a multiple of the 132 SMs, every head dim)
+K4_SHAPES = [(8, 16, 1024, 64), (8, 16, 512, 64), (16, 16, 1024, 64), (1, 16, 1024, 64),
+             (2, 2, 64, 64), (3, 5, 512, 64), (7, 3, 256, 32), (16, 2, 512, 16), (2, 2, 512, 128)]
+K4_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 3, 8, 17])
-@pytest.mark.parametrize("t", [512, 1024, 2048])
-@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
-                                              (torch.bfloat16, torch.bfloat16),
-                                              (torch.float32, torch.bfloat16)])
-def test_flash_dq_kernel_matches_twin_on_card(cuda_device, batch, t, dtype, bias_dtype):
-    """K4c alone, (dq, dbT) against the twin from the same residuals: B = 17
-    is above one batch chunk of the kernel (8 in bf16, 4 in f32 at D = 64),
-    so the d(biasT) strip's read-add-write across chunks is exercised."""
-    shape = (batch, 2, t, 64)
-    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, bias_dtype, batch + t)
+@pytest.mark.parametrize("shape", [(batch, 2, t, 64) for batch in (1, 3, 8, 17)
+                                   for t in (512, 1024, 2048)] + K4_SHAPES)
+@pytest.mark.parametrize("dtype,bias_dtype", K4_DTYPES)
+def test_flash_dq_kernel_matches_twin_on_card(cuda_device, shape, dtype, bias_dtype):
+    """K4c alone, (dq, dbT) against the twin from the same residuals: B up
+    to 17, above one batch chunk of either route (bf16: 128 / D rows a warp
+    in two slots, 4 rows at D = 64; f32: 4 at D = 64), so the d(biasT)
+    strip's read-add-write across chunks is exercised; and K4b's shapes:
+    the trainer's, T = 64 (one query tile), B.H = 15 and 21, and every head
+    dim (wgmma at D = 64 in bf16, mma.sync at 16, 32 and 128)."""
+    q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, bias_dtype,
+                                        shape[0] + shape[2])
     scale = shape[3] ** -0.5
     o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, scale)
     delta = fa.flash_delta(o, do)
@@ -461,14 +470,18 @@ def test_flash_dq_kernel_matches_twin_on_card(cuda_device, batch, t, dtype, bias
                                                                 scale)
     assert dq.dtype == want_dq.dtype and dbt.dtype == want_dbt.dtype
     torch.testing.assert_close(dq.float(), want_dq.float(), **K4_TOL[dtype])
-    torch.testing.assert_close(dbt.float(), want_dbt.float(), **K4_TOL[bias_dtype])
+    # d(biasT) sums ds over the batch in f32: bf16's tolerance where q or the bias is bf16
+    btol = K4_TOL[torch.float32 if dtype == bias_dtype == torch.float32 else torch.bfloat16]
+    torch.testing.assert_close(dbt.float(), want_dbt.float(), **btol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_dq_kernel_gives_the_same_bits_every_run(cuda_device, dtype):
+@pytest.mark.parametrize("dtype,batch", [(torch.float32, 17), (torch.bfloat16, 1),
+                                         (torch.bfloat16, 8), (torch.bfloat16, 16),
+                                         (torch.bfloat16, 17)])
+def test_flash_dq_kernel_gives_the_same_bits_every_run(cuda_device, dtype, batch):
     """K4c sums in a fixed order (no atomics): two launches, equal bits."""
-    shape = (17, 2, 1024, 64)
+    shape = (batch, 2, 1024, 64)
     q, k, v, do, bias_t = _flash_inputs(cuda_device, shape, dtype, dtype, 14)
     o, l, m = fa.flash_attention_relpos_fwd(q, k, v, bias_t, 0.125)
     delta = fa.flash_delta(o, do)
@@ -478,12 +491,8 @@ def test_flash_dq_kernel_gives_the_same_bits_every_run(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 16, 1024, 64), (8, 16, 512, 64), (16, 16, 1024, 64),
-                                   (1, 16, 1024, 64), (2, 2, 64, 64), (3, 5, 512, 64),
-                                   (7, 3, 256, 32), (16, 2, 512, 16), (2, 2, 512, 128)])
-@pytest.mark.parametrize("dtype,bias_dtype", [(torch.float32, torch.float32),
-                                              (torch.bfloat16, torch.bfloat16),
-                                              (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+@pytest.mark.parametrize("dtype,bias_dtype", K4_DTYPES[:3])
 def test_flash_dkv_kernel_matches_twin_on_card(cuda_device, shape, dtype, bias_dtype):
     """K4b alone, (dk, dv) against the twin from the same residuals: the
     trainer's shapes (the kernels_k4 phase of chip_smoke.py), T = 64 (one
