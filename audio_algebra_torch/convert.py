@@ -807,13 +807,24 @@ def infer_clap_cfgs(sd: Dict[str, np.ndarray], audio_default, text_default):
 
 # ------------------------------------------------------------ the modules ---
 
-def pour(module, converter, sd: Dict[str, np.ndarray]) -> Tuple[int, List[str]]:
+def pour(module, converter, sd: Dict[str, np.ndarray], init=None) -> Tuple[int, List[str]]:
     """Pour `sd` into a port module through one of the converters above:
-    the module's flax-path view is the template, and the poured tree is
-    loaded back. Leaves the converter did not reach keep their values.
-    Returns (hits, misses)."""
-    from .utils.params import load_flax_params, to_flax_params
+    a tree of the module's leaf shapes is the template, and the poured tree
+    is loaded back. A leaf the converter did not reach takes the module's
+    own value, read after `init()` where `init` is given (a callable that
+    gives the module its values, such as the seeded random init): a pour
+    that reaches every leaf reads nothing of the module and runs no
+    `init`. Returns (hits, misses)."""
+    from .utils.params import flax_shapes, load_flax_params, to_flax_params
 
-    new, hits, misses = converter(sd, {"params": to_flax_params(module)})
+    template = {"params": flax_shapes(module)}
+    new, hits, misses = converter(sd, template)
+    left = [path for (path, leaf), (_, blank) in zip(_leaves(new), _leaves(template))
+            if leaf is blank]
+    if left:
+        if init is not None:
+            init()
+        own = dict(_leaves({"params": to_flax_params(module)}))
+        new = _rebuild(new, {path: own[path] for path in left})
     load_flax_params(module, new)
     return hits, misses

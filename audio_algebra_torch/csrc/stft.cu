@@ -10,49 +10,68 @@
 // with w the periodic Hann window, k = 0 .. n_fft / 2, all f32, written as
 // complex64 in torch's layout (rows, n_bins, F). The framed signal never
 // goes to device memory. Both routes read the row with the reflect padding
-// done by index math (no padded copy) and take one launch.
+// done by index math (no padded copy), place any number of rows on the
+// grid and take one launch.
 //
-// The FFT route (aa_stft_fft; n_fft a power of two from 16 to 4096, the
-// route of every caller in the port). One block of 512 threads owns 4096
-// complex points of shared memory: a tile of 4096 / (n_fft / 2) consecutive
-// frames of one row, each taken as the n_fft / 2-point complex sequence
-// z[n] = x[2n] + i x[2n+1], windowed. Each frame's complex FFT is a
-// mixed-radix Stockham transform (natural order in and out, no bit
-// reversal): one radix-2 or radix-4 stage where log2(n_fft / 2) is not a
-// multiple of 3, then radix-8 stages, every butterfly in registers (8
-// points a thread a stage) and shared memory between stages. The first
-// stage reads its points straight from the row, so the framed signal never
-// passes through shared memory either. re and im are separate arrays,
-// offset by 16 banks, with one padding word every 32 (index a -> a + a /
-// 32), so the strided exchanges hit distinct banks. The split into the
-// n_fft / 2 + 1 real-signal bins is fused into the store and taken in
-// pairs: with A and B the even and odd samples' spectra (from Z[k] and
-// conj Z[m - k]), X[k] = A + W^k B and X[m - k] = conj(A - W^k B).
-// Consecutive threads take consecutive frames of one bin, so each bin's
-// run of the tile is one contiguous store of its output row. The twiddles
-// W^j = exp(-2 pi i j / n_fft), j < n_fft, are one device table, computed
-// in float64 on the host and rounded once to f32 (no sincosf). Rounding
-// error grows like log n_fft, against sqrt(n_fft) for the DFT product, so
-// at n_fft >= 256 this route is closer to an exact STFT than the twin.
+// The FFT route (aa_stft_fft; every even n_fft from 16 to 8192 whose half
+// m = n_fft / 2 has no prime factor above 13, the plan of
+// ops/stft_kernel.py). One block of 512 threads owns 4096 complex points of
+// shared memory: a tile of floor(4096 / m) consecutive frames of one row,
+// each taken as the m-point complex sequence z[n] = x[2n] + i x[2n+1],
+// windowed. Each frame's complex FFT is a mixed-radix Stockham transform
+// (natural order in and out, no bit reversal) whose radices the host's
+// planner passes: for the power-of-two part of m one radix-2 or radix-4
+// stage where its log2 is not a multiple of 3, then radix-8 stages; then one
+// stage for each odd prime factor (3, 5, 7, 11, 13, ascending). Every
+// butterfly runs in registers, shared memory between stages; the odd ones
+// pair points n and R - n, so a radix-R butterfly takes (R - 1)^2 / 2 real
+// FMAs a component with its roots as constants. The first stage reads its
+// points straight from the row, so the framed signal never passes through
+// shared memory either. Two kernels: a power-of-two plan
+// (stft_fft_kernel) runs in place in one 4096-point buffer, each thread's
+// 4096 / (512 R) butterflies held in registers across the barrier that
+// parts a stage's reads from its writes (40 registers: three blocks an SM);
+// a plan with odd radices (stft_fft_mixed_kernel) deals its frames * m / R
+// butterflies to the threads one at a time and reads one buffer while it
+// writes the other (dynamic shared memory, 67.7 KB), so one butterfly alone
+// is held in registers, and divides its indices by multiply-highs; plans up
+// to radix 8 take an instance without the radix-11 and 13 stages, which
+// would spill it (both at 64 registers, two blocks an SM). re and im
+// are separate arrays, offset by 16 banks, with one padding word every 32
+// (index a -> a + a / 32), so the strided exchanges of the power-of-two
+// stages hit distinct banks. The split into the m + 1 real-signal bins is
+// fused into the store and taken in pairs: with A and B the even and odd
+// samples' spectra (from Z[k] and conj Z[m - k]), X[k] = A + W^k B and
+// X[m - k] = conj(A - W^k B). Consecutive threads take consecutive frames
+// of one bin, so each bin's run of the tile is one contiguous store of its
+// output row. The twiddles W^j = exp(-2 pi i j / n_fft), j < n_fft, are one
+// device table, computed in float64 on the host and rounded once to f32
+// (no sincosf). Rounding error grows like log n_fft, against sqrt(n_fft)
+// for the DFT product, so at n_fft >= 256 this route is closer to an exact
+// STFT than the twin.
 //
 // Bound: bytes. An FFT needs ~5 (n_fft / 2) log2(n_fft / 2) operations a
 // frame, far below the signal read once and the complex64 output written
 // once: at 32 rows of 65536 samples, 1024 / 256, 42 MB, 0.0126 ms at the
 // H100's 3.35 TB/s.
 //
-// The DFT route (aa_stft; any other n_fft): an implicit GEMM (frames x
-// n_fft) @ (n_fft x 2 n_bins) on the CUDA cores in f32. One block per (tile
-// of 32 frames, tile of 64 bins, row) stages its frames' span of the row in
-// shared memory, builds the windowed A tile and the cos / sin B tiles from
-// a zero-padded device table, and each of 128 threads accumulates a 4-frame
-// x 4-bin register tile of (re, im) with FMAs in ascending n. Bound: its
-// 4 n_fft n_bins operations a frame at the f32 peak.
+// The DFT route (aa_stft; every other n_fft: odd, a prime factor of n_fft /
+// 2 above 13, or above 8192): an implicit GEMM (frames x n_fft) @ (n_fft x
+// 2 n_bins) on the CUDA cores in f32. One block per (tile of 32 frames,
+// row) and tile of 64 bins builds the windowed A tile of each 32-sample
+// chunk straight from the row (through L1 and L2, so no frame span has to
+// fit shared memory; the next chunk's tile is read into registers while
+// this one's products run) and the cos / sin B tiles from a zero-padded
+// device table, and each of 128 threads accumulates a 4-frame x 4-bin
+// register tile of (re, im) with FMAs in ascending n. Bound: its 4 n_fft
+// n_bins operations a frame at the f32 peak.
 //
 // C interface (bound with ctypes): aa_stft_fft and aa_stft launch on the
 // given stream, allocate nothing, do not synchronise, and return
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -64,50 +83,24 @@ constexpr int TM = 4;         // frames per thread
 constexpr int TN = 4;         // bins per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);   // 128
 constexpr int AS = BM + 4;    // A tile row stride: 16-byte aligned rows
-constexpr int kMaxSmem = 232448;
-
-__host__ __device__ inline int span_floats(int n_fft, int hop) {
-  return ((BM - 1) * hop + n_fft + 3) / 4 * 4;
-}
-
-__host__ inline size_t smem_bytes(int n_fft, int hop) {
-  return sizeof(float) * (static_cast<size_t>(span_floats(n_fft, hop)) + BK * AS + 2 * BK * BN);
-}
 
 __global__ void __launch_bounds__(THREADS)
 stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
             const float* __restrict__ bases, float2* __restrict__ out, int t_len,
-            int n_fft, int hop, int pad, int n_frames, int n_bins, int kp) {
-  extern __shared__ float4 smem4[];
-  float* span = reinterpret_cast<float*>(smem4);
-  const int span_len = span_floats(n_fft, hop);
-  float* a_s = span + span_len;               // [BK][AS]: windowed frames, transposed
-  float* c_s = a_s + BK * AS;                 // [BK][BN]: cos basis chunk
-  float* s_s = c_s + BK * BN;                 // [BK][BN]: sin basis chunk
+            int n_fft, int hop, int pad, int n_frames, int n_bins, int kp, int tiles) {
+  __shared__ __align__(16) float a_s[BK * AS];    // windowed frames, transposed
+  __shared__ __align__(16) float c_s[BK * BN];    // cos basis chunk
+  __shared__ __align__(16) float s_s[BK * BN];    // sin basis chunk
 
-  const int row = blockIdx.z;
-  const int f0 = blockIdx.x * BM;
+  const int row = blockIdx.x / tiles;
+  const int f0 = (blockIdx.x - row * tiles) * BM;
   const int k0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);             // bin group
   const int ty = tid / (BN / TN);             // frame group
 
-  // stage the padded row's span [f0 * hop, f0 * hop + span_len)
   const float* xr = x + static_cast<size_t>(row) * t_len;
   const long long padded = static_cast<long long>(t_len) + 2 * pad;
-  const long long p0 = static_cast<long long>(f0) * hop;
-  for (int i = tid; i < span_len; i += THREADS) {
-    const long long p = p0 + i;
-    float v = 0.0f;
-    if (p < padded) {
-      long long s = p - pad;
-      if (s < 0) s = -s;                                   // reflect, edge excluded
-      else if (s >= t_len) s = 2 * static_cast<long long>(t_len - 1) - s;
-      v = __ldg(xr + s);
-    }
-    span[i] = v;
-  }
-
   const float* cos_b = bases;
   const float* sin_b = bases + static_cast<size_t>(n_fft) * kp;
   float acc_re[TM][TN], acc_im[TM][TN];
@@ -116,14 +109,43 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc_re[i][j] = acc_im[i][j] = 0.0f;
 
-  for (int n0 = 0; n0 < n_fft; n0 += BK) {
-    __syncthreads();                 // span staged / last chunk's tiles read
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int f = i / BK, kk = i - f * BK, n = n0 + kk;
-      a_s[kk * AS + f] = n < n_fft ? span[f * hop + n] * __ldg(win + n) : 0.0f;
+  // the next chunk's A tile is read into registers while this one's
+  // products run, so a small grid does not wait on the row between chunks
+  // (the B tiles too would take 168 registers and slow a full grid)
+  constexpr int A_PER = BM * BK / THREADS;          // 8 points a thread
+  constexpr int B_PER = BK * (BN / 4) / THREADS;    // 4 float4 of each basis
+  static_assert(A_PER * THREADS == BM * BK && B_PER * THREADS == BK * (BN / 4), "whole tiles");
+  float a_r[A_PER];
+  auto load = [&](int n0) {
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      // point n of frame f0 + f of the padded row, zero past its end; a
+      // warp reads 32 consecutive samples of one frame
+      const int i = tid + q * THREADS, f = i / BK, n = n0 + (i - f * BK);
+      const long long p = static_cast<long long>(f0 + f) * hop + n;
+      float v = 0.0f;
+      if (n < n_fft && p < padded) {
+        long long s = p - pad;
+        if (s < 0) s = -s;                                 // reflect, edge excluded
+        else if (s >= t_len) s = 2 * static_cast<long long>(t_len - 1) - s;
+        v = __ldg(xr + s) * __ldg(win + n);
+      }
+      a_r[q] = v;
     }
-    for (int i = tid; i < BK * (BN / 4); i += THREADS) {
-      const int kk = i / (BN / 4), c4 = i - kk * (BN / 4), n = n0 + kk;
+  };
+
+  load(0);
+  for (int n0 = 0; n0 < n_fft; n0 += BK) {
+    __syncthreads();                 // the last chunk's tiles read
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      const int i = tid + q * THREADS, f = i / BK;
+      a_s[(i - f * BK) * AS + f] = a_r[q];
+    }
+#pragma unroll
+    for (int q = 0; q < B_PER; ++q) {
+      const int i = tid + q * THREADS, kk = i / (BN / 4), c4 = i - kk * (BN / 4);
+      const int n = n0 + kk;
       float4 cv = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sv = cv;
       if (n < n_fft) {
         const size_t off = static_cast<size_t>(n) * kp + k0 + 4 * c4;
@@ -134,6 +156,7 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
       reinterpret_cast<float4*>(s_s + kk * BN)[c4] = sv;
     }
     __syncthreads();
+    if (n0 + BK < n_fft) load(n0 + BK);
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
       const float4 a = *reinterpret_cast<const float4*>(a_s + kk * AS + ty * TM);
@@ -169,11 +192,28 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // ------------------------------------------------------------------ FFT ---
 constexpr int FFT_THREADS = 512;
 constexpr int FFT_POINTS = 4096;                   // complex points a block
-constexpr int FFT_LOG_POINTS = 12;
 constexpr int FFT_PADDED = FFT_POINTS + FFT_POINTS / 32;
+constexpr int FFT_LOG_POINTS = 12;
+constexpr int FFT_BUFFER = 2 * FFT_PADDED + 16;   // re, then im 16 banks on
+constexpr int FFT_MIXED_SMEM_BYTES = 2 * FFT_BUFFER * static_cast<int>(sizeof(float));
+constexpr int FFT_MAX_STAGES = 12;                 // 3^7 = 2187 takes 7; 4 bits each
 constexpr float kSqrtHalf = 0.70710678118654752f;
 
 __device__ __forceinline__ int padded(int a) { return a + (a >> 5); }
+
+// a / d for 0 <= a < 2^13 and 1 <= d <= 4096 as a multiply-high by
+// ceil(2^32 / d): exact, since a (ceil(2^32 / d) d - 2^32) < 2^13 d < 2^32.
+// The double quotient rounds to within 2^-21 of 2^32 / d, whose fraction is
+// 0 or at least 1 / d, so its ceiling is exact.
+struct Divisor {
+  int d;
+  unsigned magic;
+  __device__ __forceinline__ explicit Divisor(int d_)
+      : d(d_), magic(d_ == 1 ? 0u : static_cast<unsigned>(ceil(4294967296.0 / d_))) {}
+  __device__ __forceinline__ int div(int a) const {
+    return d == 1 ? a : static_cast<int>(__umulhi(static_cast<unsigned>(a), magic));
+  }
+};
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -197,7 +237,76 @@ __device__ __forceinline__ void dft4(float2& u0, float2& u1, float2& u2, float2&
   u2 = y2;
 }
 
-template <int R> __device__ __forceinline__ void dft(float2 (&u)[R]);
+// cos and sin of 2 pi j / R, j = 1 .. (R - 1) / 2, rounded to f32.
+template <int R> __device__ __forceinline__ void odd_roots(float* c, float* s);
+
+template <> __device__ __forceinline__ void odd_roots<3>(float* c, float* s) {
+  c[0] = -0.5f;
+  s[0] = 0.8660254f;
+}
+
+template <> __device__ __forceinline__ void odd_roots<5>(float* c, float* s) {
+  c[0] = 0.309017f;  c[1] = -0.809017f;
+  s[0] = 0.95105654f; s[1] = 0.58778524f;
+}
+
+template <> __device__ __forceinline__ void odd_roots<7>(float* c, float* s) {
+  c[0] = 0.6234898f; c[1] = -0.22252093f; c[2] = -0.90096885f;
+  s[0] = 0.7818315f; s[1] = 0.9749279f;   s[2] = 0.43388373f;
+}
+
+template <> __device__ __forceinline__ void odd_roots<11>(float* c, float* s) {
+  c[0] = 0.8412535f;  c[1] = 0.41541502f; c[2] = -0.14231484f; c[3] = -0.65486073f;
+  c[4] = -0.959493f;
+  s[0] = 0.54064083f; s[1] = 0.90963197f; s[2] = 0.98982143f;  s[3] = 0.7557496f;
+  s[4] = 0.28173256f;
+}
+
+template <> __device__ __forceinline__ void odd_roots<13>(float* c, float* s) {
+  c[0] = 0.885456f;   c[1] = 0.56806475f; c[2] = 0.12053668f; c[3] = -0.3546049f;
+  c[4] = -0.7485108f; c[5] = -0.97094184f;
+  s[0] = 0.46472317f; s[1] = 0.82298386f; s[2] = 0.99270886f; s[3] = 0.9350162f;
+  s[4] = 0.66312265f; s[5] = 0.23931566f;
+}
+
+// In-place forward DFT of an odd prime number R of points, natural order:
+// with t+_n = u[n] + u[R - n], t-_n = u[n] - u[R - n] and theta = 2 pi n k
+// / R, y[k] = a - i b and y[R - k] = a + i b, a = u[0] + sum_n t+_n cos
+// theta, b = sum_n t-_n sin theta (n, k = 1 .. (R - 1) / 2). Every index
+// is a constant once the loops unroll, so the roots are immediates.
+template <int R>
+__device__ __forceinline__ void dft_odd(float2 (&u)[R]) {
+  static_assert(R == 3 || R == 5 || R == 7 || R == 11 || R == 13, "an odd prime radix");
+  constexpr int H = (R - 1) / 2;
+  float c[H], s[H];
+  odd_roots<R>(c, s);
+  float2 tp[H], tm[H];
+#pragma unroll
+  for (int n = 1; n <= H; ++n) {
+    tp[n - 1] = make_float2(u[n].x + u[R - n].x, u[n].y + u[R - n].y);
+    tm[n - 1] = make_float2(u[n].x - u[R - n].x, u[n].y - u[R - n].y);
+  }
+  float2 y0 = u[0];
+#pragma unroll
+  for (int n = 0; n < H; ++n) y0 = make_float2(y0.x + tp[n].x, y0.y + tp[n].y);
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 a = u[0], b = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int n = 1; n <= H; ++n) {
+      const int j = (n * k) % R;                   // theta = 2 pi j / R
+      const int jj = j <= H ? j : R - j;
+      const float cj = c[jj - 1], sj = j <= H ? s[jj - 1] : -s[jj - 1];
+      a = make_float2(fmaf(tp[n - 1].x, cj, a.x), fmaf(tp[n - 1].y, cj, a.y));
+      b = make_float2(fmaf(tm[n - 1].x, sj, b.x), fmaf(tm[n - 1].y, sj, b.y));
+    }
+    u[k] = make_float2(a.x + b.y, a.y - b.x);      // a - i b
+    u[R - k] = make_float2(a.x - b.y, a.y + b.x);  // a + i b
+  }
+  u[0] = y0;
+}
+
+template <int R> __device__ __forceinline__ void dft(float2 (&u)[R]) { dft_odd<R>(u); }
 
 template <> __device__ __forceinline__ void dft<2>(float2 (&u)[2]) { dft2(u[0], u[1]); }
 
@@ -224,11 +333,6 @@ template <> __device__ __forceinline__ void dft<8>(float2 (&u)[8]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) u[j] = y[j];
 }
-
-template <int R> struct Log2;
-template <> struct Log2<2> { static constexpr int v = 1; };
-template <> struct Log2<4> { static constexpr int v = 2; };
-template <> struct Log2<8> { static constexpr int v = 3; };
 
 // The tile's frames as the input of the first stage: point n2 of frame f
 // is x[2 n2] + i x[2 n2 + 1] of the frame, windowed, read from the row with
@@ -258,13 +362,58 @@ struct FrameSource {
   }
 };
 
-// One radix-R Stockham stage over every frame of the block: after the
-// stages before it (the product of their radices is p), butterfly i of a
-// frame (i < m / R, k = i mod p) reads points i + r m / R, multiplies point
-// r by W_m^(r k m / (p R)) = tw[2 r k m / (p R)], and writes its DFT to
-// (i - k) R + k + r p. The first stage (p = 1) reads its points from the
-// row (`src`); the others read shared memory, then a barrier. A barrier
-// ends each stage.
+// Where the tile sits: frame tile blockIdx.x of row blockIdx.y + blockIdx.z
+// * gridDim.y (rows past 65,535 go to grid.z); false past the last row.
+__device__ __forceinline__ bool tile_of(int rows, int& row) {
+  row = blockIdx.y + blockIdx.z * gridDim.y;
+  return row < rows;
+}
+
+// The real signal's bins from the m-point spectra Z of a tile's frames (in
+// zre / zim, frame f at f * m), in pairs: with A = (Z[k] + conj Z[m - k]) / 2
+// and B = -i (Z[k] - conj Z[m - k]) / 2 (indices mod m), X[k] = A + W^k B
+// and X[m - k] = conj(A - W^k B). Item i is bin k = i / frames of frame i
+// mod frames, so consecutive threads store consecutive frames of one bin.
+template <typename Div>
+__device__ __forceinline__ void real_split(const float* zre, const float* zim,
+                                           const float2* __restrict__ tw,
+                                           float2* __restrict__ out_row, int m, int frames,
+                                           const Div& by_frames, int f0, int n_frames) {
+  for (int i = threadIdx.x; i < ((m >> 1) + 1) * frames; i += FFT_THREADS) {
+    const int k = by_frames.div(i), f = i - k * frames;
+    if (f0 + f >= n_frames) continue;
+    const int a = padded(f * m + k);
+    const int b = padded(f * m + (k == 0 ? 0 : m - k));
+    const float zr = zre[a], zi = zim[a], cr = zre[b], ci = -zim[b];
+    const float ar = 0.5f * (zr + cr), ai = 0.5f * (zi + ci);
+    const float br = 0.5f * (zi - ci), bi = -0.5f * (zr - cr);
+    const float2 w = __ldg(tw + k);
+    const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
+    out_row[static_cast<size_t>(k) * n_frames + f] = make_float2(ar + wbr, ai + wbi);
+    if (2 * k != m)
+      out_row[static_cast<size_t>(m - k) * n_frames + f] = make_float2(ar - wbr, wbi - ai);
+  }
+}
+
+struct Shift {                                     // a power-of-two divisor
+  int log_d;
+  __device__ __forceinline__ int div(int a) const { return a >> log_d; }
+};
+
+template <int R> struct Log2;
+template <> struct Log2<2> { static constexpr int v = 1; };
+template <> struct Log2<4> { static constexpr int v = 2; };
+template <> struct Log2<8> { static constexpr int v = 3; };
+
+// A power-of-two plan. One radix-R Stockham stage over every frame of the
+// block, in place: after the stages before it (the product of their radices
+// is p), butterfly i of a frame (i < m / R, k = i mod p) reads points i + r
+// m / R, multiplies point r by W_m^(r k m / (p R)) = tw[2 r k m / (p R)],
+// and writes its DFT to (i - k) R + k + r p. The block's 4096 points give
+// each thread 4096 / (512 R) butterflies, all held in registers across the
+// barrier that parts the stage's reads from its writes. The first stage
+// (p = 1) reads its points from the row (`src`); the others read shared
+// memory, then a barrier. A barrier ends each stage.
 template <int R, bool kFirst>
 __device__ __forceinline__ void fft_stage(float* re, float* im, const float2* __restrict__ tw,
                                           int log_m, int p, const FrameSource& src) {
@@ -309,26 +458,29 @@ __device__ __forceinline__ void fft_stage(float* re, float* im, const float2* __
   __syncthreads();
 }
 
+// A power-of-two plan (m = 2^log_m, 8 to 4096): its first radix (2, 4 or
+// 8), then radix-8 stages, in one 4096-point buffer.
 __global__ void __launch_bounds__(FFT_THREADS)
 stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
                 const float2* __restrict__ tw, float2* __restrict__ out, int t_len,
-                int log_n, int hop, int pad, int n_frames) {
-  __shared__ float smem[2 * FFT_PADDED + 16];
+                int rows, int log_m, int first, int hop, int pad, int n_frames) {
+  __shared__ float smem[FFT_BUFFER];
   float* re = smem;
   float* im = smem + FFT_PADDED + 16;              // 16 banks from re
-  const int log_m = log_n - 1, m = 1 << log_m;
+  const int m = 1 << log_m;
   const int log_frames = FFT_LOG_POINTS - log_m;
   const int frames = 1 << log_frames;
-  const int row = blockIdx.y;
+  int row;
+  if (!tile_of(rows, row)) return;
   const int f0 = blockIdx.x * frames;
   const FrameSource src{x + static_cast<size_t>(row) * t_len,
                         reinterpret_cast<const float2*>(win), t_len, hop, pad, f0, n_frames};
 
   int p;
-  if (log_m % 3 == 1) {
+  if (first == 2) {
     fft_stage<2, true>(re, im, tw, log_m, 1, src);
     p = 2;
-  } else if (log_m % 3 == 2) {
+  } else if (first == 4) {
     fft_stage<4, true>(re, im, tw, log_m, 1, src);
     p = 4;
   } else {
@@ -336,35 +488,127 @@ stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
     p = 8;
   }
   for (; p < m; p *= 8) fft_stage<8, false>(re, im, tw, log_m, p, src);
-
-  // the real signal's bins, in pairs: with A = (Z[k] + conj Z[m - k]) / 2
-  // and B = -i (Z[k] - conj Z[m - k]) / 2 (indices mod m), X[k] = A + W^k B
-  // and X[m - k] = conj(A - W^k B)
-  const int n_bins = m + 1;
-  float2* out_row = out + static_cast<size_t>(row) * n_bins * n_frames + f0;
-  for (int i = threadIdx.x; i < ((m >> 1) + 1) * frames; i += FFT_THREADS) {
-    const int f = i & (frames - 1), k = i >> log_frames;
-    if (f0 + f >= n_frames) continue;
-    const int a = padded((f << log_m) + (k & (m - 1)));
-    const int b = padded((f << log_m) + ((m - k) & (m - 1)));
-    const float zr = re[a], zi = im[a], cr = re[b], ci = -im[b];
-    const float ar = 0.5f * (zr + cr), ai = 0.5f * (zi + ci);
-    const float br = 0.5f * (zi - ci), bi = -0.5f * (zr - cr);
-    const float2 w = __ldg(tw + k);
-    const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
-    out_row[static_cast<size_t>(k) * n_frames + f] = make_float2(ar + wbr, ai + wbi);
-    if (2 * k != m)
-      out_row[static_cast<size_t>(m - k) * n_frames + f] = make_float2(ar - wbr, wbi - ai);
-  }
+  real_split(re, im, tw, out + static_cast<size_t>(row) * (m + 1) * n_frames + f0, m, frames,
+             Shift{log_frames}, f0, n_frames);
 }
+
+// A plan with odd radices. One radix-R Stockham stage as above, over points
+// = frames x m (frames = floor(4096 / m)), with q = m / R and twiddle
+// tw[r k n_fft / (p R)]; its frames * m / R butterflies are dealt to the
+// threads one at a time (t, t + 512, ...), and the stage reads one buffer
+// (the first stage the row) and writes the other, so no barrier parts its
+// reads from its writes and one butterfly alone is held in registers. q, p
+// and the frame index are divided by multiply-highs. A barrier ends each
+// stage.
+template <int R, bool kFirst>
+__device__ __forceinline__ void fft_stage_mixed(const float* re_in, const float* im_in,
+                                                float* re_out, float* im_out,
+                                                const float2* __restrict__ tw, int n_fft,
+                                                int points, int p, const FrameSource& src) {
+  const int m = n_fft >> 1;
+  const int q = m / R;
+  const int step = n_fft / (p * R);
+  const Divisor by_q(q), by_p(p);
+  for (int bf = threadIdx.x; bf < points / R; bf += FFT_THREADS) {
+    const int f = by_q.div(bf);
+    const int i = bf - f * q;
+    const int k = i - by_p.div(i) * p;
+    float2 u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (kFirst) {
+        u[r] = src.load(f, i + r * q);
+      } else {
+        const int a = padded(f * m + i + r * q);
+        u[r] = make_float2(re_in[a], im_in[a]);
+      }
+    }
+    if (p > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) u[r] = cmul(u[r], __ldg(tw + r * k * step));
+    }
+    dft<R>(u);
+    const int out0 = f * m + (i - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = padded(out0 + r * p);
+      re_out[a] = u[r].x;
+      im_out[a] = u[r].y;
+    }
+  }
+  __syncthreads();
+}
+
+// The plan's radices, 4 bits each, first stage in the lowest bits.
+__device__ __forceinline__ int radix_of(unsigned long long radices, int s) {
+  return static_cast<int>((radices >> (4 * s)) & 15);
+}
+
+// A plan with odd radices (m = n_fft / 2 up to 4096, 13-smooth): stage s
+// reads buffer (s + 1) % 2 of the dynamic shared memory and writes buffer s
+// % 2. kLarge: the plan holds 11 or 13; a plan of radices up to 8 takes the
+// instance without those stages. Both at 64 registers, two blocks an SM
+// (the large one spills 96 bytes there, and runs 30 % faster than at its
+// own 112 registers and one block).
+template <bool kLarge>
+__global__ void __launch_bounds__(FFT_THREADS, 2)
+stft_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                      const float2* __restrict__ tw, float2* __restrict__ out, int t_len,
+                      int rows, int n_fft, unsigned long long radices, int n_stages, int hop,
+                      int pad, int n_frames) {
+  extern __shared__ float smem[];                  // FFT_MIXED_SMEM_BYTES: two buffers
+  float* re[2] = {smem, smem + FFT_BUFFER};
+  float* im[2] = {smem + FFT_PADDED + 16, smem + FFT_BUFFER + FFT_PADDED + 16};
+  const int m = n_fft >> 1;
+  const int frames = FFT_POINTS / m;
+  const int points = frames * m;
+  int row;
+  if (!tile_of(rows, row)) return;
+  const int f0 = blockIdx.x * frames;
+  const FrameSource src{x + static_cast<size_t>(row) * t_len,
+                        reinterpret_cast<const float2*>(win), t_len, hop, pad, f0, n_frames};
+
+  int p = 1, b = 0;
+#define AA_STAGE(R, FIRST) \
+  fft_stage_mixed<R, FIRST>(re[b ^ 1], im[b ^ 1], re[b], im[b], tw, n_fft, points, p, src)
+  for (int s = 0; s < n_stages; ++s) {
+    const int radix = radix_of(radices, s);
+    b = s & 1;
+    if (s == 0) {
+      switch (radix) {
+        case 2: AA_STAGE(2, true); break;
+        case 3: AA_STAGE(3, true); break;
+        case 4: AA_STAGE(4, true); break;
+        case 5: AA_STAGE(5, true); break;
+        case 7: AA_STAGE(7, true); break;
+        case 8: AA_STAGE(8, true); break;
+      }
+      if constexpr (kLarge) {
+        if (radix == 11) AA_STAGE(11, true);
+        if (radix == 13) AA_STAGE(13, true);
+      }
+    } else {
+      switch (radix) {
+        case 3: AA_STAGE(3, false); break;
+        case 5: AA_STAGE(5, false); break;
+        case 7: AA_STAGE(7, false); break;
+        case 8: AA_STAGE(8, false); break;
+      }
+      if constexpr (kLarge) {
+        if (radix == 11) AA_STAGE(11, false);
+        if (radix == 13) AA_STAGE(13, false);
+      }
+    }
+    p *= radix;
+  }
+#undef AA_STAGE
+  real_split(re[b], im[b], tw, out + static_cast<size_t>(row) * (m + 1) * n_frames + f0, m,
+             frames, Divisor(frames), f0, n_frames);
+}
+
+bool odd_radix(int r) { return r == 3 || r == 5 || r == 7 || r == 11 || r == 13; }
 
 }  // namespace
-
-// Shared memory one block needs at (n_fft, hop), in bytes: the wrapper
-// refuses shapes above the card's 227 KB per block.
-extern "C" long long aa_stft_smem_bytes(int n_fft, int hop) {
-  return static_cast<long long>(smem_bytes(n_fft, hop));
-}
 
 // x: (rows, t_len) f32, contiguous. win: (n_fft,) f32. bases: [2][n_fft][kp]
 // f32 (cos then sin; columns >= n_bins zero; kp a multiple of 64). out:
@@ -373,42 +617,66 @@ extern "C" long long aa_stft_smem_bytes(int n_fft, int hop) {
 extern "C" int aa_stft(const void* x, const void* win, const void* bases, void* out,
                        int rows, int t_len, int n_fft, int hop, int pad, int n_frames,
                        int n_bins, int kp, void* stream) {
-  if (rows <= 0 || rows > 65535 || n_fft <= 0 || hop <= 0 || n_frames <= 0 ||
-      kp % BN != 0 || kp < n_bins || pad >= t_len)
+  const int tiles = (n_frames + BM - 1) / BM;
+  if (rows <= 0 || n_fft <= 0 || hop <= 0 || n_frames <= 0 || kp % BN != 0 ||
+      kp < n_bins || kp / BN > 65535 || pad >= t_len ||
+      static_cast<long long>(tiles) * rows > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n_fft, hop);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n_frames + BM - 1) / BM, kp / BN, rows);
-  stft_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(tiles * rows, kp / BN);
+  stft_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(win),
       static_cast<const float*>(bases), static_cast<float2*>(out), t_len, n_fft, hop, pad,
-      n_frames, n_bins, kp);
+      n_frames, n_bins, kp, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x: (rows, t_len) f32, contiguous. win: (n_fft,) f32. tw: (n_fft,) complex
 // f32, tw[j] = exp(-2 pi i j / n_fft). out: (rows, n_fft / 2 + 1, n_frames)
-// complex64. n_fft a power of two from 16 to 4096; pad: n_fft / 2 when
-// centred, else 0 (must be < t_len). Returns cudaGetLastError().
+// complex64. radices: the n_stages radices (2, 3, 4, 5, 7, 8, 11 or 13) of
+// the plan, whose product is m = n_fft / 2, from 8 to 4096. pad: n_fft / 2
+// when centred, else 0 (must be < t_len). Returns cudaGetLastError().
 extern "C" int aa_stft_fft(const void* x, const void* win, const void* tw, void* out,
                            int rows, int t_len, int n_fft, int hop, int pad, int n_frames,
-                           void* stream) {
-  int log_n = 0;
-  while ((1 << log_n) < n_fft) ++log_n;
-  if (rows <= 0 || rows > 65535 || (1 << log_n) != n_fft || log_n < 4 ||
-      log_n > FFT_LOG_POINTS || hop <= 0 || n_frames <= 0 || pad >= t_len ||
+                           const int* radices, int n_stages, void* stream) {
+  const int m = n_fft / 2;
+  if (rows <= 0 || n_fft % 2 != 0 || m < 8 || m > FFT_POINTS || hop <= 0 ||
+      n_frames <= 0 || pad >= t_len || n_stages < 1 || n_stages > FFT_MAX_STAGES ||
       static_cast<long long>(t_len) + 2 * pad >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int frames = FFT_POINTS / (n_fft / 2);
-  const dim3 grid((n_frames + frames - 1) / frames, rows);
-  stft_fft_kernel<<<grid, FFT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(win),
-      static_cast<const float2*>(tw), static_cast<float2*>(out), t_len, log_n, hop, pad,
-      n_frames);
+  // radix 2 or 4 only first, 8 and the odd primes anywhere
+  unsigned long long packed = 0;
+  long long product = 1;
+  bool odd = false, large = false;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (!(r == 8 || odd_radix(r) || (s == 0 && (r == 2 || r == 4))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    packed |= static_cast<unsigned long long>(r) << (4 * s);
+    product *= r;
+    odd = odd || odd_radix(r);
+    large = large || r > 8;
+  }
+  const int frames = FFT_POINTS / m;
+  const dim3 grid((n_frames + frames - 1) / frames, rows < 65535 ? rows : 65535,
+                  (rows + 65534) / 65535);
+  if (product != m || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(win);
+  const float2* twf = static_cast<const float2*>(tw);
+  float2* of = static_cast<float2*>(out);
+  if (odd) {
+    const auto kernel = large ? stft_fft_mixed_kernel<true> : stft_fft_mixed_kernel<false>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FFT_MIXED_SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, FFT_THREADS, FFT_MIXED_SMEM_BYTES, st>>>(
+        xf, wf, twf, of, t_len, rows, n_fft, packed, n_stages, hop, pad, n_frames);
+  } else {
+    int log_m = 0;
+    while ((1 << log_m) < m) ++log_m;
+    stft_fft_kernel<<<grid, FFT_THREADS, 0, st>>>(xf, wf, twf, of, t_len, rows, log_m,
+                                                  radices[0], hop, pad, n_frames);
+  }
   return static_cast<int>(cudaGetLastError());
 }

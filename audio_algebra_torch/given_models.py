@@ -353,16 +353,28 @@ class _TorchWrapper(GivenModelClass):
         return torch.randn(shape, generator=self.generator, device=self.device,
                            dtype=torch.float32).to(self.dtype)
 
+    def _pour(self, converter, sd) -> tuple[int, list]:
+        """Pour `sd` into the model (convert.pour), then put it on its
+        device and dtype. Before any weights are loaded the leaves the pour
+        leaves unreached take the seeded random init: the weights of
+        ensure_params() and a pour, without drawing what the pour
+        overwrites."""
+        init = None if self._loaded else (lambda: params_mod.random_init_(self.model, self.seed))
+        out = pour(self.model, converter, sd, init=init)
+        self.model.to(self.device, self.dtype)
+        self._loaded = True
+        return out
+
     def _pour_file(self, converter) -> None:
         """Pour the torch file at ckpt_info['ckpt_path'] through
         `converter`, or keep the random weights with JAX's message."""
-        self.ensure_params()
         try:
             sd = load_torch_checkpoint(os.path.expanduser(self.ckpt_info["ckpt_path"]))
             print(f"{self.name}: loaded torch state dict ({len(sd)} tensors)")
-            pour(self.model, converter, sd)
+            self._pour(converter, sd)
         except Exception as e:
             print(f"Sorry, exception = {e}. Going with random weights")
+        self.ensure_params()
 
 
 class DVAEWrapper(_TorchWrapper):
@@ -398,14 +410,13 @@ class DVAEWrapper(_TorchWrapper):
         ckpt_file = os.path.expanduser(self.ckpt_info["ckpt_path"])
         print(f"DVAE: attempting to load checkpoint {ckpt_file}")
         self.get_checkpoint(gdrive=gdrive)
-        self.ensure_params()
         try:
-            hits, misses = pour(self.model, convert_dvae_state_dict,
-                                load_torch_checkpoint(ckpt_file))
+            hits, misses = self._pour(convert_dvae_state_dict, load_torch_checkpoint(ckpt_file))
             print(f"DVAE: converted torch checkpoint — {hits} tensors mapped, "
                   f"{len(misses)} unmapped (kept random)")
         except Exception as e:
             print(f"Sorry, exception = {e}. Going with random weights")
+        self.ensure_params()
         return self
 
     def _draw_noise(self, batch: int) -> torch.Tensor:
@@ -631,7 +642,6 @@ class RAVEWrapper(_TorchWrapper):
         ext = Path(path).suffix
         if self.debug:
             print("extension =", ext)
-        self.ensure_params()
         sd = None
         try:
             if ext in (".ts", "") and os.path.exists(path):
@@ -645,13 +655,14 @@ class RAVEWrapper(_TorchWrapper):
             print(f"Sorry, exception = {e}. Going with random weights")
         if sd:
             print(f"{self.name}: loaded state dict ({len(sd)} tensors)")
-            pour(self.model, convert_rave_state_dict, sd)
+            self._pour(convert_rave_state_dict, sd)
             pca, mean = extract_rave_latent_transform(sd)
             if pca is not None and mean is not None and pca.shape[-1] == self.model.latent_dim:
                 self.latent_pca = torch.from_numpy(pca).to(self.device, self.dtype)
                 self.latent_mean = torch.from_numpy(mean).to(self.device, self.dtype)
                 print(f"{self.name}: applying exported latent PCA "
                       f"({pca.shape[0]} of {pca.shape[1]} dims)")
+        self.ensure_params()
         return self
 
     @torch.inference_mode()
@@ -803,14 +814,25 @@ class CLAPDAE(GivenModelClass):
         if model_len not in ("22s", "66s"):
             raise ValueError(f"model_len must be '22s' or '66s', got {model_len!r}")
         print("\n ====== Setting up StackedAELatentCond ======")
-        self.ensure_params()
+        # before any weights are loaded a stage's first pour runs on the host,
+        # the leaves it leaves unreached taking the stage's seeded random init
+        # (convert.pour's `init`); a stage no pour reached takes it whole
+        seeds = {} if self._loaded else {self.latent_diffae: self.seed,
+                                         self.latent_diffusion_model: self.seed + 1}
+
+        def pour_into(stage, converter, sd):
+            seed = seeds.get(stage)
+            pour(stage, converter, sd,
+                 init=None if seed is None else lambda: params_mod.random_init_(stage, seed))
+            seeds.pop(stage, None)
+
         if not self.latent_diffae_setup:
             path = os.environ.get("LATENT_DIFFAE_CKPT", "")
             if path and os.path.exists(os.path.expanduser(path)):
                 try:
                     sd = load_torch_checkpoint(path)
                     print(f"Loaded Latent DiffAE state dict ({len(sd)} tensors)")
-                    pour(self.latent_diffae, convert_stacked_state_dict, sd)
+                    pour_into(self.latent_diffae, convert_stacked_state_dict, sd)
                 except Exception as e:
                     print(f"Sorry, exception = {e}. Going with random weights")
             self.latent_diffae_setup = True
@@ -827,17 +849,21 @@ class CLAPDAE(GivenModelClass):
             try:
                 sd = load_torch_checkpoint(ckpt_path)
                 print(f"Loaded StackedAELatentDiffusionCond state dict ({len(sd)} tensors)")
-                pour(self.latent_diffusion_model, convert_ldm_state_dict, sd)
+                pour_into(self.latent_diffusion_model, convert_ldm_state_dict, sd)
                 # the generator checkpoint carries the stage-1 stack under
                 # latent_ae.* too: one file restores the whole generate()
                 latent_ae_sd = {k[len("latent_ae."):]: v for k, v in sd.items()
                                 if k.startswith("latent_ae.")}
                 if latent_ae_sd:
-                    pour(self.latent_diffae, convert_stacked_state_dict, latent_ae_sd)
+                    pour_into(self.latent_diffae, convert_stacked_state_dict, latent_ae_sd)
             except Exception as e:
                 print(f"Sorry, exception = {e}. Going with random weights")
         else:
             print("StackedAELatentDiffusionCond: starting from scratch!")
+        if not self._loaded:
+            for stage, seed in seeds.items():
+                params_mod.random_init_(stage, seed)
+            self._place()
         print(f"Success! {self.name} is ready to go.")
         return self
 

@@ -8,14 +8,17 @@ tensor it launches a hand-written CUDA kernel of `csrc/stft.cu` (built for
 sm_90a at first use) or raises; on a CPU tensor it takes the plain twin
 `stft_ref`, the matmul formulation of ops/stft.py. The JAX package takes
 its kernel only at n_fft and hop that are multiples of the TPU's 128
-lanes; the port has no such gate.
+lanes; the port has no such gate, and refuses no shape the JAX package
+computes: any hop, any number of rows.
 
-The route is chosen by shape alone, never on a failure: a power-of-two
-n_fft from 16 to 4096 (every caller in the port: 1024 in the models and
-CLAP, 256 in CLAP's tiny config) takes the shared-memory FFT
-(`aa_stft_fft`); any other n_fft the DFT product (`aa_stft`), at any hop
-whose frame span fits a block's shared memory. `launches` counts K6's
-launches on either route, `fft_launches` and `dft_launches` each route's.
+The route is chosen by shape alone, never on a failure, by `plan`: every
+even n_fft from 16 to 8192 whose half m = n_fft / 2 has no prime factor
+above 13 (the models' and CLAP's 1024, CLAP's tiny 256, PitchShift's
+2048, and 384, 640, 960, 1000, 1536, 1920, 400, ...) takes the
+shared-memory mixed-radix FFT (`aa_stft_fft`), to which the plan passes
+its radices; any other n_fft the DFT product (`aa_stft`). `launches`
+counts K6's launches on either route, `fft_launches` and `dft_launches`
+each route's.
 
 The STFT is linear in x: with grad enabled and an x that requires grad,
 the launch runs inside a `torch.autograd.Function` whose backward is the
@@ -25,7 +28,9 @@ ops/groupnorm.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,9 +40,8 @@ from .stft import _dft_bases, device_table, hann_window, stft_plain
 
 SOURCE = "stft.cu"
 BINS_PER_BLOCK = 64             # the kernel's bin tile: the bases' columns pad to it
-MAX_SMEM = 232448               # shared memory one block may use on an H100
-MAX_ROWS = 65535                # grid.z (DFT) and grid.y (FFT)
-FFT_N_FFT = (16, 4096)          # the FFT route's power-of-two n_fft range
+FFT_N_FFT = (16, 8192)          # the FFT route's even n_fft: m = n_fft / 2 <= 4096 points
+FFT_PRIMES = (3, 5, 7, 11, 13)  # the odd radices the kernel has butterflies for
 
 launches = 0
 fft_launches = 0
@@ -68,9 +72,41 @@ def _twiddles(n_fft: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
-def uses_fft(n_fft: int) -> bool:
-    """The route, by shape: the FFT for a power-of-two n_fft in FFT_N_FFT."""
-    return FFT_N_FFT[0] <= n_fft <= FFT_N_FFT[1] and n_fft & (n_fft - 1) == 0
+class StftPlan(NamedTuple):
+    """K6's route for an n_fft ("fft" or "dft") and, for the FFT, the
+    radices of its Stockham stages, first stage first (their product is
+    n_fft / 2)."""
+    route: str
+    radices: tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n_fft: int) -> StftPlan:
+    """The route, by shape alone: the FFT for an even n_fft in FFT_N_FFT
+    whose half m has no prime factor above 13, else the DFT product. The
+    power-of-two part of m is staged as a radix-2 or radix-4 stage where
+    its log2 is not a multiple of 3, then radix-8 stages; the odd primes
+    follow, ascending, one stage each."""
+    if n_fft % 2 or not FFT_N_FFT[0] <= n_fft <= FFT_N_FFT[1]:
+        return StftPlan("dft", ())
+    m, log2 = n_fft // 2, 0
+    while m % 2 == 0:
+        m //= 2
+        log2 += 1
+    odd = []
+    for prime in FFT_PRIMES:
+        while m % prime == 0:
+            m //= prime
+            odd.append(prime)
+    if m != 1:
+        return StftPlan("dft", ())
+    head = {0: [], 1: [2], 2: [4]}[log2 % 3]
+    return StftPlan("fft", tuple(head + [8] * (log2 // 3) + odd))
+
+
+@functools.lru_cache(maxsize=None)
+def _radix_array(radices: tuple[int, ...]):
+    return (ctypes.c_int * len(radices))(*radices)
 
 
 def _lib():
@@ -79,10 +115,9 @@ def _lib():
     if lib.aa_stft.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.aa_stft.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-        lib.aa_stft_fft.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.aa_stft_fft.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                    ctypes.POINTER(ci), ci, vp]
         lib.aa_stft.restype = lib.aa_stft_fft.restype = ci
-        lib.aa_stft_smem_bytes.argtypes = [ci, ci]
-        lib.aa_stft_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -90,9 +125,8 @@ def stft_fused(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
                center: bool = True) -> torch.Tensor:
     """Complex STFT (Hann window) of (..., T) -> complex64 (..., n_bins, F).
     CPU tensors take the twin; CUDA tensors launch the CUDA kernel, in f32
-    (x is cast to f32 as the JAX kernel casts it): the FFT for a
-    power-of-two n_fft from 16 to 4096, else the DFT product; inside an
-    autograd.Function when x requires grad."""
+    (x is cast to f32 as the JAX kernel casts it), on the route `plan`
+    gives; inside an autograd.Function when x requires grad."""
     if x.dim() < 1:
         raise ValueError("stft wants a signal of shape (..., T)")
     *batch, t_len = x.shape
@@ -137,22 +171,18 @@ def _launch(x: torch.Tensor, n_fft: int, hop_length: int, center: bool) -> torch
     pad = n_fft // 2 if center else 0
     n_frames = 1 + (t_len + 2 * pad - n_fft) // hop_length
     rows = math.prod(batch)
-    if rows > MAX_ROWS:
-        raise ValueError(f"stft_fused: {rows} rows exceed the kernel's {MAX_ROWS}")
     lib = _lib()
-    fft = uses_fft(n_fft)
-    if not fft and lib.aa_stft_smem_bytes(n_fft, hop_length) > MAX_SMEM:
-        raise ValueError(f"stft_fused: the frame span at n_fft {n_fft}, hop {hop_length} "
-                         f"exceeds a block's shared memory")
+    route, radices = plan(n_fft)
     n_bins = n_fft // 2 + 1
     x2 = x.float().contiguous()                 # the kernel reads (rows, t_len)
     win = device_table(f"hann{n_fft}", lambda: hann_window(n_fft).numpy(), x.device)
     out = torch.empty((*batch, n_bins, n_frames), dtype=torch.complex64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if fft:
+    if route == "fft":
         tw = device_table(f"twiddles{n_fft}", lambda: _twiddles(n_fft), x.device)
         err = lib.aa_stft_fft(x2.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
-                              rows, t_len, n_fft, hop_length, pad, n_frames, stream)
+                              rows, t_len, n_fft, hop_length, pad, n_frames,
+                              _radix_array(radices), len(radices), stream)
     else:
         bases = device_table(f"dft_padded{n_fft}", lambda: _padded_bases(n_fft), x.device)
         err = lib.aa_stft(x2.data_ptr(), win.data_ptr(), bases.data_ptr(), out.data_ptr(),
@@ -161,7 +191,7 @@ def _launch(x: torch.Tensor, n_fft: int, hop_length: int, center: bool) -> torch
     if err != 0:
         raise RuntimeError(f"stft kernel launch failed: CUDA error {err}")
     launches += 1
-    if fft:
+    if route == "fft":
         fft_launches += 1
     else:
         dft_launches += 1

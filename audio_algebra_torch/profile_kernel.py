@@ -43,7 +43,14 @@ chunk plan and the rounds) and r3 (Freeverb's responses, 64 x 262144 and
 ms a call (`--trace`: each CUDA kernel's device µs a call, by
 torch.profiler); they call only the wrappers `sosfilt_rows`, `envelope`
 and `freeverb_irs`, so this script times an earlier checkout's R1-R3 when
-it runs from that checkout's root. Every line names the card.
+it runs from that checkout's root. k6 (the fused STFT at shapes every
+checkout since the FFT route takes on one route: powers of two 16-4096 at a
+quarter hop, chip_smoke.py's CLAP, DMAE and PitchShift rows, hop 1 and hop
+480, and the DFT product at n_fft 1018, 999 and 1001 on grids of 24 to
+2,304 blocks), one JSON line a shape with
+the route, a SHA-256 of the output's bits and the device ms a call; it
+calls only `stft_fused`, so run from two checkouts' roots, equal digests
+show that K6's results did not change. Every line names the card.
 """
 from __future__ import annotations
 
@@ -70,6 +77,13 @@ R1_SHAPES = [("tpt", 128, 262144, 1), ("phaser", 1024, 32768, 2), ("loudness", 2
 R3_SHAPES = [(64, 262144), (16, 65536)]      # (responses, samples)
 R2_CASES = [("noise", 4, 262144), ("gate", 4, 262144), ("one_chunk", 4, 96),
             ("one_chunk", 4096, 4096)]      # (input, rows, T)
+# (rows, T, n_fft, hop, center): K6 where every checkout takes one route
+K6_CASES = [(32, 65536, n, n // 4, c) for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+            for c in (True, False)]
+K6_CASES += [(1, 1048576, 1024, 480, True), (8, 66304, 1024, 256, False),
+             (4, 262144, 2048, 512, True), (40, 9000, 256, 480, True), (1, 5000, 64, 1, True),
+             (32, 65536, 1018, 250, True), (3, 5000, 999, 160, False),
+             (1, 16000, 1001, 160, True), (4, 8000, 1018, 250, True), (8, 48000, 1018, 250, True)]
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]
@@ -319,7 +333,7 @@ def profile_k4_bf16(kernel: str, dev, card, g) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=["k1", "k4a", "k4b", "k4c", "k2a", "k2b", "k2c", "k3",
-                                         "k5", "r1", "r2", "r3"], required=True)
+                                         "k5", "k6", "r1", "r2", "r3"], required=True)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                     help="k4a, k4b, k4c: float32 (default) or bfloat16 (the bf16 "
                          "training step's shapes, both bias dtypes); K2 runs in bfloat16")
@@ -367,6 +381,27 @@ def main(argv=None) -> int:
                               "dtype": dt, "gelu": gelu, "residual": res, "sha256": digest,
                               "ms": events_ms(call, 20), "device": card}), flush=True)
             del x, r, y
+        return 0
+    if args.kernel == "k6":
+        import hashlib
+        from audio_algebra_torch.ops import stft_kernel as stk
+        for rows, t_len, n_fft, hop, center in K6_CASES:
+            gi = torch.Generator(device=dev).manual_seed(n_fft * 7 + hop)
+            x = torch.randn((rows, t_len), generator=gi, device=dev) * 0.5
+
+            def call():
+                return stk.stft_fused(x, n_fft, hop, center)
+            before = stk.fft_launches
+            y = call()
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "kernel": "k6", "tree": os.getcwd(), "shape": [rows, t_len], "n_fft": n_fft,
+                "hop": hop, "center": center,
+                "route": "fft" if stk.fft_launches > before else "dft",
+                "sha256": hashlib.sha256(torch.view_as_real(y).contiguous().cpu().numpy()
+                                         .tobytes()).hexdigest(),
+                "device_ms": device_ms(call, 20), "device": card}), flush=True)
+            del x, y
         return 0
     if args.kernel == "k3":
         for shape in K3_SHAPES:

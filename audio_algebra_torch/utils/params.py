@@ -182,6 +182,20 @@ def to_flax_params(module: nn.Module) -> dict:
     return to_flax_tree(module, dict(module.named_parameters()))
 
 
+def flax_shapes(module: nn.Module) -> dict:
+    """A flax params tree of uninitialised f32 arrays in the module's leaf
+    shapes: a pour's template where the module's own values are not read."""
+    tree: dict = {}
+    state = dict(module.named_parameters())
+    for path, (name, to_flax, _) in flax_paths(module).items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        shape = to_flax(np.empty(state[name].shape, np.float32)).shape
+        node[path[-1]] = np.empty(shape, np.float32)
+    return tree
+
+
 def to_flax_grads(module: nn.Module) -> dict:
     """The parameters' gradients (`.grad`, after a backward) as a flax tree
     of numpy f32 arrays. A parameter the loss did not reach (`.grad` None)
@@ -206,7 +220,8 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
             continue
         fan_in = int(np.prod(flax_shape[:-1]))
         std = 1.0 / max(np.sqrt(fan_in), 1.0)
-        arr = (rng.standard_normal(flax_shape).astype(np.float32) * std
-               ).astype(np.float32)
-        p.copy_(torch.from_numpy(np.ascontiguousarray(from_flax(arr))).to(p.dtype))
+        arr = rng.standard_normal(flax_shape).astype(np.float32)
+        # arr * std as numpy promotes it, rounded to f32, in place
+        np.multiply(arr, std, out=arr, casting="unsafe")
+        p.copy_(torch.from_numpy(from_flax(arr)))
     return module

@@ -66,12 +66,16 @@ Phases, each printing one JSON line:
   kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
-                1024/256, CLAP's (1, 1048576) 1024/480 and DMAE's mel (8,
-                66304) 1024/256 at center=False (no further from
-                float64 than the twin), the DFT product at (32, 65536)
-                1000/250; each timed beside the twin, torch.stft (cuFFT),
-                its byte bound and the DFT's operations bound, per call and
-                on the device alone (the card kept busy while the host queues)
+                1024/256, CLAP's (1, 1048576) 1024/480, DMAE's mel (8,
+                66304) 1024/256 at center=False and PitchShift's (4,
+                262144) 2048/512; its mixed-radix plans at (32, 65536)
+                1000/250, 1920/480, 1536/384, 1408/128 and 384/128, (4,
+                262144) 8192/2048 and (8, 48000) 2000/2000 (each no further
+                from float64 than the twin); the DFT product at (32, 65536)
+                1018/250 and (8, 48000) 2018/2018; each on its planned route
+                in one launch, timed beside the twin, torch.stft (cuFFT), its
+                byte bound and the DFT's operations bound, per call and on
+                the device alone (the card kept busy while the host queues)
   spectrogram   the four spectrogram given models at (16, 2, 65536) f32
                 (1024/256, 32 Griffin-Lim rounds): the SpectrogramAE and
                 MagDPhase (init 'true') round trips under 1e-9 and 1e-8 rel
@@ -80,7 +84,11 @@ Phases, each printing one JSON line:
                 through the twin from the same angles (rel-RMS under the
                 larger of 1e-3 and the twin's own spread under a 1e-6 input
                 change); spectral convergence, encode and decode times; K6
-                must launch 1 + 33 + 33 + 1 = 68 times, all on the FFT route
+                must launch 1 + 33 + 33 + 1 = 68 times, all on the FFT route.
+                Then MelSpectrogramAE at 1920/480 (40 ms windows, 10 ms
+                hops): an encode and a Griffin-Lim decode whose 33 K6
+                launches must all take the FFT route's mixed-radix plan,
+                the decode against the same through the twin
   clap          the served model's CLAP module at full width in f32 with
                 seeded random weights (HTSAT-base with fusion, RoBERTa-base):
                 a 5 s clip (short path), a 22 s clip (fusion path) and two
@@ -305,6 +313,10 @@ STACKED_STEP = {"k1": 1, "k2a": 59, "k2b": 19, "k2c": 40}
 # MagDPhase encode once, Mag and Mel encode once and take 32 Griffin-Lim rounds
 SPEC_SHAPE, SPEC_ITERS = (16, 2, 65536), 32
 K6_SPECTROGRAM = 1 + (1 + SPEC_ITERS) + (1 + SPEC_ITERS) + 1
+# then MelSpectrogramAE at 40 ms windows, 10 ms hops (1920 / 480 at 48 kHz):
+# an encode and a Griffin-Lim decode on K6's mixed-radix FFT (8, 8, 3, 5)
+MEL_MIXED = (1920, 480)
+K6_MEL_MIXED = 1 + SPEC_ITERS
 STFT_TOL = (5e-4, 1e-4)        # (atol, rtol): the JAX package's for its kernel
 GL_REL_RMS = 1e-3
 # the exact round trips, rel MSE: SpectrogramAE's; MagDPhase integrates f32
@@ -1313,27 +1325,38 @@ def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
 
 
 def phase_kernels_k6() -> dict:
-    """K6 on both routes, each against its twin and float64 and timed beside
-    the twin, torch.stft and the bounds: the FFT at the spectrogram models'
-    shape, at CLAP's 22 s clip, at DMAE's mel (center=False, no reflect
-    pad) and at PitchShift's (2 clips x 2 channels, 262144; n_fft 2048,
-    hop 512) on the effects and xae paths, the DFT product at a
-    non-power-of-two n_fft. Returns the rows by
-    route, the first of each, DMAE's row under "center_false" and
-    PitchShift's under "pitch_shift"."""
+    """K6 on both routes (ops/stft_kernel.plan), each row against its twin
+    and float64 and timed beside the twin, torch.stft and the bounds: the
+    power-of-two FFT at the spectrogram models' shape, at CLAP's 22 s clip,
+    at DMAE's mel (center=False, no reflect pad) and at PitchShift's (2
+    clips x 2 channels, 262144; n_fft 2048, hop 512) on the effects and
+    xae paths; the mixed-radix FFT at non-power-of-two n_fft; the DFT
+    product at n_fft whose half has a prime factor above 13; and shapes
+    whose 32-frame span the card once refused. Returns the rows by case."""
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
 
     dev = torch.device("cuda")
-    rows = []
-    for shape, n_fft, hop, center in [((32, 65536), 1024, 256, True),
-                                      ((1, CLAP_LONG), 1024, 480, True),
-                                      (DMAE_STFT, 1024, 256, False),
-                                      (PITCH_STFT, 2048, 512, True),
-                                      ((32, 65536), 1000, 250, True)]:
+    cases = [  # (case, shape, n_fft, hop, center); the first row of each route first
+        ("fft", (32, 65536), 1024, 256, True),              # the spectrogram models
+        ("clap", (1, CLAP_LONG), 1024, 480, True),          # CLAP's 22 s mel
+        ("center_false", DMAE_STFT, 1024, 256, False),      # DMAE's mel
+        ("pitch_shift", PITCH_STFT, 2048, 512, True),       # effects, xae
+        ("fft_1000", (32, 65536), 1000, 250, True),         # radices 4, 5, 5, 5
+        ("fft_1920", (32, 65536), 1920, 480, True),         # 8, 8, 3, 5: 40 ms / 10 ms at 48 kHz
+        ("fft_1536", (32, 65536), 1536, 384, True),         # 4, 8, 8, 3
+        ("fft_1408", (32, 65536), 1408, 128, True),         # 8, 8, 11: the JAX kernel's largest
+        ("fft_384", (32, 65536), 384, 128, True),           # 8, 8, 3
+        ("fft_8192", (4, 262144), 8192, 2048, True),        # 8, 8, 8, 8: one frame a block
+        ("fft_2000", (8, 48000), 2000, 2000, True),         # 8, 5, 5, 5: frames without overlap
+        ("dft", (32, 65536), 1018, 250, True),              # half 509, a prime
+        ("dft_2018", (8, 48000), 2018, 2018, True),         # half 1009: frames without overlap
+    ]
+    rows = {}
+    for case, shape, n_fft, hop, center in cases:
         g = torch.Generator(device=dev).manual_seed(400 + len(rows))
         x = torch.randn(shape, generator=g, device=dev) * 0.5
-        route = "fft" if stk.uses_fft(n_fft) else "dft"
+        route, radices = stk.plan(n_fft)
         before = (stk.fft_launches, stk.dft_launches)
         got = stk.stft_fused(x, n_fft, hop, center)
         torch.cuda.synchronize()
@@ -1345,8 +1368,8 @@ def phase_kernels_k6() -> dict:
         # both against the same STFT in float64: how far each is from exact
         exact = torch.stft(x.double(), n_fft, hop, window=window.double(), center=center,
                            pad_mode="reflect", return_complex=True)
-        rows.append({
-            "route": route, "route_launches": took,
+        rows[case] = {
+            "case": case, "route": route, "radices": list(radices), "route_launches": took,
             "shape": list(shape), "n_fft": n_fft, "hop": hop, "center": center,
             "dtype": "float32",
             "out_shape": list(got.shape), "max_abs_err": float(err.max()), "atol": atol,
@@ -1362,22 +1385,19 @@ def phase_kernels_k6() -> dict:
             "library_device_ms": device_ms(lambda: torch.stft(
                 x, n_fft, hop, window=window, center=center, pad_mode="reflect",
                 return_complex=True), 20),
-            **stft_bounds(shape[0], shape[1], n_fft, got.shape[-1])})
+            **stft_bounds(shape[0], shape[1], n_fft, got.shape[-1])}
         del x, got, want, err, exact
-    emit({"phase": "kernels", "kernel": "stft", "cases": rows})
-    failed = [r for r in rows if r["n_outside_tol"] or r["route_launches"] != {
+    emit({"phase": "kernels", "kernel": "stft", "cases": list(rows.values())})
+    failed = [r for r in rows.values() if r["n_outside_tol"] or r["route_launches"] != {
         k: int(k == r["route"]) for k in ("fft", "dft")}]
     if failed:
         raise AssertionError(f"K6 disagrees with its twin or took the wrong route: {failed}")
     # the FFT rounds like log n_fft, the DFT product like sqrt(n_fft)
-    farther = [r for r in rows if r["route"] == "fft"
+    farther = [r for r in rows.values() if r["route"] == "fft"
                and r["kernel_max_abs_err_vs_f64"] > r["plain_max_abs_err_vs_f64"]]
     if farther:
         raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
-    out = {route: next(r for r in rows if r["route"] == route) for route in ("fft", "dft")}
-    out["center_false"] = next(r for r in rows if not r["center"])
-    out["pitch_shift"] = next(r for r in rows if r["n_fft"] == 2048)
-    return out
+    return rows
 
 
 def _synced_s(fn):
@@ -1403,7 +1423,10 @@ def _with_twin_stft(fn):
 def phase_spectrogram() -> int:
     """The four spectrogram given models at full size through their entry
     points, K6's launches counted over the run; then, outside the count,
-    the Mag and Mel decodes again through the twin. Returns the count."""
+    the Mag and Mel decodes again through the twin. Then one
+    MelSpectrogramAE at MEL_MIXED through K6's mixed-radix FFT, its
+    launches counted alone, and its decode through the twin. Returns the
+    launches of both runs."""
     import numpy as np
     import torch
     from audio_algebra_torch import given_models as gm
@@ -1469,7 +1492,49 @@ def phase_spectrogram() -> int:
     if launches != K6_SPECTROGRAM or fft_launches != launches:
         raise AssertionError(f"K6 launched {launches} times ({fft_launches} on the FFT "
                              f"route), expected {K6_SPECTROGRAM}, all FFT")
-    return launches
+    return launches + _mel_mixed_radix(x)
+
+
+def _mel_mixed_radix(x) -> int:
+    """MelSpectrogramAE at MEL_MIXED on the spectrogram phase's clips: an
+    encode and a Griffin-Lim decode through K6 (counted: all on the FFT
+    route, whose plan holds radices 3 and 5), the same decode through the
+    twin and the twin's spread under a 1e-6 change of the mel input.
+    Returns K6's launches."""
+    import torch
+    from audio_algebra_torch import given_models as gm
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    n_fft, hop = MEL_MIXED
+    dev = x.device
+    model = gm.MelSpectrogramAE(device="cuda", n_fft=n_fft, hop_length=hop, n_iter=SPEC_ITERS)
+    angles = torch.rand((*SPEC_SHAPE[:2], n_fft // 2 + 1, SPEC_SHAPE[-1] // hop + 1),
+                        generator=torch.Generator(device=dev).manual_seed(8),
+                        device=dev) * (2 * math.pi)
+    model.decode(model.encode(x[:1]), init_angle=angles[:1])      # warm-up: tables
+    stk.launches = stk.fft_launches = stk.dft_launches = 0
+    reps, enc_s = _synced_s(lambda: model.encode(x))
+    out, dec_s = _synced_s(lambda: model.decode(reps, init_angle=angles))
+    took = {"launches": stk.launches, "fft": stk.fft_launches, "dft": stk.dft_launches}
+    twin = _with_twin_stft(lambda: model.decode(reps, init_angle=angles))
+    nudge = 1 + 1e-6 * torch.randn(reps.shape, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(9))
+    spread = _with_twin_stft(lambda: model.decode(reps * nudge, init_angle=angles))
+    row = {"n_fft": n_fft, "hop": hop, "radices": list(stk.plan(n_fft).radices),
+           "encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3,
+           "reps_shape": list(reps.shape), "out_shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()),
+           "rel_rms_kernel_vs_twin": rel_rms(out, twin), "twin_spread_1e-6": rel_rms(spread, twin),
+           "k6_launches": took, "k6_expected": K6_MEL_MIXED}
+    emit({"phase": "spectrogram", "model": "MelSpectrogramAE", **row})
+    if row["out_shape"] != list(SPEC_SHAPE) or not row["finite"]:
+        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED} decoded {row}")
+    if not row["rel_rms_kernel_vs_twin"] < max(GL_REL_RMS, row["twin_spread_1e-6"]):
+        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED} through K6 vs twin: {row}")
+    if took != {"launches": K6_MEL_MIXED, "fft": K6_MEL_MIXED, "dft": 0}:
+        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED}: K6 launched {took}, "
+                             f"expected {K6_MEL_MIXED} on the FFT route")
+    return took["launches"]
 
 
 def phase_clap(model) -> int:
@@ -2825,8 +2890,9 @@ def phase_checkpoints() -> dict:
         _perturb(tm.diffusion, 102)
         path = tmp / "dvae.ckpt"
         torch.save({"state_dict": tm.state_dict(), "epoch": 0}, path)
+        info = _ckpt_info(path)                 # one hash: the bf16 wrapper reads it too
         w = DVAEWrapper(device="cuda")
-        w.ckpt_info = _ckpt_info(path)
+        w.ckpt_info = dict(info)
         row = _setup("DVAE", lambda: w.setup(gdrive=False), [path])
         x, t = randn(2, 2, CHUNK, scale=0.3), torch.rand((2,), generator=g, device=dev)
         with torch.inference_mode():
@@ -2842,7 +2908,7 @@ def phase_checkpoints() -> dict:
         del tm, w, lat, v, lat_ref, cond
         wb = DVAEWrapper(args_dict={"sample_size": CHUNK, "demo_steps": STEPS}, device="cuda",
                          dtype=torch.bfloat16)
-        wb.ckpt_info = _ckpt_info(path)
+        wb.ckpt_info = dict(info)
         row["bf16_setup"] = _setup("DVAE bf16", lambda: wb.setup(gdrive=False), [path])
         audio = randn(4, 2, CHUNK, scale=0.3)
         start = time.perf_counter()
@@ -4404,20 +4470,23 @@ def main() -> int:
                                 "apps": apps["k6"]},
               dft_operations_ms=k6["fft"]["dft_operations_ms"],
               cases={case: {key: row[key] for key in (
-                  "route", "shape", "n_fft", "hop", "center", "max_abs_err", "kernel_ms",
+                  "route", "radices", "shape", "n_fft", "hop", "center", "max_abs_err", "kernel_ms",
                   "plain_ms", "library_ms", "kernel_device_ms", "library_device_ms",
                   "bound_ms", "bound_by", "dft_operations_ms", "kernel_max_abs_err_vs_f64",
                   "plain_max_abs_err_vs_f64")}
                   for case, row in k6.items()},
-              route_rule="fft: power-of-two n_fft from 16 to 4096 (every caller on "
-                         "the main paths); dft: any other n_fft"),
+              route_rule="fft: every even n_fft from 16 to 8192 whose half has no "
+                         "prime factor above 13 (mixed radices 2-13); dft: any other "
+                         "n_fft"),
         rec_entry("sosfilt", "audio_algebra_tpu/ops/filters.py:189", "r1", rec["sosfilt"],
                   replaces_also="audio_algebra_tpu/ops/filters.py:219 (sosfilt), :170 "
                                 "(_biquad_scan)"),
         rec_entry("envelope", "audio_algebra_tpu/ops/effects.py:97", "r2", rec["envelope"]),
         rec_entry("freeverb_ir", "audio_algebra_tpu/ops/effects.py:178", "r3",
                   rec["freeverb_ir"])]})
+    import resource
     emit({"phase_seconds": seconds,
+          "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
           "io_fx_cli_phases_s": sum(seconds[k] for k in IO_FX_CLI_PHASES),
           "apps_ddp_phases_s": seconds["apps"] + seconds["ddp"],
           "split_seqpar_fsdp_phases_s": seconds["kernels_split"] + seconds["seqpar"]

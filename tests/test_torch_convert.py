@@ -119,6 +119,49 @@ def test_dvae_pour_is_jax_pour():
     assert np.array_equal(flat(t_out[0])["params/encoder/l000/kernel"], conv0)
 
 
+@pytest.mark.parametrize("drop", [0, 2])
+def test_pour_draws_the_random_init_only_for_what_it_keeps(drop, tmp_path, monkeypatch):
+    """pour(..., init=) and DVAEWrapper.setup: a pour that fills every leaf
+    never runs the seeded random init; one that leaves leaves at init runs
+    it once. Either way the module ends bit for bit as after the random
+    init and a pour over its values (the JAX package's fast_random_params,
+    then the pour)."""
+    from audio_algebra_torch import given_models as gm
+    from audio_algebra_torch.models.dvae import DiffusionDVAE
+    from audio_algebra_torch.utils import params as tparams
+
+    torch.manual_seed(1)
+    tm = mirrors.DiffusionDVAE(**DVAE)
+    perturb(tm.encoder, 2)
+    perturb(tm.diffusion, 3)
+    sd = {k: v for k, v in tm.state_dict().items()
+          if not any(f"encoder{ema}.layers.{i}.weight" == k
+                     for ema in ("", "_ema") for i in range(drop))}
+    want = tparams.random_init_(DiffusionDVAE(**DVAE), 0)
+    tcv.pour(want, t_convert_dvae, {k: v.numpy() for k, v in sd.items()})
+
+    calls = []
+    got = DiffusionDVAE(**DVAE)
+    hits, _ = tcv.pour(got, t_convert_dvae, {k: v.numpy() for k, v in sd.items()},
+                       init=lambda: calls.append(tparams.random_init_(got, 0)))
+    assert len(calls) == int(drop > 0)
+    assert (hits == len(tcv._leaves(to_flax_params(got)))) == (drop == 0)
+
+    path = tmp_path / "dvae.ckpt"
+    torch.save({"state_dict": sd}, path)
+    inits = []
+    real_init = tparams.random_init_
+    monkeypatch.setattr(tparams, "random_init_", lambda m, s: inits.append(s) or real_init(m, s))
+    w = gm.DVAEWrapper(args_dict={"latent_dim": DVAE["latent_dim"]}, device="cpu",
+                       model_kwargs={k: v for k, v in DVAE.items() if k != "latent_dim"})
+    w.ckpt_info = {"ckpt_path": str(path), "ckpt_hash": "", "ckpt_url": "", "gdrive_path": ""}
+    w.setup(gdrive=False)
+    assert len(inits) == int(drop > 0)
+    for model in (got, w.model):
+        for (name, a), (_, b) in zip(want.state_dict().items(), model.state_dict().items()):
+            assert torch.equal(a, b), name
+
+
 # -------------------------------------------------------------- stacked ---
 
 @pytest.fixture(scope="module")

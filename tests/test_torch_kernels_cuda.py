@@ -14,8 +14,10 @@ each alone with a same-bits check of two launches (K4c at every head
 dim, B = 1 to 17 and both bias dtypes); the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
-fused STFT) on both routes, the FFT at n_fft 16 to 4096 and the DFT product
-at other n_fft, against its twin and float64; the attention site of a
+fused STFT) on both routes, the mixed-radix FFT at powers of two from 16 to
+8192 and at n_fft with odd radices 3 to 13, and the DFT product at other
+n_fft, against its twin and float64, and at frame spans past shared memory
+and rows past 65,535; the attention site of a
 training UNet at T = 1024 without the training kernels; the turbo int8 conv (int8 tensor cores) against the
 same integer arithmetic on the CPU; and the effects bank's recurrences R1
 (the biquad cascade, 1-12 sections, per-row or shared coefficients, ragged
@@ -308,7 +310,8 @@ def test_int8_conv_on_card_matches_the_integers(cuda_device, c_in, c_out, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_fft,hop,center", [
     ((32, 65536), 1024, 256, True), ((1, 1048576), 1024, 480, True),
-    ((2, 3, 4000), 512, 128, False), ((3, 5000), 256, 64, True), ((1, 9000), 1024, 1000, True)])
+    ((2, 3, 4000), 512, 128, False), ((3, 5000), 256, 64, True), ((1, 9000), 1024, 1000, True),
+    ((3, 5000), 400, 160, False)])
 def test_stft_kernel_matches_twin_on_card(cuda_device, shape, n_fft, hop, center):
     """K6 against its twin at the JAX package's own kernel tolerance
     (atol 5e-4, rtol 1e-4); `stft` takes K6 for the default window only."""
@@ -339,14 +342,18 @@ def _stft_vs_exact(x, n_fft, hop, center):
 
 # rows by hop: hop 1 gives a frame per sample, so one row
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft", [16, 64, 256, 1024, 4096])
+@pytest.mark.parametrize("n_fft", [16, 64, 256, 1024, 4096, 8192,
+                                   26, 384, 400, 750, 1000, 1408, 1536, 1920])
 @pytest.mark.parametrize("hop", [1, 480, "quarter"])
 @pytest.mark.parametrize("center", [True, False])
 def test_stft_fft_route_matches_twin_and_f64_on_card(cuda_device, n_fft, hop, center):
-    """The FFT route at every power-of-two n_fft the port takes it for:
-    within the JAX kernel's tolerance of the twin, and no further from an
-    exact (float64) STFT than the twin; a length that leaves the last
-    frame tile partial."""
+    """The FFT route at powers of two from 16 to 8192 and at n_fft whose
+    plans hold odd radices (26: 13 alone; 384: 8, 8, 3; 400: 8, 5, 5, 25 ms
+    at 16 kHz; 750: 3, 5, 5, 5, an odd half; 1000: 4, 5, 5, 5; 1408: 8, 8,
+    11; 1536: 4, 8, 8, 3; 1920: 8, 8, 3, 5): within the JAX kernel's tolerance of the twin, and no further
+    from an exact (float64) STFT than the twin; a length that leaves the
+    last frame tile partial."""
+    assert stk.plan(n_fft).route == "fft"
     hop = n_fft // 4 if hop == "quarter" else hop
     rows = {1: (1,), 480: (40,)}.get(hop, (3,))
     t_len = 3 * n_fft + 333 + (480 * 7 if hop == 480 else 0)
@@ -365,16 +372,41 @@ def test_stft_fft_route_matches_twin_and_f64_on_card(cuda_device, n_fft, hop, ce
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_fft,hop,center", [
-    ((32, 65536), 1000, 250, True), ((3, 5000), 400, 160, False), ((1, 9000), 1536, 480, True)])
+    ((32, 65536), 1018, 250, True), ((3, 5000), 999, 160, False), ((1, 9000), 1538, 480, True),
+    ((2, 30000), 10000, 2500, True)])
 def test_stft_dft_route_matches_twin_on_card(cuda_device, shape, n_fft, hop, center):
-    """Any n_fft that is not a power of two takes the DFT product."""
+    """An odd n_fft, a prime factor of the half above 13 (509, 769), or
+    above 8192 takes the DFT product."""
     g = torch.Generator(device=cuda_device).manual_seed(n_fft)
     x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
-    assert not stk.uses_fft(n_fft)
+    assert stk.plan(n_fft).route == "dft"
     before = (stk.launches, stk.fft_launches, stk.dft_launches)
     got, want, _, _ = _stft_vs_exact(x, n_fft, hop, center)
     assert (stk.launches, stk.fft_launches, stk.dft_launches) == \
         (before[0] + 1, before[1], before[2] + 1)
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_fft,hop", [
+    ((4, 262144), 8192, 2048), ((8, 48000), 2000, 2000), ((2, 40000), 6144, 1536),
+    ((8, 48000), 2018, 2018), ((70000, 64), 16, 16), ((70000, 64), 34, 34)])
+def test_stft_long_spans_and_many_rows_on_card(cuda_device, shape, n_fft, hop):
+    """Shapes the JAX package computes whose 32-frame span passes a block's
+    shared memory (8192 / 2048, 2000 / 2000, 6144 / 1536 on the FFT, 2018 /
+    2018 on the DFT product) and more than 65,535 rows on either route: one
+    launch each, on the planned route, within the JAX kernel's tolerance of
+    the twin."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft + hop)
+    x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
+    route = stk.plan(n_fft).route
+    before = (stk.fft_launches, stk.dft_launches)
+    got = stk.stft_fused(x, n_fft, hop)
+    torch.cuda.synchronize()
+    assert (stk.fft_launches - before[0], stk.dft_launches - before[1]) == \
+        ((1, 0) if route == "fft" else (0, 1))
+    want = stk.stft_ref(x, n_fft, hop)
+    assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
 
 

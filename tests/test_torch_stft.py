@@ -37,7 +37,11 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("shape,n_fft,hop,center", [
     ((2, 16384), 1024, 256, True), ((1, 2, 8192), 512, 128, True),
-    ((3, 4096), 1024, 256, True), ((2, 8192), 1024, 256, False)])
+    ((3, 4096), 1024, 256, True), ((2, 8192), 1024, 256, False),
+    # n_fft the JAX kernel takes that are not powers of two: the card's
+    # mixed-radix FFT route (tests/test_torch_stft_plan.py models it)
+    ((2, 8192), 384, 128, True), ((2, 8192), 640, 128, True),
+    ((2, 8192), 1152, 128, True), ((2, 8192), 1408, 128, True)])
 def test_stft_matches_jax_kernel_and_xla(shape, n_fft, hop, center):
     x = _signal(shape)
     got = tstft.stft(torch.from_numpy(x), n_fft, hop, center=center).numpy()
