@@ -11,7 +11,11 @@
 // complex64 in torch's layout (rows, n_bins, F). The framed signal never
 // goes to device memory. Both routes read the row with the reflect padding
 // done by index math (no padded copy), place any number of rows on the
-// grid and take one launch.
+// grid and take one launch. The padding is numpy's mode="reflect" at any
+// pad: a row no longer than the pad n_fft / 2 reflects as often as it
+// needs (reflect_index), a one-sample row repeats its sample. Such rows
+// take their own instance of each kernel (kFold, chosen on the host), so
+// the instance every longer row runs keeps the one-reflection index math.
 //
 // The FFT route (aa_stft_fft; every even n_fft from 16 to 8192 whose half
 // m = n_fft / 2 has no prime factor above 13, the plan of
@@ -76,6 +80,27 @@
 
 namespace {
 
+// Sample s of a row of t_len samples reflect-padded (edge excluded) as far
+// as s lies. kFold = false: one reflection, which covers s in [-(t_len - 1),
+// 2 (t_len - 1)], every index of a row longer than the pad. kFold = true:
+// reflected at 0 and at t_len - 1 until s lands in the row, numpy's
+// mode="reflect" at any pad (the padded row is periodic with period
+// 2 (t_len - 1)); a row of one sample is that sample everywhere. One
+// instance for both, with a modulo on the out-of-range branch, took the
+// power-of-two FFT kernel from 40 to 44 registers (its third block an SM)
+// and 10-20 % of its time, though no index of a long row reaches it.
+template <bool kFold, typename I>
+__device__ __forceinline__ I reflect_index(I s, I t_len) {
+  if constexpr (kFold) {
+    if (t_len == 1) return 0;
+    const I last = t_len - 1;
+    while (s < 0 || s > last) s = s < 0 ? -s : 2 * last - s;
+    return s;
+  } else {
+    return s < 0 ? -s : (s >= t_len ? 2 * (t_len - 1) - s : s);
+  }
+}
+
 constexpr int BM = 32;        // frames per block
 constexpr int BN = 64;        // bins per block
 constexpr int BK = 32;        // depth (samples) per chunk
@@ -84,6 +109,7 @@ constexpr int TN = 4;         // bins per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);   // 128
 constexpr int AS = BM + 4;    // A tile row stride: 16-byte aligned rows
 
+template <bool kFold>
 __global__ void __launch_bounds__(THREADS)
 stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
             const float* __restrict__ bases, float2* __restrict__ out, int t_len,
@@ -125,9 +151,7 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
       const long long p = static_cast<long long>(f0 + f) * hop + n;
       float v = 0.0f;
       if (n < n_fft && p < padded) {
-        long long s = p - pad;
-        if (s < 0) s = -s;                                 // reflect, edge excluded
-        else if (s >= t_len) s = 2 * static_cast<long long>(t_len - 1) - s;
+        const long long s = reflect_index<kFold, long long>(p - pad, t_len);
         v = __ldg(xr + s) * __ldg(win + n);
       }
       a_r[q] = v;
@@ -337,14 +361,13 @@ template <> __device__ __forceinline__ void dft<8>(float2 (&u)[8]) {
 // The tile's frames as the input of the first stage: point n2 of frame f
 // is x[2 n2] + i x[2 n2 + 1] of the frame, windowed, read from the row with
 // the reflect padding done by index math (zero past the last frame).
+template <bool kFold>
 struct FrameSource {
   const float* xr;
   const float2* win2;
   int t_len, hop, pad, f0, n_frames;
 
-  __device__ __forceinline__ int reflect(int p) const {
-    return p < 0 ? -p : (p >= t_len ? 2 * (t_len - 1) - p : p);
-  }
+  __device__ __forceinline__ int reflect(int p) const { return reflect_index<kFold>(p, t_len); }
 
   __device__ __forceinline__ float2 load(int f, int n2) const {
     if (f0 + f >= n_frames) return make_float2(0.0f, 0.0f);
@@ -414,9 +437,9 @@ template <> struct Log2<8> { static constexpr int v = 3; };
 // barrier that parts the stage's reads from its writes. The first stage
 // (p = 1) reads its points from the row (`src`); the others read shared
 // memory, then a barrier. A barrier ends each stage.
-template <int R, bool kFirst>
+template <int R, bool kFirst, typename Source>
 __device__ __forceinline__ void fft_stage(float* re, float* im, const float2* __restrict__ tw,
-                                          int log_m, int p, const FrameSource& src) {
+                                          int log_m, int p, const Source& src) {
   constexpr int PER = FFT_POINTS / (R * FFT_THREADS);       // butterflies a thread
   const int log_q = log_m - Log2<R>::v;
   const int q = 1 << log_q;
@@ -460,6 +483,7 @@ __device__ __forceinline__ void fft_stage(float* re, float* im, const float2* __
 
 // A power-of-two plan (m = 2^log_m, 8 to 4096): its first radix (2, 4 or
 // 8), then radix-8 stages, in one 4096-point buffer.
+template <bool kFold>
 __global__ void __launch_bounds__(FFT_THREADS)
 stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
                 const float2* __restrict__ tw, float2* __restrict__ out, int t_len,
@@ -473,8 +497,9 @@ stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   int row;
   if (!tile_of(rows, row)) return;
   const int f0 = blockIdx.x * frames;
-  const FrameSource src{x + static_cast<size_t>(row) * t_len,
-                        reinterpret_cast<const float2*>(win), t_len, hop, pad, f0, n_frames};
+  const FrameSource<kFold> src{x + static_cast<size_t>(row) * t_len,
+                               reinterpret_cast<const float2*>(win), t_len, hop, pad, f0,
+                               n_frames};
 
   int p;
   if (first == 2) {
@@ -500,11 +525,11 @@ stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // reads from its writes and one butterfly alone is held in registers. q, p
 // and the frame index are divided by multiply-highs. A barrier ends each
 // stage.
-template <int R, bool kFirst>
+template <int R, bool kFirst, typename Source>
 __device__ __forceinline__ void fft_stage_mixed(const float* re_in, const float* im_in,
                                                 float* re_out, float* im_out,
                                                 const float2* __restrict__ tw, int n_fft,
-                                                int points, int p, const FrameSource& src) {
+                                                int points, int p, const Source& src) {
   const int m = n_fft >> 1;
   const int q = m / R;
   const int step = n_fft / (p * R);
@@ -550,7 +575,7 @@ __device__ __forceinline__ int radix_of(unsigned long long radices, int s) {
 // instance without those stages. Both at 64 registers, two blocks an SM
 // (the large one spills 96 bytes there, and runs 30 % faster than at its
 // own 112 registers and one block).
-template <bool kLarge>
+template <bool kLarge, bool kFold>
 __global__ void __launch_bounds__(FFT_THREADS, 2)
 stft_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
                       const float2* __restrict__ tw, float2* __restrict__ out, int t_len,
@@ -565,8 +590,9 @@ stft_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win
   int row;
   if (!tile_of(rows, row)) return;
   const int f0 = blockIdx.x * frames;
-  const FrameSource src{x + static_cast<size_t>(row) * t_len,
-                        reinterpret_cast<const float2*>(win), t_len, hop, pad, f0, n_frames};
+  const FrameSource<kFold> src{x + static_cast<size_t>(row) * t_len,
+                               reinterpret_cast<const float2*>(win), t_len, hop, pad, f0,
+                               n_frames};
 
   int p = 1, b = 0;
 #define AA_STAGE(R, FIRST) \
@@ -613,17 +639,18 @@ bool odd_radix(int r) { return r == 3 || r == 5 || r == 7 || r == 11 || r == 13;
 // x: (rows, t_len) f32, contiguous. win: (n_fft,) f32. bases: [2][n_fft][kp]
 // f32 (cos then sin; columns >= n_bins zero; kp a multiple of 64). out:
 // (rows, n_bins, n_frames) complex64. pad: n_fft / 2 when centred, else 0
-// (must be < t_len). Returns cudaGetLastError().
+// (any t_len >= 1). Returns cudaGetLastError().
 extern "C" int aa_stft(const void* x, const void* win, const void* bases, void* out,
                        int rows, int t_len, int n_fft, int hop, int pad, int n_frames,
                        int n_bins, int kp, void* stream) {
   const int tiles = (n_frames + BM - 1) / BM;
   if (rows <= 0 || n_fft <= 0 || hop <= 0 || n_frames <= 0 || kp % BN != 0 ||
-      kp < n_bins || kp / BN > 65535 || pad >= t_len ||
+      kp < n_bins || kp / BN > 65535 || t_len <= 0 || pad < 0 ||
       static_cast<long long>(tiles) * rows > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(tiles * rows, kp / BN);
-  stft_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = pad >= t_len ? stft_kernel<true> : stft_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(win),
       static_cast<const float*>(bases), static_cast<float2*>(out), t_len, n_fft, hop, pad,
       n_frames, n_bins, kp, tiles);
@@ -634,13 +661,13 @@ extern "C" int aa_stft(const void* x, const void* win, const void* bases, void* 
 // f32, tw[j] = exp(-2 pi i j / n_fft). out: (rows, n_fft / 2 + 1, n_frames)
 // complex64. radices: the n_stages radices (2, 3, 4, 5, 7, 8, 11 or 13) of
 // the plan, whose product is m = n_fft / 2, from 8 to 4096. pad: n_fft / 2
-// when centred, else 0 (must be < t_len). Returns cudaGetLastError().
+// when centred, else 0 (any t_len >= 1). Returns cudaGetLastError().
 extern "C" int aa_stft_fft(const void* x, const void* win, const void* tw, void* out,
                            int rows, int t_len, int n_fft, int hop, int pad, int n_frames,
                            const int* radices, int n_stages, void* stream) {
   const int m = n_fft / 2;
   if (rows <= 0 || n_fft % 2 != 0 || m < 8 || m > FFT_POINTS || hop <= 0 ||
-      n_frames <= 0 || pad >= t_len || n_stages < 1 || n_stages > FFT_MAX_STAGES ||
+      n_frames <= 0 || t_len <= 0 || pad < 0 || n_stages < 1 || n_stages > FFT_MAX_STAGES ||
       static_cast<long long>(t_len) + 2 * pad >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   // radix 2 or 4 only first, 8 and the odd primes anywhere
@@ -665,8 +692,12 @@ extern "C" int aa_stft_fft(const void* x, const void* win, const void* tw, void*
   const float* wf = static_cast<const float*>(win);
   const float2* twf = static_cast<const float2*>(tw);
   float2* of = static_cast<float2*>(out);
+  const bool fold = pad >= t_len;                  // a row no longer than the pad
   if (odd) {
-    const auto kernel = large ? stft_fft_mixed_kernel<true> : stft_fft_mixed_kernel<false>;
+    const auto kernel = large ? (fold ? stft_fft_mixed_kernel<true, true>
+                                      : stft_fft_mixed_kernel<true, false>)
+                              : (fold ? stft_fft_mixed_kernel<false, true>
+                                      : stft_fft_mixed_kernel<false, false>);
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FFT_MIXED_SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -675,8 +706,9 @@ extern "C" int aa_stft_fft(const void* x, const void* win, const void* tw, void*
   } else {
     int log_m = 0;
     while ((1 << log_m) < m) ++log_m;
-    stft_fft_kernel<<<grid, FFT_THREADS, 0, st>>>(xf, wf, twf, of, t_len, rows, log_m,
-                                                  radices[0], hop, pad, n_frames);
+    const auto kernel = fold ? stft_fft_kernel<true> : stft_fft_kernel<false>;
+    kernel<<<grid, FFT_THREADS, 0, st>>>(xf, wf, twf, of, t_len, rows, log_m, radices[0], hop,
+                                         pad, n_frames);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,12 +60,16 @@ the RoBERTa text tower), kept in f32 under `half()`. `generate` runs the
 MIRAGE stack from (B, 1, 512) embeddings: a DPM++(2M) with
 classifier-free guidance over the CLAP-conditioned UNetCFG1d (kernels K3
 and K5), a v-DDIM over the outer DiffusionAttnUnet1D (kernel K1), then
-the AudioAutoencoder decode. `turbo=True` (JAX: AA_TURBO_INT8=1) takes
-JAX's turbo routes of the outer stage, one per micro-batch of
-DECODE_BATCH: at batch >= `turbo_min_b` the amax carry of the stacked
-AE's; below it, int8 inside the fold (parallel/fold.decode_unet_seqfold,
-`quantized=True`: the folded levels' conv5s on a dynamic amax, K1 for
-every GroupNorm).
+the AudioAutoencoder decode. The outer v-DDIM and the AE decode run in
+micro-batches of `decode_batch` rows (default 4; JAX's
+AA_MIRAGE_DECODE_BATCH, which only the mirage and serve entry points read).
+`turbo=True` (JAX: AA_TURBO_INT8=1) takes JAX's turbo routes of the outer
+stage, one per micro-batch: at a micro-batch >= `turbo_min_b` the amax
+carry of the stacked AE's; below it, int8 inside the fold
+(parallel/fold.decode_unet_seqfold, `quantized=True`: the folded levels'
+conv5s on a dynamic amax, K1 for every GroupNorm). So `decode_batch`
+chooses the route too: at the default 4 and turbo_min_b 16 every
+micro-batch takes the fold.
 """
 from __future__ import annotations
 
@@ -709,13 +713,17 @@ class CLAPDAE(GivenModelClass):
     random ones (utils/params.random_init_ with `seed` and `seed + 1`);
     `setup` pours the checkpoints the environment names, and
     `load_flax_params(diffae_tree, ldm_tree)` loads flax trees instead.
-    Noise is drawn from `generator` unless the caller passes it. `turbo`
-    and `turbo_min_b` choose the outer stage's int8 routes (`_outer`)."""
+    Noise is drawn from `generator` unless the caller passes it.
+    `decode_batch` (JAX's AA_MIRAGE_DECODE_BATCH, default 4; below 1 taken
+    as 1) is the micro-batch of the outer v-DDIM and the AE decode, which
+    bounds their memory; under `turbo` it also picks the outer stage's int8
+    route (`_outer`): the amax carry where a micro-batch has at least
+    `turbo_min_b` rows, else int8 in the fold."""
 
     DEFAULT_FIRST_STAGE = {"capacity": 64, "c_mults": [2, 4, 8, 16, 32],
                            "strides": [2, 2, 2, 2, 2], "latent_dim": 32}
     SAMPLES_22S = 1048576
-    DECODE_BATCH = 4         # outer stage + AE decode in micro-batches: memory
+    DECODE_BATCH = 4         # the default micro-batch of the outer stage + AE decode
 
     def __init__(self, clap_fusion: bool = True, clap_amodel: str = "HTSAT-base",
                  first_stage_config: Optional[dict] = None,
@@ -723,10 +731,12 @@ class CLAPDAE(GivenModelClass):
                  clap_kwargs: Optional[dict] = None, debug: bool = True,
                  seed: int = 0, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32, turbo: bool = False,
-                 turbo_min_b: int = TURBO_MIN_B, **kwargs):
+                 turbo_min_b: int = TURBO_MIN_B, decode_batch: int = DECODE_BATCH,
+                 **kwargs):
         super().__init__(seed=seed, device=device, **kwargs)
         self.debug = debug
         self.turbo, self.turbo_min_b = turbo, turbo_min_b
+        self.decode_batch = max(int(decode_batch), 1)
         self.latent_diffae_setup = self.clap_setup = False
         self.clap_module = CLAPModule(enable_fusion=clap_fusion, amodel=clap_amodel,
                                       seed=seed + 2, device=self.device,
@@ -985,8 +995,8 @@ class CLAPDAE(GivenModelClass):
         s1 = self._noise((b, la.latent_dim,
                           fake_latents.shape[2] * la.latent_downsampling_ratio), s1_noise)
         parts = []
-        for i in range(0, b, self.DECODE_BATCH):
-            sl = slice(i, min(i + self.DECODE_BATCH, b))
+        for i in range(0, b, self.decode_batch):
+            sl = slice(i, min(i + self.decode_batch, b))
             first = torch.clamp(self._outer(s1[sl], fake_latents[sl], outer_steps), -1, 1)
             t0 = self._stage("outer_s", t0, stage_times)
             parts.append(la.decode_first_stage(first))
@@ -1009,7 +1019,7 @@ class CLAPDAE(GivenModelClass):
         the outer v-DDIM runs the stage-1 UNet (no attention: every level
         but the bottleneck can shard) through parallel.infer on time slabs;
         the slabs are gathered and the AE decode runs on the whole
-        first-stage latents, in micro-batches of DECODE_BATCH as
+        first-stage latents, in micro-batches of `decode_batch` as
         `generate`'s. The noises are taken and drawn in `generate`'s order,
         so the same generator gives the same audio. Returns `generate`'s
         (audio, stage-2 latents) on every rank. No init audio: the img2img
@@ -1054,8 +1064,8 @@ class CLAPDAE(GivenModelClass):
             return decode_unet_seqpar(la.diffusion, x, t, cond, world, sharded_levels)
 
         parts = []
-        for i in range(0, b, self.DECODE_BATCH):
-            sl = slice(i, min(i + self.DECODE_BATCH, b))
+        for i in range(0, b, self.decode_batch):
+            sl = slice(i, min(i + self.decode_batch, b))
             local = torch.clamp(vddim_sample(model_fn, s1[sl][..., slab].contiguous(),
                                              outer_steps, 0, fake_latents[sl]), -1, 1)
             first = world.all_gather_time(local)

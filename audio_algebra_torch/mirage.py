@@ -25,10 +25,14 @@ Outside a group of N it raises and says so; `--init-audio` with `--mesh`
 raises ValueError (the img2img resample is single-program, as in JAX).
 
 `--turbo` builds the model on the int8 routes of its outer stage (JAX's
-flag sets AA_TURBO_INT8=1; `CLAPDAE(turbo=True)`). The outer stage runs
-in micro-batches of CLAPDAE.DECODE_BATCH = 4, below the carry's batch
-gate of 16, so each runs int8 inside the fold, whatever `--batch-size`
-is. It is refused with `--mesh` (the sequence-parallel outer stage is
+flag sets AA_TURBO_INT8=1; `CLAPDAE(turbo=True)`). The outer stage and the
+AE decode run in micro-batches of AA_MIRAGE_DECODE_BATCH rows when it is
+set, as JAX's CLI does (`CLAPDAE(decode_batch=)`, default 4; the model
+cache keys on it). Under `--turbo` a micro-batch of 16 or more takes the
+amax carry, a smaller one int8 inside the fold: so at the default each
+runs in the fold whatever `--batch-size` is, and
+`AA_MIRAGE_DECODE_BATCH=16 ... --turbo --batch-size 16` takes the carry.
+`--turbo` is refused with `--mesh` (the sequence-parallel outer stage is
 float only).
 The XLA compile cache has no counterpart here.
 """
@@ -42,8 +46,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .embedding_math import (TURBO_SEQPAR_REFUSAL, get_model_ready, interp_embeddings,
-                             weighted_algebra)
+from .embedding_math import (TURBO_SEQPAR_REFUSAL, decode_batch_from_env, get_model_ready,
+                             interp_embeddings, weighted_algebra)
 
 SAMPLE_RATE = 48000
 
@@ -104,7 +108,8 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
     PCA .npy path or None, the (2, N) take). With `mesh_spec` ('seq=N', in
     a group of N processes) the outer stage runs sequence-parallel on the
     rank's card and only rank 0 writes files (the others return None
-    paths). `turbo` generates on get_model_ready's turbo model."""
+    paths). `turbo` generates on get_model_ready's turbo model;
+    AA_MIRAGE_DECODE_BATCH, when set, is the model's outer micro-batch."""
     from .utils.audio_io import crossfade_flatten, save_audio
     from .utils.viz import pca_point_cloud, point_cloud_html
 
@@ -120,7 +125,7 @@ def process_audio(audio_tups: Sequence = (), text_prompts: Sequence[str] = (),
                              "resample path is single-program; drop one flag")
         device = world.device
     model = get_model_ready(model_choice, device=device, verbose=verbose, turbo=turbo,
-                            **(model_kwargs or {}))
+                            **decode_batch_from_env(), **(model_kwargs or {}))
     if seed >= 0:
         model.generator.manual_seed(seed)
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mel import melspectrogram
+from ..ops.stft import reflect_pad
 from .blocks import Conv1d, ConvTranspose1d, FourierFeatures, Linear, PlainGroupNorm
 from .encoder1d import Encoder1d
 
@@ -231,9 +232,11 @@ class MelE1d(nn.Module):
 
     def mel(self, audio):
         """(B, C, T) -> (B, C * mel, T / hop) log-mels: center=False after a
-        reflect pre-pad of (n_fft - hop) / 2, exactly T / hop frames."""
+        reflect pre-pad of (n_fft - hop) / 2, exactly T / hop frames. The
+        pre-pad is numpy's reflect (ops/stft.reflect_pad), so a clip no
+        longer than the pad is padded as JAX's jnp.pad pads it."""
         p = (self.n_fft - self.hop) // 2
-        x = F.pad(audio, (p, p), mode="reflect")
+        x = reflect_pad(audio, p)
         m = melspectrogram(x, self.sample_rate, self.n_fft, self.hop,
                            n_mels=self.mel_channels, center=False)
         m = torch.log(torch.clamp(m, min=1e-5))              # mel_normalize_log

@@ -3,7 +3,9 @@
 Port of audio_algebra_tpu/ops/stft.py. Semantics match torchaudio's
 transforms with their defaults: periodic Hann window, center=True with
 reflect padding, onesided, un-normalised forward, window-envelope
-normalised inverse. Layout as torch.stft: (..., n_bins, F).
+normalised inverse. Layout as torch.stft: (..., n_bins, F). The reflect
+padding is numpy's (`reflect_pad`), so any T >= 1 has its frames, as in
+JAX: a clip no longer than the pad reflects again.
 
 `stft` with the default window goes through kernel K6
 (ops/stft_kernel.py): on a CUDA tensor the hand-written CUDA kernel of
@@ -80,11 +82,29 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return x.unfold(-1, n_fft, hop)
 
 
-def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad the last axis by `pad` on both sides (edge excluded)."""
-    lead = x.shape[:-1]
-    y = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
-    return y.reshape(*lead, y.shape[-1])
+@functools.lru_cache(maxsize=64)
+def _reflect_index(t_len: int, pad: int, device: torch.device) -> torch.Tensor:
+    """The source sample of each of the t_len + 2 pad padded positions:
+    i in [-pad, t_len + pad) folded with period P = 2 (t_len - 1), j = i
+    mod P, then P - j where j >= t_len. That reflects as many times as the
+    pad needs, as numpy's (and jnp.pad's) mode="reflect" does; a single
+    sample (P = 0) maps every position to it."""
+    i = np.arange(-pad, t_len + pad)
+    if t_len == 1:
+        j = np.zeros_like(i)
+    else:
+        period = 2 * (t_len - 1)
+        j = np.mod(i, period)
+        j = np.where(j >= t_len, period - j, j)
+    return torch.as_tensor(j, dtype=torch.int64, device=device)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the last axis by `pad` on both sides (edge excluded), at
+    any pad, by a gather (its VJP a scatter-add)."""
+    if pad == 0:
+        return x
+    return x.index_select(-1, _reflect_index(x.shape[-1], pad, x.device))
 
 
 def _pow(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -105,7 +125,7 @@ def stft_plain(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
     if window is None:
         window = hann_window(n_fft, x.dtype, x.device)
     if center:
-        x = _reflect_pad(x, n_fft // 2)
+        x = reflect_pad(x, n_fft // 2)
     frames = frame_signal(x, n_fft, hop_length) * window      # (..., F, n_fft)
     cos_b = device_table(f"dft_cos{n_fft}", lambda: _dft_bases(n_fft)[0], x.device)
     sin_b = device_table(f"dft_sin{n_fft}", lambda: _dft_bases(n_fft)[1], x.device)

@@ -9,7 +9,9 @@ sm_90a at first use) or raises; on a CPU tensor it takes the plain twin
 `stft_ref`, the matmul formulation of ops/stft.py. The JAX package takes
 its kernel only at n_fft and hop that are multiples of the TPU's 128
 lanes; the port has no such gate, and refuses no shape the JAX package
-computes: any hop, any number of rows.
+computes: any hop, any number of rows, any T >= 1 when centred (the
+reflect padding folds its index as numpy's does, as often as a short clip
+needs).
 
 The route is chosen by shape alone, never on a failure, by `plan`: every
 even n_fft from 16 to 8192 whose half m = n_fft / 2 has no prime factor
@@ -131,10 +133,8 @@ def stft_fused(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
         raise ValueError("stft wants a signal of shape (..., T)")
     *batch, t_len = x.shape
     pad = n_fft // 2 if center else 0
-    if center and pad >= t_len:
-        raise ValueError(f"stft: reflect padding of {pad} needs more than {t_len} samples")
-    n_frames = 1 + (t_len + 2 * pad - n_fft) // hop_length
-    if n_frames < 1 or n_fft < 1 or hop_length < 1:
+    if t_len < 1 or n_fft < 1 or hop_length < 1 or \
+            t_len + 2 * pad < n_fft:                  # 1 + (t_len + 2 pad - n_fft) // hop frames
         raise ValueError(f"stft: {t_len} samples give no frame at n_fft {n_fft}, "
                          f"hop {hop_length}")
     if x.device.type == "cpu":

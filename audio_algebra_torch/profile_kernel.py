@@ -46,8 +46,9 @@ and `freeverb_irs`, so this script times an earlier checkout's R1-R3 when
 it runs from that checkout's root. k6 (the fused STFT at shapes every
 checkout since the FFT route takes on one route: powers of two 16-4096 at a
 quarter hop, chip_smoke.py's CLAP, DMAE and PitchShift rows, hop 1 and hop
-480, and the DFT product at n_fft 1018, 999 and 1001 on grids of 24 to
-2,304 blocks), one JSON line a shape with
+480, the DFT product at n_fft 1018, 999 and 1001 on grids of 24 to
+2,304 blocks, and the mixed radices at 1000 / 250, 1920 / 480 and 1408 /
+128), one JSON line a shape with
 the route, a SHA-256 of the output's bits and the device ms a call; it
 calls only `stft_fused`, so run from two checkouts' roots, equal digests
 show that K6's results did not change. Every line names the card.
@@ -83,7 +84,9 @@ K6_CASES = [(32, 65536, n, n // 4, c) for n in (16, 32, 64, 128, 256, 512, 1024,
 K6_CASES += [(1, 1048576, 1024, 480, True), (8, 66304, 1024, 256, False),
              (4, 262144, 2048, 512, True), (40, 9000, 256, 480, True), (1, 5000, 64, 1, True),
              (32, 65536, 1018, 250, True), (3, 5000, 999, 160, False),
-             (1, 16000, 1001, 160, True), (4, 8000, 1018, 250, True), (8, 48000, 1018, 250, True)]
+             (1, 16000, 1001, 160, True), (4, 8000, 1018, 250, True), (8, 48000, 1018, 250, True),
+             (32, 65536, 1000, 250, True), (32, 65536, 1920, 480, True),
+             (32, 65536, 1408, 128, True)]
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]

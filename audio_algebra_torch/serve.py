@@ -12,10 +12,12 @@ generate call by a micro-batcher (`--batch-window` seconds; 0 turns it
 off). With MIRAGE_USERNAME and MIRAGE_PASSWORD set, every route but
 /health asks for basic auth (401 without it). `--turbo` serves the
 turbo CLAPDAE (`MirageService(turbo=True)`; JAX's flag sets
-AA_TURBO_INT8=1): every generate's outer stage runs int8 inside the fold,
-in micro-batches of CLAPDAE.DECODE_BATCH = 4, whatever --max-batch
-coalesces. A service is all-turbo or all-bf16, as JAX's; `--turbo` with
-`--mesh` is refused.
+AA_TURBO_INT8=1). Every generate's outer stage and AE decode run in
+micro-batches of AA_MIRAGE_DECODE_BATCH rows when it is set, as JAX's
+service does (`CLAPDAE(decode_batch=)`, default 4), whatever --max-batch
+coalesces; under `--turbo` a micro-batch of 16 or more takes the amax
+carry, a smaller one int8 inside the fold. A service is all-turbo or
+all-bf16, as JAX's; `--turbo` with `--mesh` is refused.
 
 `--mesh seq=N` runs each generate's outer stage sequence-parallel over N
 processes, one a card (`CLAPDAE.generate_seqpar`):
@@ -71,8 +73,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .embedding_math import (TURBO_SEQPAR_REFUSAL, get_model_ready, interp_embeddings,
-                             weighted_algebra)
+from .embedding_math import (TURBO_SEQPAR_REFUSAL, decode_batch_from_env, get_model_ready,
+                             interp_embeddings, weighted_algebra)
 from .utils.audio_io import crossfade_flatten, load_audio
 
 __all__ = ["MirageService", "TokenizerUnavailable", "encode_wav", "make_server", "main"]
@@ -334,7 +336,8 @@ class MirageService:
     `mesh_spec` 'seq=N' (in a group of N processes) runs the outer stage
     sequence-parallel: rank 0 serves, the other ranks `follow`, each on
     its rank's card. `turbo` builds the default model on its int8 routes
-    (generate_seqpar refuses it, so not with a mesh)."""
+    (generate_seqpar refuses it, so not with a mesh); AA_MIRAGE_DECODE_BATCH,
+    when set, is the default model's outer micro-batch."""
 
     def __init__(self, model=None, model_choice: str = "22s", half: bool = True,
                  verbose: bool = True, max_batch: int = 8,
@@ -351,7 +354,7 @@ class MirageService:
             device = self.world.device
         if model is None:
             model = get_model_ready(model_choice, device=device, verbose=verbose, half=half,
-                                    turbo=turbo)
+                                    turbo=turbo, **decode_batch_from_env())
         self.model = model
         self.model_choice = model_choice
         self.verbose = verbose

@@ -59,10 +59,16 @@ Phases, each printing one JSON line:
                 generate (rel-RMS in (1e-4, 0.08)) with stage seconds beside
                 the bf16 ones; one outer forward in that mode through K1
                 against K1's twin (< 5e-2); a batch-4 generate at 20 + 10
-                steps (9 levels); StackedDiffAEWrapper(turbo=True) at its
-                default width, decode_stage1to2 of (16, 32, 2048) latents for
-                10 steps on the amax carry against its float route (rel-RMS
-                in (1e-4, 0.08)); K1, K2a/b/c and int8-conv5 counts asserted
+                steps (9 levels); 16 rows at 10 + 10 steps from seeded
+                noises with CLAPDAE.decode_batch 16 (JAX's
+                AA_MIRAGE_DECODE_BATCH=16: the outer stage on the amax carry,
+                K2a/b/c), 4 (int8 in the fold) and in bf16, each turbo run
+                against the bf16 one (rel-RMS in (1e-4, 0.08)), the outer s a
+                row and peak memory of each; StackedDiffAEWrapper(turbo=True)
+                at its default width, decode_stage1to2 of (16, 32, 2048)
+                latents for 10 steps on the amax carry against its float
+                route (rel-RMS in (1e-4, 0.08)); K1, K2a/b/c and int8-conv5
+                counts asserted
   kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
@@ -75,7 +81,11 @@ Phases, each printing one JSON line:
                 1018/250 and (8, 48000) 2018/2018; each on its planned route
                 in one launch, timed beside the twin, torch.stft (cuFFT), its
                 byte bound and the DFT's operations bound, per call and on
-                the device alone (the card kept busy while the host queues)
+                the device alone (the card kept busy while the host queues).
+                Then clips of 1, 2, n_fft/4, n_fft/2 and n_fft/2 + 1 samples
+                (2-4 rows) at 1024/256, 1000/250, 1018/250 and 2048/512,
+                no longer than the reflect pad: against the twin and a
+                float64 STFT of numpy's reflect-padded clip
   spectrogram   the four spectrogram given models at (16, 2, 65536) f32
                 (1024/256, 32 Griffin-Lim rounds): the SpectrogramAE and
                 MagDPhase (init 'true') round trips under 1e-9 and 1e-8 rel
@@ -306,6 +316,11 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 # block but stack_000.m0 (80-channel input: K1), GN_1 with amax (K2b) in the
 # 59 blocks that have one on step 0; later m0/m2's 40 take K2c
 MIRAGE_TURBO_B4_STEPS = (20, 10)
+# 16 rows in one micro-batch (CLAPDAE(decode_batch=16), JAX's
+# AA_MIRAGE_DECODE_BATCH=16): the outer stage on the amax carry at the
+# stacked AE's shapes (16 x 32 x 32768), beside the same rows in micro-batches
+# of 4 (int8 in the fold) and in bf16; steps cut from 150 + 100
+MIRAGE_TURBO_B16_STEPS = (10, 10)
 STACKED_TURBO_B, STACKED_TURBO_STEPS = 16, 10
 STACKED_STEP0 = {"k1": 1, "k2a": 59, "k2b": 59, "k2c": 0}
 STACKED_STEP = {"k1": 1, "k2a": 59, "k2b": 19, "k2c": 40}
@@ -318,6 +333,10 @@ K6_SPECTROGRAM = 1 + (1 + SPEC_ITERS) + (1 + SPEC_ITERS) + 1
 MEL_MIXED = (1920, 480)
 K6_MEL_MIXED = 1 + SPEC_ITERS
 STFT_TOL = (5e-4, 1e-4)        # (atol, rtol): the JAX package's for its kernel
+# clips no longer than the reflect pad n_fft / 2 (or one sample longer) on
+# each of K6's routes: the power-of-two FFT (and PitchShift's 2048 / 512),
+# the mixed radices, the DFT product
+SHORT_CLIP_STFT = ((1024, 256), (1000, 250), (1018, 250), (2048, 512))
 GL_REL_RMS = 1e-3
 # the exact round trips, rel MSE: SpectrogramAE's; MagDPhase integrates f32
 # phase increments over 257 frames, where JAX's own round trip reaches 1.9e-9
@@ -1121,7 +1140,11 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
     in the int8-in-fold mode through K1 against the same through K1's twin
     (MIRAGE_REL_RMS_BOUND bf16), each route's forward ms beside the float
     forward's; a batch-4 generate at 20 + 10 steps (the default
-    micro-batch: 9 levels int8). Then StackedDiffAEWrapper(turbo=True) at
+    micro-batch: 9 levels int8); 16 rows at MIRAGE_TURBO_B16_STEPS
+    (`_sixteen_rows`): decode_batch 16 on the amax carry (K2a/b/c counted
+    as the stacked AE's carry decode), decode_batch 4 int8 in the fold,
+    each against the bf16 generate of the same noises (rel-RMS in (1e-4,
+    0.08)). Then StackedDiffAEWrapper(turbo=True) at
     its default width, decode_stage1to2 of (16, 32, 2048) stage-2 latents
     for 10 steps on the amax carry (K2a/b/c) against its float route from
     the same noise; and one carry step of its diffusion_v_aux (the q_aux of
@@ -1195,8 +1218,10 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
                 outer_steps=MIRAGE_TURBO_B4_STEPS[1], batch_size=4, stage_times=True))
             stages4 = dict(model.last_stage_times)
             b4_counts = counts()
+            b16 = _sixteen_rows(model, emb, t_len, zero, counts, timed)
     finally:
         model.turbo = False
+        model.decode_batch = model.DECODE_BATCH
         model.generator.set_state(gen_state)
         blocks.conv1d_int8 = real_conv
     gen_rel = rel_rms(fakes.float(), mirage_ref["fakes"].float())
@@ -1205,6 +1230,14 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
                     "int8_conv5": OUTER_STEPS * 12 * levels[1]}
     b4_expected = {"k1": MIRAGE_TURBO_B4_STEPS[1] * K1_PER_OUTER, "k2a": 0, "k2b": 0, "k2c": 0,
                    "int8_conv5": MIRAGE_TURBO_B4_STEPS[1] * 12 * levels[4]}
+    outer16 = MIRAGE_TURBO_B16_STEPS[1]
+    b16_expected = {     # carry: the stacked AE's per-step counts (its int8 conv5s not held)
+        "carry": {k: STACKED_STEP0[k] + (outer16 - 1) * STACKED_STEP[k] for k in STACKED_STEP},
+        "fold": {"k1": 4 * outer16 * K1_PER_OUTER, "k2a": 0, "k2b": 0, "k2c": 0,
+                 "int8_conv5": 4 * outer16 * 12 * levels[4]},
+        "bf16": {"k1": outer16 * K1_PER_OUTER, "k2a": 0, "k2b": 0, "k2c": 0, "int8_conv5": 0}}
+    b16_rel = {route: rel_rms(b16[route]["fakes"].float(), b16["bf16"]["fakes"].float())
+               for route in ("carry", "fold")}
 
     w = StackedDiffAEWrapper(device="cuda", dtype=torch.bfloat16, turbo=True)
     w.ensure_params()
@@ -1262,7 +1295,8 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
     st_expected = {k: STACKED_STEP0[k] + (STACKED_TURBO_STEPS - 1) * STACKED_STEP[k]
                    for k in STACKED_STEP}
     st_rel = rel_rms(decoded[True].float(), decoded[False].float())
-    finite = all(bool(torch.isfinite(v).all()) for v in (fakes, fakes4, *decoded.values()))
+    finite = all(bool(torch.isfinite(v).all()) for v in (
+        fakes, fakes4, *decoded.values(), *(r["fakes"] for r in b16.values())))
     row = {"phase": "mirage_turbo", "dtype": "bfloat16", "card": card(),
            "generate": {"samples": MIRAGE_SAMPLES, "batch": 1, "cfg_scale": 4,
                         "steps": [INNER_STEPS, OUTER_STEPS], "folded_levels": levels[1],
@@ -1277,6 +1311,14 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
                            "folded_levels": levels[4], "generate_s": gen4_s,
                            "stages_s": stages4, "launches": b4_counts,
                            "launches_expected": b4_expected, "out_shape": list(fakes4.shape)},
+           "generate_b16": {
+               "batch": 16, "steps": list(MIRAGE_TURBO_B16_STEPS),
+               "rel_rms_vs_bf16": b16_rel, "bound": [1e-4, TURBO_REL_RMS_BOUND],
+               "launches_expected": b16_expected,
+               **{route: {k: v for k, v in r.items() if k != "fakes"}
+                  for route, r in b16.items()},
+               "carry_outer_s_per_row_over_fold": b16["carry"]["outer_s_per_row"]
+               / b16["fold"]["outer_s_per_row"]},
            "stacked": {"batch": [STACKED_TURBO_B, *small.shape[1:]], "t_len": s_noise.shape[-1],
                        "steps": STACKED_TURBO_STEPS, "turbo_s": st_s[True],
                        "float_s": st_s[False], "turbo_over_float": st_s[True] / st_s[False],
@@ -1301,12 +1343,53 @@ def phase_mirage_turbo(model=None, mirage_ref=None) -> dict:
                       f"their twins, kernels vs twins rel-RMS {step_rel}")
     if gen_counts != gen_expected or b4_counts != b4_expected or st_counts != st_expected:
         faults.append(f"launches {gen_counts}, {b4_counts}, {st_counts}")
+    b16_counts = {route: r["launches"] for route, r in b16.items()}
+    checked = {route: {k: c[k] for k in b16_expected[route]} for route, c in b16_counts.items()}
+    if checked != b16_expected or not all(b16_counts["carry"][k] for k in ("k2a", "k2b", "k2c")):
+        faults.append(f"16-row launches {b16_counts}, expected {b16_expected}")
+    if not all(1e-4 < v < TURBO_REL_RMS_BOUND for v in b16_rel.values()):
+        faults.append(f"16-row turbo rel-RMS against bf16 {b16_rel}")
     if tuple(fakes.shape) != (2, MIRAGE_SAMPLES) or tuple(fakes4.shape) != (2, 4 * MIRAGE_SAMPLES) \
+            or any(tuple(r["fakes"].shape) != (2, 16 * MIRAGE_SAMPLES) for r in b16.values()) \
             or not finite:
         faults.append("outputs")
     if faults:
         raise AssertionError(f"mirage_turbo: {faults}")
-    return {"mirage_turbo": gen_counts, "stacked_turbo": st_counts}
+    return {"mirage_turbo": gen_counts, "stacked_turbo": st_counts,
+            "mirage_turbo_carry": b16_counts["carry"]}
+
+
+def _sixteen_rows(model, emb, t_len: int, zero, counts, timed) -> dict:
+    """16 rows from seeded noises through `model.generate` three ways, the
+    launch counts zeroed before each: turbo at decode_batch 16 (one
+    micro-batch: the amax carry), turbo at 4 (four: int8 in the fold), and
+    bf16 at 16 (turbo off), each after a 1 + 1-step warm-up. Each with its
+    stage seconds, outer seconds a row and peak device memory."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    n_latent = MIRAGE_SAMPLES // model.downsampling_ratio
+    noises = {"latent_noise": torch.randn((16, model.latent_dim, n_latent), generator=g,
+                                          device="cuda").to(torch.bfloat16),
+              "s1_noise": torch.randn((16, model.latent_diffae.latent_dim, t_len), generator=g,
+                                      device="cuda").to(torch.bfloat16)}
+    out = {}
+    for route, turbo, decode_batch in (("carry", True, 16), ("fold", True, 4),
+                                       ("bf16", False, 16)):
+        model.turbo, model.decode_batch = turbo, decode_batch
+        model.generate(emb, cfg_scales=4, demo_steps=1, outer_steps=1, batch_size=16,
+                       **noises)                          # warm-up: plans, cuDNN, allocator
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        (fakes, _), gen_s = timed(lambda: model.generate(
+            emb, cfg_scales=4, demo_steps=MIRAGE_TURBO_B16_STEPS[0],
+            outer_steps=MIRAGE_TURBO_B16_STEPS[1], batch_size=16, stage_times=True, **noises))
+        stages = dict(model.last_stage_times)
+        out[route] = {"decode_batch": decode_batch, "turbo": turbo, "generate_s": gen_s,
+                      "stages_s": stages, "outer_s_per_row": stages["outer_s"] / 16,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": counts(), "fakes": fakes}
+    return out
 
 
 def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
@@ -1324,7 +1407,7 @@ def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
             "dft_operations_ms": 4 * n_fft * n_bins * rows * n_frames / F32_OPS_PER_S * 1e3}
 
 
-def phase_kernels_k6() -> dict:
+def phase_kernels_k6() -> tuple:
     """K6 on both routes (ops/stft_kernel.plan), each row against its twin
     and float64 and timed beside the twin, torch.stft and the bounds: the
     power-of-two FFT at the spectrogram models' shape, at CLAP's 22 s clip,
@@ -1332,7 +1415,9 @@ def phase_kernels_k6() -> dict:
     clips x 2 channels, 262144; n_fft 2048, hop 512) on the effects and
     xae paths; the mixed-radix FFT at non-power-of-two n_fft; the DFT
     product at n_fft whose half has a prime factor above 13; and shapes
-    whose 32-frame span the card once refused. Returns the rows by case."""
+    whose 32-frame span the card once refused. Then the short clips
+    (`_short_clip_rows`) on each route. Returns the rows by case and the
+    short clips' rows."""
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
 
@@ -1387,17 +1472,59 @@ def phase_kernels_k6() -> dict:
                 return_complex=True), 20),
             **stft_bounds(shape[0], shape[1], n_fft, got.shape[-1])}
         del x, got, want, err, exact
-    emit({"phase": "kernels", "kernel": "stft", "cases": list(rows.values())})
-    failed = [r for r in rows.values() if r["n_outside_tol"] or r["route_launches"] != {
-        k: int(k == r["route"]) for k in ("fft", "dft")}]
+    short = _short_clip_rows(dev)
+    emit({"phase": "kernels", "kernel": "stft", "cases": list(rows.values()),
+          "short_clips": short})
+    failed = [r for r in [*rows.values(), *short] if r["n_outside_tol"] or r["route_launches"]
+              != {k: int(k == r["route"]) for k in ("fft", "dft")}]
+    failed += [r for r in short if r["n_outside_tol_vs_f64"]]
     if failed:
-        raise AssertionError(f"K6 disagrees with its twin or took the wrong route: {failed}")
+        raise AssertionError(f"K6 disagrees with its twin or float64, or took the wrong "
+                             f"route: {failed}")
     # the FFT rounds like log n_fft, the DFT product like sqrt(n_fft)
     farther = [r for r in rows.values() if r["route"] == "fft"
                and r["kernel_max_abs_err_vs_f64"] > r["plain_max_abs_err_vs_f64"]]
     if farther:
         raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
-    return rows
+    return rows, short
+
+
+def _short_clip_rows(dev) -> list:
+    """K6 at clips of T in {1, 2, n_fft / 4, n_fft / 2, n_fft / 2 + 1}
+    samples (2-4 rows) for each SHORT_CLIP_STFT shape, centred: the reflect
+    padding of n_fft / 2 folds as numpy's does, as often as the clip needs.
+    Each against the twin and against a float64 torch.stft of numpy's
+    reflect-padded clip (center=False), both under STFT_TOL."""
+    import numpy as np
+    import torch
+    from audio_algebra_torch.ops import stft_kernel as stk
+
+    atol, rtol = STFT_TOL
+    out = []
+    for n_fft, hop in SHORT_CLIP_STFT:
+        half = n_fft // 2
+        window = torch.hann_window(n_fft, dtype=torch.float64, device=dev)
+        for t_len in (1, 2, n_fft // 4, half, half + 1):
+            g = torch.Generator(device=dev).manual_seed(500 + len(out))
+            x = torch.randn((2 + t_len % 3, t_len), generator=g, device=dev) * 0.5
+            before = (stk.fft_launches, stk.dft_launches)
+            got = stk.stft_fused(x, n_fft, hop)
+            torch.cuda.synchronize()
+            took = {"fft": stk.fft_launches - before[0], "dft": stk.dft_launches - before[1]}
+            want = stk.stft_ref(x, n_fft, hop)
+            padded = np.pad(x.double().cpu().numpy(), ((0, 0), (half, half)), mode="reflect")
+            exact = torch.stft(torch.from_numpy(padded).to(dev), n_fft, hop, window=window,
+                               center=False, return_complex=True)
+            err, err64 = (got - want).abs(), (got.to(exact.dtype) - exact).abs()
+            out.append({
+                "n_fft": n_fft, "hop": hop, "t_len": t_len, "shape": list(x.shape),
+                "route": stk.plan(n_fft).route, "route_launches": took,
+                "out_shape": list(got.shape), "max_abs_err": float(err.max()),
+                "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
+                "max_abs_err_vs_f64": float(err64.max()),
+                "n_outside_tol_vs_f64": int((err64 > atol + rtol * exact.abs()).sum()),
+                "plain_max_abs_err_vs_f64": float((want.to(exact.dtype) - exact).abs().max())})
+    return out
 
 
 def _synced_s(fn):
@@ -4339,7 +4466,7 @@ def main() -> int:
     run(phase_mirage_model)
     model, counts, mirage_ref = run(phase_mirage)
     turbo_paths = run(phase_mirage_turbo, model, mirage_ref)
-    k6 = run(phase_kernels_k6)
+    k6, k6_short = run(phase_kernels_k6)
     spectrogram_k6 = run(phase_spectrogram)
     clap_k6 = run(phase_clap, model)
     io_files = run(phase_io, tmp)
@@ -4410,6 +4537,7 @@ def main() -> int:
                                 "mirage": counts["k1"], "train_aa": train_aa,
                                 "mirage_turbo": turbo_paths["mirage_turbo"]["k1"],
                                 "stacked_turbo": turbo_paths["stacked_turbo"]["k1"],
+                                "mirage_turbo_carry": turbo_paths["mirage_turbo_carry"]["k1"],
                                 "checkpoints": ckpt["k1"], "mirage_cli": cli["k1"],
                                 "apps": apps["k1"], "seqpar": seqpar["k1_whole"]}),
         entry("groupnorm1_gelu_split", "groupnorm.cu",
@@ -4477,7 +4605,13 @@ def main() -> int:
                   for case, row in k6.items()},
               route_rule="fft: every even n_fft from 16 to 8192 whose half has no "
                          "prime factor above 13 (mixed radices 2-13); dft: any other "
-                         "n_fft"),
+                         "n_fft",
+              short_clips={"rows": len(k6_short),
+                           "shapes": sorted({(r["n_fft"], r["hop"]) for r in k6_short}),
+                           "t_lens": sorted({r["t_len"] for r in k6_short}),
+                           "max_abs_err": max(r["max_abs_err"] for r in k6_short),
+                           "max_abs_err_vs_f64": max(r["max_abs_err_vs_f64"]
+                                                     for r in k6_short)}),
         rec_entry("sosfilt", "audio_algebra_tpu/ops/filters.py:189", "r1", rec["sosfilt"],
                   replaces_also="audio_algebra_tpu/ops/filters.py:219 (sosfilt), :170 "
                                 "(_biquad_scan)"),

@@ -16,8 +16,9 @@ autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
 fused STFT) on both routes, the mixed-radix FFT at powers of two from 16 to
 8192 and at n_fft with odd radices 3 to 13, and the DFT product at other
-n_fft, against its twin and float64, and at frame spans past shared memory
-and rows past 65,535; the attention site of a
+n_fft, against its twin and float64, at frame spans past shared memory
+and rows past 65,535, and at clips no longer than its reflect padding on
+each route; the attention site of a
 training UNet at T = 1024 without the training kernels; the turbo int8 conv (int8 tensor cores) against the
 same integer arithmetic on the CPU; and the effects bank's recurrences R1
 (the biquad cascade, 1-12 sections, per-row or shared coefficients, ragged
@@ -408,6 +409,40 @@ def test_stft_long_spans_and_many_rows_on_card(cuda_device, shape, n_fft, hop):
     want = stk.stft_ref(x, n_fft, hop)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (1000, 250), (1018, 250), (2048, 512),
+                                       (64, 16)])
+@pytest.mark.parametrize("length", ["1", "2", "quarter", "half", "half+1"])
+def test_stft_short_clips_match_twin_and_f64_on_card(cuda_device, n_fft, hop, length):
+    """Clips no longer than the pad n_fft / 2, or one sample longer, on
+    each route (1024 / 256 and 2048 / 512 PitchShift's the power-of-two
+    FFT, 1000 / 250 the mixed radices, 1018 / 250 the DFT product): the
+    reflect padding folds as numpy's does, as often as it needs. Within the
+    JAX kernel's tolerance of the twin and of a float64 STFT of numpy's
+    reflect-padded clip, 2-4 rows."""
+    import numpy as np
+
+    half = n_fft // 2
+    t_len = {"1": 1, "2": 2, "quarter": n_fft // 4, "half": half, "half+1": half + 1}[length]
+    rows = 2 + t_len % 3
+    g = torch.Generator(device=cuda_device).manual_seed(n_fft + t_len)
+    x = torch.randn((rows, t_len), generator=g, device=cuda_device) * 0.5
+    route = stk.plan(n_fft).route
+    before = (stk.fft_launches, stk.dft_launches)
+    got = stk.stft_fused(x, n_fft, hop)
+    torch.cuda.synchronize()
+    assert (stk.fft_launches - before[0], stk.dft_launches - before[1]) == \
+        ((1, 0) if route == "fft" else (0, 1))
+    want = stk.stft_ref(x, n_fft, hop)
+    assert got.shape == want.shape == (rows, half + 1, 1 + t_len // hop)
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    padded = np.pad(x.double().cpu().numpy(), ((0, 0), (half, half)), mode="reflect")
+    exact = torch.stft(torch.from_numpy(padded).to(cuda_device), n_fft, hop,
+                       window=torch.hann_window(n_fft, dtype=torch.float64, device=cuda_device),
+                       center=False, return_complex=True)
+    torch.testing.assert_close(got.to(torch.complex128), exact, atol=5e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -9,9 +9,13 @@ turbo gates; `StackedDiffAEWrapper(turbo=True).decode_stage1to2` on JAX's
 own test config (its shapes fail the gates: the carry contract runs with
 every site float) and on the 128-channel one; `--turbo` of the port's
 MIRAGE CLI and service reaching the int8 route; `--turbo` with `--mesh`
-refused; `generate_seqpar` refusing a turbo model. JAX's side turns turbo
-on with monkeypatch.setenv AA_TURBO_INT8=1. Both sides hold the same
-weights (the flax bridge) and take the same noise."""
+refused; `generate_seqpar` refusing a turbo model. `CLAPDAE(decode_batch=n)`
+against JAX's generate under AA_MIRAGE_DECODE_BATCH=n at batch 4 (the
+carry at a micro-batch of AA_TURBO_MIN_B = 4, the fold below it, uneven
+parts, 0 taken as 1), and the variable reaching the model of the port's
+CLI and service and their cache key. JAX's side turns turbo on with
+monkeypatch.setenv AA_TURBO_INT8=1. Both sides hold the same weights (the
+flax bridge) and take the same noise."""
 import json
 
 import jax.numpy as jnp
@@ -186,6 +190,89 @@ def test_stacked_wrapper_turbo_matches_jax(cfg, monkeypatch):
         assert ENGAGED[0] < rel_rms(out[True], out[False]) < ENGAGED[1]
 
 
+MICRO_BATCH = {  # case: (outer UNet, turbo, AA_MIRAGE_DECODE_BATCH, micro-batches of 4 rows)
+    "carry": ("carry", True, 4, [4]),      # AA_TURBO_MIN_B=4: the amax carry
+    "fold": ("carry", True, 2, [2, 2]),    # below the gate: int8 inside the fold
+    "uneven": ("fold", False, 3, [3, 1]),
+    "zero": ("fold", False, 0, [1, 1, 1, 1])}
+
+
+@pytest.mark.parametrize("case", sorted(MICRO_BATCH))
+def test_decode_batch_matches_jax_env(case, monkeypatch):
+    """CLAPDAE(decode_batch=n) against JAX's generate under
+    AA_MIRAGE_DECODE_BATCH=n at batch 4: the same micro-batches (JAX's
+    outer programs by their noise shape, the port's _outer calls), the
+    carry route (K2a's wrapper called) at a micro-batch of turbo_min_b = 4
+    (JAX's AA_TURBO_MIN_B=4), the fold below it (int8 conv5s, no K2a),
+    uneven parts and 0 taken as 1 on the float route."""
+    outer, turbo, mdb, parts = MICRO_BATCH[case]
+    kwargs = {**INNER, **OUTER[outer]}
+    jw = jgm.CLAPDAE(sample_size=SAMPLES, first_stage_config=FIRST_STAGE, model_kwargs=kwargs,
+                     clap_kwargs=dict(audio_cfg=dict(tclap.TINY_AUDIO_CFG),
+                                      text_cfg=dict(tclap.TINY_TEXT_CFG)))
+    diffae = rand_tree(jw.latent_diffae, 56, jnp.zeros((1, 2, 1024)), jnp.zeros((1,)))
+    ldm = rand_tree(jw.latent_diffusion_model, 57, jnp.zeros((1, 4, 64)), jnp.zeros((1,)),
+                    jnp.zeros((1, 1, 512)))
+    jw.diffae_params, jw.ldm_params = {"params": diffae}, {"params": ldm}
+    tw = CLAPDAE(sample_size=SAMPLES, first_stage_config=FIRST_STAGE, model_kwargs=kwargs,
+                 device="cpu", turbo=turbo, turbo_min_b=4, decode_batch=mdb)
+    tw.load_flax_params(diffae, ldm)
+    assert tw.decode_batch == max(mdb, 1)
+    rng = np.random.default_rng(58)
+    emb = rng.standard_normal((1, 1, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb)
+    latent_noise = rng.standard_normal((4, 4, SAMPLES // 16)).astype(np.float32)
+    s1_noise = rng.standard_normal((4, 8, SAMPLES // 4)).astype(np.float32)
+    monkeypatch.setenv("AA_MIRAGE_DECODE_BATCH", str(mdb))
+    monkeypatch.setenv("AA_TURBO_MIN_B", "4")
+    if turbo:
+        monkeypatch.setenv("AA_TURBO_INT8", "1")
+    jparts = []
+    jit = jw._cached_jit
+
+    def spied_jit(name, fn):
+        if name.startswith("outer_decode"):
+            jparts.append(int(name.split("_(")[1].split(",")[0]))
+        return jit(name, fn)
+
+    monkeypatch.setattr(jw, "_cached_jit", spied_jit)
+
+    def jgen(s1):
+        queue = [latent_noise, s1]
+        monkeypatch.setattr(jgm, "host_normal", lambda key, shape, dtype=None: queue.pop(0))
+        fakes, _ = jw.generate(jnp.asarray(emb), cfg_scales=2, demo_steps=STEPS[0],
+                               outer_steps=STEPS[1], batch_size=4)
+        assert not queue
+        return np.asarray(fakes)
+
+    want = jgen(s1_noise)
+    assert jparts == parts
+    tparts = []
+    real_outer = CLAPDAE._outer
+
+    def spied_outer(self, noise, lat, steps):
+        tparts.append(noise.shape[0])
+        return real_outer(self, noise, lat, steps)
+
+    monkeypatch.setattr(CLAPDAE, "_outer", spied_outer)
+    int8_convs = _count(monkeypatch, "conv1d_int8")
+    k2a = _count(monkeypatch, "groupnorm1_gelu_quant")
+    fakes, _ = tw.generate(emb, cfg_scales=2, demo_steps=STEPS[0], outer_steps=STEPS[1],
+                           batch_size=4, latent_noise=latent_noise, s1_noise=s1_noise)
+    assert tparts == parts and fakes.shape == want.shape == (2, 4 * SAMPLES)
+    if case == "carry":      # every block's GN_0 but the stem's emits int8, a step
+        assert len(k2a) == 11 * STEPS[1]
+    elif case == "fold":
+        assert not k2a and int8_convs
+    else:
+        assert not k2a and not int8_convs
+    if turbo:
+        jparts.clear()
+        assert rel_rms(fakes.numpy(), want) < turbo_bound(jgen, s1_noise, want)
+    else:
+        assert rel_rms(fakes.numpy(), want) < 1e-5
+
+
 @pytest.fixture
 def fresh_cache(monkeypatch):
     monkeypatch.setattr(embedding_math, "_model_cache", {})
@@ -239,6 +326,77 @@ def test_serve_turbo_reaches_the_int8_route(monkeypatch):
     wav, _ = services[0].generate_wav({"embeddings": [[1.0] + [0.0] * 511], "steps": 2,
                                     "outer_steps": 2, "seed": 0})
     assert wav[:4] == b"RIFF" and len(calls) == 24 * 2
+
+
+def test_cli_decode_batch_env_reaches_the_model(fresh_cache, tmp_path, monkeypatch):
+    """AA_MIRAGE_DECODE_BATCH, as JAX's CLI reads it, is the CLI model's
+    decode_batch: a batch of 2 runs in micro-batches of 1, and the cache
+    keys on the value (unset, the model keeps its default 4)."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(TINY_CLI))
+    parts = []
+    real_outer = CLAPDAE._outer
+
+    def spied_outer(self, noise, lat, steps):
+        parts.append(noise.shape[0])
+        return real_outer(self, noise, lat, steps)
+
+    monkeypatch.setattr(CLAPDAE, "_outer", spied_outer)
+    monkeypatch.setenv("AA_MIRAGE_DECODE_BATCH", "1")
+    args = ["--text", "a", "--device", "cpu", "--model-config", str(cfg), "--steps", "2",
+            "--outer-steps", "2", "--seed", "1", "--batch-size", "2"]
+    result = mirage.main(args + ["--output-dir", str(tmp_path / "one")])
+    assert parts == [1, 1] and result["wav"]
+    (key, model), = embedding_math._model_cache.items()
+    assert model.decode_batch == 1
+    assert key == embedding_math.model_cache_key("22s", True, "cpu", decode_batch=1,
+                                                 **TINY_CLI)
+    monkeypatch.delenv("AA_MIRAGE_DECODE_BATCH")
+    parts.clear()
+    mirage.main(args + ["--output-dir", str(tmp_path / "default")])
+    assert parts == [2] and len(embedding_math._model_cache) == 2
+    assert embedding_math.get_model_ready("22s", device="cpu", verbose=False,
+                                          **TINY_CLI).decode_batch == 4
+
+
+def test_serve_decode_batch_env_reaches_the_model(monkeypatch):
+    """serve's main passes a set AA_MIRAGE_DECODE_BATCH to get_model_ready
+    as decode_batch (0 taken as 1, as JAX's max(mdb, 1)); the service's
+    model and its cache key carry it; unset, nothing is passed."""
+    built, services = [], []
+
+    def ready(model_choice, device, verbose, half, turbo, **kwargs):
+        built.append(kwargs)
+        return embedding_math.get_model_ready(model_choice, device=device, verbose=verbose,
+                                              half=half, turbo=turbo, **kwargs, **TINY_CLI)
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def make_server(service, host, port):
+        services.append(service)
+        return Server()
+
+    monkeypatch.setattr(embedding_math, "_model_cache", {})
+    monkeypatch.setattr(tserve, "get_model_ready", ready)
+    monkeypatch.setattr(tserve, "make_server", make_server)
+    for value in ("3", "0", None):
+        if value is None:
+            monkeypatch.delenv("AA_MIRAGE_DECODE_BATCH")
+        else:
+            monkeypatch.setenv("AA_MIRAGE_DECODE_BATCH", value)
+        tserve.main(["--device", "cpu", "--batch-window", "0"])
+    assert built == [{"decode_batch": 3}, {"decode_batch": 0}, {}]
+    assert [s.model.decode_batch for s in services] == [3, 1, 4]
+    assert set(embedding_math._model_cache) == {
+        embedding_math.model_cache_key("22s", True, "cpu", decode_batch=n, **TINY_CLI)
+        for n in (3, 1, 4)}
 
 
 def test_turbo_with_mesh_is_refused(capsys):
