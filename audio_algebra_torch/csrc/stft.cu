@@ -1,4 +1,4 @@
-// Fused STFT for Hopper (sm_90a): kernel K6 of the port, in two routes.
+// Fused STFT for Hopper (sm_90a): kernel K6 of the port, in four routes.
 //
 // Replaces: audio_algebra_tpu/ops/pallas/stft_kernel.py: pallas_stft (its
 // Pallas kernel, launched once per call), which ops/stft.py:stft takes for
@@ -9,7 +9,7 @@
 //   X[r, k, f] = sum_n xpad[r, f * hop + n] * w[n] * exp(-2 pi i k n / n_fft)
 // with w the periodic Hann window, k = 0 .. n_fft / 2, all f32, written as
 // complex64 in torch's layout (rows, n_bins, F). The framed signal never
-// goes to device memory. Both routes read the row with the reflect padding
+// goes to device memory. Every route reads the row with the reflect padding
 // done by index math (no padded copy), place any number of rows on the
 // grid and take one launch. The padding is numpy's mode="reflect" at any
 // pad: a row no longer than the pad n_fft / 2 reflects as often as it
@@ -17,9 +17,19 @@
 // take their own instance of each kernel (kFold, chosen on the host), so
 // the instance every longer row runs keeps the one-reflection index math.
 //
-// The FFT route (aa_stft_fft; every even n_fft from 16 to 8192 whose half
-// m = n_fft / 2 has no prime factor above 13, the plan of
-// ops/stft_kernel.py). One block of 512 threads owns 4096 complex points of
+// The routes, by the plan of ops/stft_kernel.py: an even n_fft from 16 to
+// 8192 whose half m = n_fft / 2 has no prime factor above 13 takes the FFT
+// route; any other n_fft from 16 takes an L-point DFT (L = m of the packed
+// samples, or n_fft when odd, two frames packed a transform) as an M-point
+// power-of-two FFT, M = L where L is a power of two, else by Bluestein's
+// chirp-z transform with M >= 2 L - 1: the chirp route where M <= 4096 (one
+// block), the cluster route where M <= 65536 (M / 4096 CTAs a frame; 8192's
+// 4096 points too, four frames a cluster). An even n_fft above 8192 whose
+// 13-smooth half m splits into F = 2 or 4 parts of at most 4096 points
+// takes the cluster route's mixed-radix instance: F parts of m / F points,
+// no chirp. n_fft below 16 and larger frames take the DFT product.
+//
+// The FFT route (aa_stft_fft). One block of 512 threads owns 4096 complex points of
 // shared memory: a tile of floor(4096 / m) consecutive frames of one row,
 // each taken as the m-point complex sequence z[n] = x[2n] + i x[2n+1],
 // windowed. Each frame's complex FFT is a mixed-radix Stockham transform
@@ -59,8 +69,15 @@
 // once: at 32 rows of 65536 samples, 1024 / 256, 42 MB, 0.0126 ms at the
 // H100's 3.35 TB/s.
 //
-// The DFT route (aa_stft; every other n_fft: odd, a prime factor of n_fft /
-// 2 above 13, or above 8192): an implicit GEMM (frames x n_fft) @ (n_fft x
+// The chirp route (aa_stft_chirp) and the cluster route (aa_stft_cluster):
+// see "chirp-z" and "cluster" below. Both run the FFT route's power-of-two
+// Stockham stages (in place, radix 2 or 4, then 8), read the row as it does
+// and store four consecutive frames of a bin together where a block or a
+// cluster holds four (the chirp route: 4096 / M transforms a block). Same
+// bound as the FFT route.
+//
+// The DFT route (aa_stft; n_fft below 16, and frames beyond the cluster
+// route's 65536 points): an implicit GEMM (frames x n_fft) @ (n_fft x
 // 2 n_bins) on the CUDA cores in f32. One block per (tile of 32 frames,
 // row) and tile of 64 bins builds the windowed A tile of each 32-sample
 // chunk straight from the row (through L1 and L2, so no frame span has to
@@ -70,13 +87,17 @@
 // register tile of (re, im) with FMAs in ascending n. Bound: its 4 n_fft
 // n_bins operations a frame at the f32 peak.
 //
-// C interface (bound with ctypes): aa_stft_fft and aa_stft launch on the
-// given stream, allocate nothing, do not synchronise, and return
-// cudaGetLastError().
+// C interface (bound with ctypes): aa_stft_fft, aa_stft_chirp,
+// aa_stft_cluster, aa_stft_cluster_mixed and aa_stft launch on the given
+// stream, allocate nothing,
+// do not synchronise, and return the launch's error or cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -432,15 +453,16 @@ template <> struct Log2<8> { static constexpr int v = 3; };
 // block, in place: after the stages before it (the product of their radices
 // is p), butterfly i of a frame (i < m / R, k = i mod p) reads points i + r
 // m / R, multiplies point r by W_m^(r k m / (p R)) = tw[2 r k m / (p R)],
-// and writes its DFT to (i - k) R + k + r p. The block's 4096 points give
-// each thread 4096 / (512 R) butterflies, all held in registers across the
+// and writes its DFT to (i - k) R + k + r p. The block's kPoints points
+// (4096; the cluster route's 16384) give each thread kPoints / (512 R)
+// butterflies, all held in registers across the
 // barrier that parts the stage's reads from its writes. The first stage
 // (p = 1) reads its points from the row (`src`); the others read shared
 // memory, then a barrier. A barrier ends each stage.
-template <int R, bool kFirst, typename Source>
+template <int R, bool kFirst, int kPoints = FFT_POINTS, typename Source>
 __device__ __forceinline__ void fft_stage(float* re, float* im, const float2* __restrict__ tw,
                                           int log_m, int p, const Source& src) {
-  constexpr int PER = FFT_POINTS / (R * FFT_THREADS);       // butterflies a thread
+  constexpr int PER = kPoints / (R * FFT_THREADS);          // butterflies a thread
   const int log_q = log_m - Log2<R>::v;
   const int q = 1 << log_q;
   const int step = (2 << log_m) / (p * R);
@@ -632,6 +654,465 @@ stft_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win
              frames, Divisor(frames), f0, n_frames);
 }
 
+// ------------------------------------------------------------ chirp-z ---
+// Both routes below take an L-point DFT (L = n_fft / 2 of the packed even
+// and odd samples for an even n_fft, L = n_fft for an odd one) as Bluestein's
+// chirp-z transform where L is not a power of two: with w[n] = exp(-i pi n^2
+// / L) (the `chirp` table, n^2 reduced mod 2 L on the host), Z[k] = w[k]
+// sum_n (z[n] w[n]) conj w[k - n], a convolution that two forward M-point
+// FFTs compute (M >= 2 L - 1, a power of two): A = FFT(z w, zero-padded to
+// M); R = FFT(conj(A B')), B' = FFT(conj w wrapped to M) / M (the `bhat`
+// table); Z[k] = w[k] conj R[k] (the inverse FFT as conj FFT conj). Both
+// tables are computed on the host in float64 and rounded once to f32.
+
+// Point n of transform t times the chirp w[n], zero from the length L on.
+// An even n_fft: transform t is frame f0 + t as z[n] = x[2n] + i x[2n+1],
+// windowed. An odd n_fft: transform t packs frames f0 + 2 t (real part) and
+// f0 + 2 t + 1 (imaginary part), windowed; the split separates them.
+template <bool kOdd, bool kFold>
+struct ChirpSource {
+  const float* xr;
+  const float* win;
+  const float2* chirp;
+  int t_len, hop, pad, f0, n_frames, length;
+
+  __device__ __forceinline__ float sample(int p) const {
+    return __ldg(xr + (p >= 0 && p < t_len ? p : reflect_index<kFold>(p, t_len)));
+  }
+
+  __device__ __forceinline__ float2 load(int t, int n) const {
+    float2 v = make_float2(0.0f, 0.0f);
+    if (n >= length) return v;
+    if constexpr (kOdd) {
+      const int f = f0 + 2 * t;
+      const float w = __ldg(win + n);
+      if (f < n_frames) v.x = sample(f * hop + n - pad) * w;
+      if (f + 1 < n_frames) v.y = sample((f + 1) * hop + n - pad) * w;
+    } else {
+      const int f = f0 + t;
+      if (f >= n_frames) return v;
+      const int p = f * hop + 2 * n - pad;
+      const float2 w = __ldg(reinterpret_cast<const float2*>(win) + n);
+      v = make_float2(sample(p) * w.x, sample(p + 1) * w.y);
+    }
+    return cmul(v, __ldg(chirp + n));
+  }
+};
+
+struct NoSource {};                                // stages that read shared memory only
+
+// A forward 2^log_m-point FFT of every transform in the buffer (kPoints
+// points), in place: the power-of-two plan's radix 2 or 4 first where log_m
+// is not a multiple of 3, then radix 8. kFirst: the first stage reads `src`.
+template <bool kFirst, int kPoints = FFT_POINTS, typename Source>
+__device__ __forceinline__ void pow2_fft(float* re, float* im, const float2* __restrict__ tw,
+                                         int log_m, const Source& src) {
+  int p;
+  if (log_m % 3 == 1) {
+    fft_stage<2, kFirst, kPoints>(re, im, tw, log_m, 1, src);
+    p = 2;
+  } else if (log_m % 3 == 2) {
+    fft_stage<4, kFirst, kPoints>(re, im, tw, log_m, 1, src);
+    p = 4;
+  } else {
+    fft_stage<8, kFirst, kPoints>(re, im, tw, log_m, 1, src);
+    p = 8;
+  }
+  for (; p < (1 << log_m); p *= 8) fft_stage<8, false, kPoints>(re, im, tw, log_m, p, src);
+}
+
+// The bins of one item from Z[k] and Z[L - k] (zk, zb; Z[0] twice at k = 0)
+// into out_row (n_bins, n_frames) at frame f. Even n_fft: the real split of
+// the packed samples, X[k] = A + W^k B and X[L - k] = conj(A - W^k B) with
+// W^k = split_tw[k] = exp(-2 pi i k / n_fft). Odd n_fft: frames f (real
+// part) and f + 1 (imaginary part), X_f[k] = (Z[k] + conj Z[L - k]) / 2 and
+// X_f+1[k] = -i (Z[k] - conj Z[L - k]) / 2.
+template <bool kOdd>
+__device__ __forceinline__ void store_bins(float2 zk, float2 zb, int k, int length, int f,
+                                           const float2* __restrict__ split_tw,
+                                           float2* __restrict__ out_row, int n_frames) {
+  float2* o = out_row + static_cast<size_t>(k) * n_frames + f;
+  if constexpr (kOdd) {
+    o[0] = make_float2(0.5f * (zk.x + zb.x), 0.5f * (zk.y - zb.y));
+    if (f + 1 < n_frames) o[1] = make_float2(0.5f * (zk.y + zb.y), -0.5f * (zk.x - zb.x));
+  } else {
+    const float cr = zb.x, ci = -zb.y;
+    const float ar = 0.5f * (zk.x + cr), ai = 0.5f * (zk.y + ci);
+    const float br = 0.5f * (zk.y - ci), bi = -0.5f * (zk.x - cr);
+    const float2 w = __ldg(split_tw + k);
+    const float wbr = w.x * br - w.y * bi, wbi = w.x * bi + w.y * br;
+    o[0] = make_float2(ar + wbr, ai + wbi);
+    if (2 * k != length)
+      out_row[static_cast<size_t>(length - k) * n_frames + f] = make_float2(ar - wbr, wbi - ai);
+  }
+}
+
+// The chirp route's split: Z[k] = w[k] conj R[k] of transform t (at t M + k),
+// item i is bin k = i / T of transform i mod T, so consecutive threads store
+// consecutive frames of one bin.
+template <bool kOdd>
+__device__ __forceinline__ void chirp_split(const float* re, const float* im,
+                                            const float2* __restrict__ chirp,
+                                            const float2* __restrict__ split_tw,
+                                            float2* __restrict__ out_row, int length, int log_m,
+                                            int log_t, int f0, int n_frames) {
+  const int per = kOdd ? 2 : 1;
+  for (int i = threadIdx.x; i < ((length >> 1) + 1) << log_t; i += FFT_THREADS) {
+    const int k = i >> log_t, t = i & ((1 << log_t) - 1);
+    const int f = f0 + per * t;
+    if (f >= n_frames) continue;
+    const int kb = k == 0 ? 0 : length - k;
+    const int a = padded((t << log_m) + k), b = padded((t << log_m) + kb);
+    const float2 zk = cmul(__ldg(chirp + k), make_float2(re[a], -im[a]));
+    const float2 zb = cmul(__ldg(chirp + kb), make_float2(re[b], -im[b]));
+    store_bins<kOdd>(zk, zb, k, length, f, split_tw, out_row, n_frames);
+  }
+}
+
+// conj(A B') in place over `points` points, transform length 2^log_m:
+// point i of the buffer is bin b(i) of its transform.
+template <typename Bin>
+__device__ __forceinline__ void chirp_product(float* re, float* im,
+                                              const float2* __restrict__ bhat, int points,
+                                              const Bin& bin) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < points; i += FFT_THREADS) {
+    const int a = padded(i);
+    const float2 v = cmul(make_float2(re[a], im[a]), __ldg(bhat + bin(i)));
+    re[a] = v.x;
+    im[a] = -v.y;
+  }
+  __syncthreads();
+}
+
+// The chirp-z route within one block (M = 2^log_m from 32 to 4096): the
+// block's 4096 points hold T = 4096 / M transforms (2 T frames of an odd
+// n_fft). The first FFT's first stage reads the chirp-multiplied frames
+// from the row; the product with B' is one pass over shared memory; the
+// split reads R. One 4096-point buffer, in place, as stft_fft_kernel.
+template <bool kOdd, bool kFold>
+__global__ void __launch_bounds__(FFT_THREADS, 2)
+stft_chirp_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                  const float2* __restrict__ chirp, const float2* __restrict__ bhat,
+                  const float2* __restrict__ tw, const float2* __restrict__ split_tw,
+                  float2* __restrict__ out, int t_len, int rows, int log_m, int length,
+                  int hop, int pad, int n_frames, int n_bins) {
+  __shared__ float smem[FFT_BUFFER];
+  float* re = smem;
+  float* im = smem + FFT_PADDED + 16;               // 16 banks from re
+  const int log_t = FFT_LOG_POINTS - log_m;
+  int row;
+  if (!tile_of(rows, row)) return;
+  const int f0 = (blockIdx.x << log_t) * (kOdd ? 2 : 1);
+  const ChirpSource<kOdd, kFold> src{x + static_cast<size_t>(row) * t_len, win, chirp, t_len,
+                                     hop, pad, f0, n_frames, length};
+  pow2_fft<true>(re, im, tw, log_m, src);
+  const int mask = (1 << log_m) - 1;
+  chirp_product(re, im, bhat, FFT_POINTS, [mask](int i) { return i & mask; });
+  pow2_fft<false>(re, im, tw, log_m, NoSource{});
+  chirp_split<kOdd>(re, im, chirp, split_tw,
+                    out + static_cast<size_t>(row) * n_bins * n_frames, length, log_m, log_t,
+                    f0, n_frames);
+}
+
+// ------------------------------------------------------------ cluster ---
+// Frames of 4096 points and more (n_fft 8192, one CTA a frame, four a
+// cluster; above, Bluestein's M or n_fft / 2 beyond one block):
+// the N-point transform (N = 2^log_n from 4096 to 65536) spread over F = N
+// / 4096 CTAs a frame, each holding a 4096-point part of each of its kSlots
+// slots. A cluster holds four transforms (four frames, or four packed pairs
+// of an odd n_fft): kSlots = 1, four groups of F CTAs (F <= 4, up to 16
+// CTAs, 33.8 KB each); kSlots = 4, one group of F CTAs (135 KB each). A
+// four-step split, P = 4096, within each group:
+//   DIF (x in natural order, part j holding points 4096 j + p): the F-point
+//   DFTs across the group through distributed shared memory, each result
+//   times W_N^(p k1) and written back to part k1, then each part's
+//   4096-point FFT in place: part k1 holds X[k1 + F k2] at k2.
+//   DIT (part c holding points c + F p, the order DIF leaves): each part's
+//   4096-point FFT, then across the group W_N^(c kp) and the F-point DFTs:
+//   part kc holds X[kp + 4096 kc] at kp, natural order.
+// A power-of-two n_fft / 2 takes DIF alone; a chirp-z length takes DIF for
+// A, the product with B' in place (B' indexed k1 + F k2) and DIT for R.
+// The split reads Z[k] and Z[L - k] wherever they lie in the cluster
+// through distributed shared memory; item i is bin i / 4 of transform i
+// mod 4 and each CTA takes an equal run of items, so four lanes store four
+// consecutive frames of a bin (32 bytes, one sector; eight frames of an odd
+// n_fft).
+constexpr int CL_TRANSFORMS = 4;                          // transforms a cluster
+constexpr int CL_LOG_TRANSFORMS = 2;
+constexpr int CL_MAX_LOG_PARTS = 4;                       // 16 CTAs: 65536 points
+
+template <int kSlots> struct ClusterSmem {
+  static constexpr int POINTS = kSlots * FFT_POINTS;
+  static constexpr int PADDED = POINTS + POINTS / 32;
+  static constexpr int IM = PADDED + 16;                  // im, 16 banks from re
+  static constexpr int BYTES = (IM + PADDED) * static_cast<int>(sizeof(float));
+};
+
+// Point a (padded) of CTA `rank`'s re / im (im at re + kIm), through
+// distributed shared memory.
+template <int kIm>
+__device__ __forceinline__ float2 dsmem_load(float* re, int a, int rank) {
+  const float* p = cg::this_cluster().map_shared_rank(re + a, rank);
+  return make_float2(p[0], p[kIm]);
+}
+
+template <int kIm>
+__device__ __forceinline__ void dsmem_store(float* re, int a, int rank, float2 v) {
+  float* p = cg::this_cluster().map_shared_rank(re + a, rank);
+  p[0] = v.x;
+  p[kIm] = v.y;
+}
+
+// W16^j = exp(-2 pi i j / 16), j = 0 .. 9 (constant once unrolled).
+__device__ __forceinline__ float2 w16(int j) {
+  constexpr float c1 = 0.92387953f, s1 = 0.38268343f;
+  switch (j) {
+    case 0: return make_float2(1.0f, 0.0f);
+    case 1: return make_float2(c1, -s1);
+    case 2: return make_float2(kSqrtHalf, -kSqrtHalf);
+    case 3: return make_float2(s1, -c1);
+    case 4: return make_float2(0.0f, -1.0f);
+    case 6: return make_float2(-kSqrtHalf, -kSqrtHalf);
+    default: return make_float2(-c1, s1);          // 9
+  }
+}
+
+// 16 points, natural order: n = 4 n1 + n2, k = k1 + 4 k2, two radix-4 passes.
+__device__ __forceinline__ void dft16(float2 (&u)[16]) {
+  float2 y[4][4];                                  // y[n2][k1]
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    float2 v[4] = {u[n2], u[n2 + 4], u[n2 + 8], u[n2 + 12]};
+    dft<4>(v);
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) y[n2][k1] = n2 * k1 ? cmul(v[k1], w16(n2 * k1)) : v[k1];
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 v[4] = {y[0][k1], y[1][k1], y[2][k1], y[3][k1]};
+    dft<4>(v);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) u[k1 + 4 * k2] = v[k2];
+  }
+}
+
+template <int F> __device__ __forceinline__ void dft_parts(float2 (&u)[F]) {
+  if constexpr (F == 16) dft16(u); else dft<F>(u);
+}
+
+// The F-point DFTs across a group's parts (ranks group0 .. group0 + F - 1):
+// this part's share of the `points` positions of each slot (4096, or a
+// mixed-radix part's P, one slot). kDit = false: DFT, then W_N^(p k) on
+// output k (DIF); true: W_N^(c p) on input c, then the DFT (DIT). Output k
+// goes to part k at the same position.
+template <int F, bool kDit, int kSlots>
+__device__ __forceinline__ void parts_dft(float* re, const float2* __restrict__ tw_n, int group0,
+                                          int part, int points = FFT_POINTS) {
+  constexpr int IM = ClusterSmem<kSlots>::IM;
+  const int share = (points + F - 1) / F;
+  for (int i = threadIdx.x; i < kSlots * share; i += FFT_THREADS) {
+    const int s = kSlots == 1 ? 0 : i / share, p = part * share + (i - s * share);
+    if (p >= points) break;                        // a part of odd P: the last position
+    const int a = padded((s << FFT_LOG_POINTS) + p);
+    float2 u[F];
+#pragma unroll
+    for (int c = 0; c < F; ++c) u[c] = dsmem_load<IM>(re, a, group0 + c);
+    if constexpr (kDit) {
+#pragma unroll
+      for (int c = 1; c < F; ++c) u[c] = cmul(u[c], __ldg(tw_n + c * p));
+    }
+    dft_parts<F>(u);
+    if constexpr (!kDit) {
+#pragma unroll
+      for (int k = 1; k < F; ++k) u[k] = cmul(u[k], __ldg(tw_n + k * p));
+    }
+#pragma unroll
+    for (int k = 0; k < F; ++k) dsmem_store<IM>(re, a, group0 + k, u[k]);
+  }
+}
+
+template <bool kDit, int kSlots>
+__device__ __forceinline__ void parts_dft_of(int log_f, float* re,
+                                             const float2* __restrict__ tw_n, int group0,
+                                             int part, int points = FFT_POINTS) {
+  switch (log_f) {
+    case 1: parts_dft<2, kDit, kSlots>(re, tw_n, group0, part, points); break;
+    case 2: parts_dft<4, kDit, kSlots>(re, tw_n, group0, part, points); break;
+    case 3: parts_dft<8, kDit, kSlots>(re, tw_n, group0, part, points); break;
+    case 4: parts_dft<16, kDit, kSlots>(re, tw_n, group0, part, points); break;
+  }
+}
+
+// This CTA's part of each of its slots: points 4096 part + p of transform
+// t0 + slot.
+template <int kSlots, typename Source>
+__device__ __forceinline__ void load_part(float* re, float* im, const Source& src, int t0,
+                                          int part) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kSlots * FFT_POINTS; i += FFT_THREADS) {
+    const float2 v = src.load(t0 + (i >> FFT_LOG_POINTS),
+                              (part << FFT_LOG_POINTS) + (i & (FFT_POINTS - 1)));
+    const int a = padded(i);
+    re[a] = v.x;
+    im[a] = v.y;
+  }
+}
+
+// grid (tiles x the cluster's CTAs, rows), clusters of 4 F / kSlots CTAs;
+// CTA rank = group F + part. kSlots = 1 runs three blocks an SM at 40
+// registers (spilling 0.4-0.9 KB a thread: 4-15 % faster than two blocks at
+// 64 registers, in turns); kSlots = 4 one (135 KB of shared memory).
+template <int kSlots, bool kChirp, bool kOdd, bool kFold>
+__global__ void __launch_bounds__(FFT_THREADS, kSlots == 1 ? 3 : 1)
+stft_cluster_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                    const float2* __restrict__ chirp, const float2* __restrict__ bhat,
+                    const float2* __restrict__ tw_n, const float2* __restrict__ tw_local,
+                    const float2* __restrict__ split_tw, float2* __restrict__ out, int t_len,
+                    int rows, int log_f, int length, int hop, int pad, int n_frames,
+                    int n_bins) {
+  using Smem = ClusterSmem<kSlots>;
+  extern __shared__ float smem[];                  // Smem::BYTES
+  float* re = smem;
+  float* im = smem + Smem::IM;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int log_cs = log_f + CL_LOG_TRANSFORMS - (kSlots == 1 ? 0 : CL_LOG_TRANSFORMS);
+  const int part = rank & ((1 << log_f) - 1);
+  const int group0 = rank - part;                  // the group's first CTA
+  const int t0 = (rank >> log_f) * kSlots;         // the group's first transform
+  int row;
+  if (!tile_of(rows, row)) return;                 // the whole cluster shares its row
+  const int f0 = (blockIdx.x >> log_cs) * CL_TRANSFORMS * (kOdd ? 2 : 1);
+  const float* xr = x + static_cast<size_t>(row) * t_len;
+  if constexpr (kChirp) {
+    load_part<kSlots>(re, im, ChirpSource<kOdd, kFold>{xr, win, chirp, t_len, hop, pad, f0,
+                                                        n_frames, length}, t0, part);
+  } else {
+    load_part<kSlots>(re, im, FrameSource<kFold>{xr, reinterpret_cast<const float2*>(win),
+                                                 t_len, hop, pad, f0, n_frames}, t0, part);
+  }
+  if (log_f > 0) {
+    cluster.sync();
+    parts_dft_of<false, kSlots>(log_f, re, tw_n, group0, part);
+  }
+  cluster.sync();
+  pow2_fft<false, Smem::POINTS>(re, im, tw_local, FFT_LOG_POINTS, NoSource{});
+  if constexpr (kChirp) {
+    chirp_product(re, im, bhat, Smem::POINTS,
+                  [part, log_f](int i) { return part + ((i & (FFT_POINTS - 1)) << log_f); });
+    pow2_fft<false, Smem::POINTS>(re, im, tw_local, FFT_LOG_POINTS, NoSource{});
+    if (log_f > 0) {
+      cluster.sync();
+      parts_dft_of<true, kSlots>(log_f, re, tw_n, group0, part);
+    }
+  }
+  cluster.sync();                                  // every CTA's points final
+  // the split: Z[idx] of transform t is R's point idx (chirp-z, natural
+  // order) or the DIF's bin idx (at part idx mod F, position idx / F), in
+  // group t / kSlots, slot t mod kSlots
+  const int items = ((length >> 1) + 1) << CL_LOG_TRANSFORMS;
+  const int share = (((items + (1 << log_cs) - 1) >> log_cs) + 31) & ~31;
+  const int end = min(items, (rank + 1) * share);
+  float2* out_row = out + static_cast<size_t>(row) * n_bins * n_frames;
+  auto z = [&](int t, int idx) {
+    const int q = kChirp ? idx >> FFT_LOG_POINTS : idx & ((1 << log_f) - 1);
+    const int p = kChirp ? idx & (FFT_POINTS - 1) : idx >> log_f;
+    const int slot = t & (kSlots - 1);
+    const float2 v = dsmem_load<Smem::IM>(re, padded((slot << FFT_LOG_POINTS) + p),
+                                          ((t / kSlots) << log_f) + q);
+    return kChirp ? cmul(__ldg(chirp + idx), make_float2(v.x, -v.y)) : v;
+  };
+  for (int i = rank * share + threadIdx.x; i < end; i += FFT_THREADS) {
+    const int k = i >> CL_LOG_TRANSFORMS, t = i & (CL_TRANSFORMS - 1);
+    const int f = f0 + (kOdd ? 2 : 1) * t;
+    if (f >= n_frames) continue;
+    store_bins<kOdd>(z(t, k), z(t, k == 0 ? 0 : length - k), k, length, f, split_tw, out_row,
+                     n_frames);
+  }
+  cluster.sync();                                  // no CTA leaves while its points are read
+}
+
+// The cluster route for an even n_fft above 8192 whose half m is 13-smooth
+// but not a power of two, where m = F P with F = 2 or 4 and P <= 4096: the
+// four-step DIF as above with the F-point DFTs across the parts (W_m^(p
+// k1)), then each part's P-point mixed-radix Stockham FFT (the FFT route's
+// stft_fft_mixed_kernel stages, reading one buffer of 67.7 KB while writing
+// the other), no chirp. A CTA a frame, four frames a cluster of 4 F CTAs.
+template <bool kLarge, bool kFold>
+__global__ void __launch_bounds__(FFT_THREADS, 2)
+stft_cluster_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                          const float2* __restrict__ tw_m, const float2* __restrict__ tw_local,
+                          const float2* __restrict__ split_tw, float2* __restrict__ out,
+                          int t_len, int rows, int log_f, int part_points,
+                          unsigned long long radices, int n_stages, int hop, int pad,
+                          int n_frames, int n_bins) {
+  constexpr int IM = FFT_PADDED + 16;              // as ClusterSmem<1>::IM
+  extern __shared__ float smem[];                  // FFT_MIXED_SMEM_BYTES: two buffers
+  float* re[2] = {smem, smem + FFT_BUFFER};
+  float* im[2] = {smem + IM, smem + FFT_BUFFER + IM};
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int log_cs = log_f + CL_LOG_TRANSFORMS;
+  const int part = rank & ((1 << log_f) - 1);
+  const int group0 = rank - part;
+  const int m = part_points << log_f;
+  int row;
+  if (!tile_of(rows, row)) return;                 // the whole cluster shares its row
+  const int f0 = (blockIdx.x >> log_cs) * CL_TRANSFORMS;
+  const float* xr = x + static_cast<size_t>(row) * t_len;
+  const FrameSource<kFold> src{xr, reinterpret_cast<const float2*>(win), t_len, hop, pad, f0,
+                               n_frames};
+  // points part P + p of frame rank / F into buffer 1, which stage 0 reads
+  for (int p = threadIdx.x; p < part_points; p += FFT_THREADS) {
+    const float2 v = src.load(rank >> log_f, part * part_points + p);
+    re[1][padded(p)] = v.x;
+    im[1][padded(p)] = v.y;
+  }
+  cluster.sync();
+  parts_dft_of<false, 1>(log_f, re[1], tw_m, group0, part, part_points);
+  cluster.sync();
+  int p = 1, b = 0;
+  const NoSource none;
+#define AA_STAGE(R)                                                                        \
+  fft_stage_mixed<R, false>(re[b ^ 1], im[b ^ 1], re[b], im[b], tw_local, 2 * part_points, \
+                            part_points, p, none)
+  for (int s = 0; s < n_stages; ++s) {
+    const int radix = radix_of(radices, s);
+    b = s & 1;
+    switch (radix) {
+      case 2: AA_STAGE(2); break;
+      case 3: AA_STAGE(3); break;
+      case 4: AA_STAGE(4); break;
+      case 5: AA_STAGE(5); break;
+      case 7: AA_STAGE(7); break;
+      case 8: AA_STAGE(8); break;
+    }
+    if constexpr (kLarge) {
+      if (radix == 11) AA_STAGE(11);
+      if (radix == 13) AA_STAGE(13);
+    }
+    p *= radix;
+  }
+#undef AA_STAGE
+  cluster.sync();                                  // every CTA's bins final
+  // the split: Z[k] at part k mod F, position k / F, of frame t's group
+  const int items = ((m >> 1) + 1) << CL_LOG_TRANSFORMS;
+  const int share = (((items + (1 << log_cs) - 1) >> log_cs) + 31) & ~31;
+  const int end = min(items, (rank + 1) * share);
+  float2* out_row = out + static_cast<size_t>(row) * n_bins * n_frames;
+  auto z = [&](int t, int idx) {
+    return dsmem_load<IM>(re[b], padded(idx >> log_f), (t << log_f) + (idx & ((1 << log_f) - 1)));
+  };
+  for (int i = rank * share + threadIdx.x; i < end; i += FFT_THREADS) {
+    const int k = i >> CL_LOG_TRANSFORMS, t = i & (CL_TRANSFORMS - 1);
+    const int f = f0 + t;
+    if (f >= n_frames) continue;
+    store_bins<false>(z(t, k), z(t, k == 0 ? 0 : m - k), k, m, f, split_tw, out_row, n_frames);
+  }
+  cluster.sync();                                  // no CTA leaves while its points are read
+}
+
 bool odd_radix(int r) { return r == 3 || r == 5 || r == 7 || r == 11 || r == 13; }
 
 }  // namespace
@@ -711,4 +1192,190 @@ extern "C" int aa_stft_fft(const void* x, const void* win, const void* tw, void*
                                          pad, n_frames);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// x: (rows, t_len) f32, contiguous. win: (n_fft,) f32. chirp: (length,)
+// complex f32, w[n] = exp(-i pi (n^2 mod 2 length) / length). bhat: (M,)
+// complex f32, the M-point DFT of conj w wrapped to M, over M (M = 2^log_m,
+// 32 to 4096, at least 2 length - 1). tw: (2 M,) complex f32, exp(-2 pi i j
+// / 2M). split_tw: (n_fft,) complex f32, exp(-2 pi i j / n_fft) (read for an
+// even n_fft). length: n_fft / 2 for an even n_fft, n_fft for an odd one.
+// out: (rows, n_fft / 2 + 1, n_frames) complex64. pad: n_fft / 2 when
+// centred, else 0 (any t_len >= 1). Returns cudaGetLastError().
+extern "C" int aa_stft_chirp(const void* x, const void* win, const void* chirp, const void* bhat,
+                             const void* tw, const void* split_tw, void* out, int rows,
+                             int t_len, int n_fft, int hop, int pad, int n_frames, int log_m,
+                             int length, void* stream) {
+  const bool odd = n_fft % 2 != 0;
+  if (rows <= 0 || hop <= 0 || n_frames <= 0 || t_len <= 0 || pad < 0 || log_m < 5 ||
+      log_m > FFT_LOG_POINTS || length != (odd ? n_fft : n_fft / 2) || length < 8 ||
+      2 * length - 1 > (1 << log_m) || static_cast<long long>(t_len) + 2 * pad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (FFT_POINTS >> log_m) * (odd ? 2 : 1);      // frames a block
+  const dim3 grid((n_frames + per - 1) / per, rows < 65535 ? rows : 65535,
+                  (rows + 65534) / 65535);
+  if (grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool fold = pad >= t_len;
+  const auto kernel = odd ? (fold ? stft_chirp_kernel<true, true> : stft_chirp_kernel<true, false>)
+                          : (fold ? stft_chirp_kernel<false, true>
+                                  : stft_chirp_kernel<false, false>);
+  kernel<<<grid, FFT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(win),
+      static_cast<const float2*>(chirp), static_cast<const float2*>(bhat),
+      static_cast<const float2*>(tw), static_cast<const float2*>(split_tw),
+      static_cast<float2*>(out), t_len, rows, log_m, length, hop, pad, n_frames, n_fft / 2 + 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+using ClusterKernel = void (*)(const float*, const float*, const float2*, const float2*,
+                               const float2*, const float2*, const float2*, float2*, int, int,
+                               int, int, int, int, int, int);
+
+template <int kSlots, bool kChirp, bool kOdd, bool kFold>
+cudaError_t configured_cluster_kernel(ClusterKernel& kernel) {
+  kernel = stft_cluster_kernel<kSlots, kChirp, kOdd, kFold>;
+  static bool configured = false;                  // attributes set once per instance
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       ClusterSmem<kSlots>::BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  configured = e == cudaSuccess;
+  return e;
+}
+
+template <int kSlots>
+cudaError_t cluster_kernel_of(bool chirped, bool odd, bool fold, ClusterKernel& kernel) {
+  return !chirped ? (fold ? configured_cluster_kernel<kSlots, false, false, true>(kernel)
+                          : configured_cluster_kernel<kSlots, false, false, false>(kernel))
+         : odd    ? (fold ? configured_cluster_kernel<kSlots, true, true, true>(kernel)
+                          : configured_cluster_kernel<kSlots, true, true, false>(kernel))
+                  : (fold ? configured_cluster_kernel<kSlots, true, false, true>(kernel)
+                          : configured_cluster_kernel<kSlots, true, false, false>(kernel));
+}
+
+}  // namespace
+
+// As aa_stft_chirp, with the transform of N = 2^log_n points (4096 to 65536)
+// on N / 4096 CTAs a frame, four transforms a cluster: slots 1 (four groups
+// of CTAs, N <= 16384) or 4 (every transform in each CTA). length == N (an
+// even n_fft whose half is N) takes no chirp: chirp and bhat may be null.
+// Otherwise 2 length - 1 <= N and bhat has N points. tw_n: (N,) complex
+// f32, exp(-2 pi i j / N). tw_local: (8192,) complex f32, exp(-2 pi i j /
+// 8192) (each CTA's 4096-point FFT). Returns the launch's error or
+// cudaGetLastError().
+extern "C" int aa_stft_cluster(const void* x, const void* win, const void* chirp,
+                               const void* bhat, const void* tw_n, const void* tw_local,
+                               const void* split_tw, void* out, int rows, int t_len, int n_fft,
+                               int hop, int pad, int n_frames, int log_n, int length, int slots,
+                               void* stream) {
+  const bool odd = n_fft % 2 != 0;
+  const int log_f = log_n - FFT_LOG_POINTS;
+  const int log_cs = log_f + (slots == 1 ? CL_LOG_TRANSFORMS : 0);
+  if (rows <= 0 || hop <= 0 || n_frames <= 0 || t_len <= 0 || pad < 0 || log_f < 0 ||
+      log_f > CL_MAX_LOG_PARTS || (slots != 1 && slots != CL_TRANSFORMS) ||
+      log_cs > CL_MAX_LOG_PARTS || length != (odd ? n_fft : n_fft / 2) || length < 8 ||
+      static_cast<long long>(t_len) + 2 * pad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool chirped = length != (1 << log_n);
+  if (chirped ? 2 * length - 1 > (1 << log_n) : odd) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = CL_TRANSFORMS * (odd ? 2 : 1);  // frames a cluster
+  const long long tiles = (n_frames + per - 1) / per;
+  if ((tiles << log_cs) > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles << log_cs), rows < 65535 ? rows : 65535,
+                  (rows + 65534) / 65535);
+  if (grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool fold = pad >= t_len;
+  ClusterKernel kernel;
+  const cudaError_t e = slots == 1 ? cluster_kernel_of<1>(chirped, odd, fold, kernel)
+                                   : cluster_kernel_of<CL_TRANSFORMS>(chirped, odd, fold, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FFT_THREADS);
+  cfg.dynamicSmemBytes = slots == 1 ? ClusterSmem<1>::BYTES : ClusterSmem<CL_TRANSFORMS>::BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log_cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(x), static_cast<const float*>(win),
+      static_cast<const float2*>(chirp), static_cast<const float2*>(bhat),
+      static_cast<const float2*>(tw_n), static_cast<const float2*>(tw_local),
+      static_cast<const float2*>(split_tw), static_cast<float2*>(out), t_len, rows, log_f,
+      length, hop, pad, n_frames, n_fft / 2 + 1);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// As aa_stft_cluster for an even n_fft whose half m = parts x P is 13-smooth
+// but not a power of two (parts 2 or 4, P <= 4096): radices, the n_stages
+// radices of P's Stockham stages (radix 2 or 4 only first, as
+// aa_stft_fft's). tw_m: (m,) complex f32, exp(-2 pi i j / m). tw_local:
+// (2 P,) complex f32, exp(-2 pi i j / 2P). split_tw: (n_fft,). Returns the
+// launch's error or cudaGetLastError().
+extern "C" int aa_stft_cluster_mixed(const void* x, const void* win, const void* tw_m,
+                                     const void* tw_local, const void* split_tw, void* out,
+                                     int rows, int t_len, int n_fft, int hop, int pad,
+                                     int n_frames, int parts, const int* radices, int n_stages,
+                                     void* stream) {
+  const int log_f = parts == 2 ? 1 : parts == 4 ? 2 : -1;
+  const int m = n_fft / 2;
+  if (rows <= 0 || hop <= 0 || n_frames <= 0 || t_len <= 0 || pad < 0 || log_f < 0 ||
+      n_fft % 2 != 0 || m % parts != 0 || m / parts < 8 || m / parts > FFT_POINTS ||
+      n_stages < 1 || n_stages > FFT_MAX_STAGES ||
+      static_cast<long long>(t_len) + 2 * pad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned long long packed = 0;
+  long long product = 1;
+  bool large = false;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (!(r == 8 || odd_radix(r) || (s == 0 && (r == 2 || r == 4))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    packed |= static_cast<unsigned long long>(r) << (4 * s);
+    product *= r;
+    large = large || r > 8;
+  }
+  const int log_cs = log_f + CL_LOG_TRANSFORMS;
+  const long long tiles = (n_frames + CL_TRANSFORMS - 1) / CL_TRANSFORMS;
+  if (product != m / parts || (tiles << log_cs) > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles << log_cs), rows < 65535 ? rows : 65535,
+                  (rows + 65534) / 65535);
+  if (grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool fold = pad >= t_len;
+  const auto kernel = large ? (fold ? stft_cluster_mixed_kernel<true, true>
+                                    : stft_cluster_mixed_kernel<true, false>)
+                            : (fold ? stft_cluster_mixed_kernel<false, true>
+                                    : stft_cluster_mixed_kernel<false, false>);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       FFT_MIXED_SMEM_BYTES);
+  if (e == cudaSuccess)                            // 16 CTAs a cluster at 4 parts
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FFT_THREADS);
+  cfg.dynamicSmemBytes = FFT_MIXED_SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log_cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
+                         static_cast<const float*>(win), static_cast<const float2*>(tw_m),
+                         static_cast<const float2*>(tw_local),
+                         static_cast<const float2*>(split_tw), static_cast<float2*>(out), t_len,
+                         rows, log_f, m / parts, packed, n_stages, hop, pad, n_frames,
+                         n_fft / 2 + 1);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

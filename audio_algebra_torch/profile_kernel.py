@@ -51,7 +51,18 @@ quarter hop, chip_smoke.py's CLAP, DMAE and PitchShift rows, hop 1 and hop
 128), one JSON line a shape with
 the route, a SHA-256 of the output's bits and the device ms a call; it
 calls only `stft_fused`, so run from two checkouts' roots, equal digests
-show that K6's results did not change. Every line names the card.
+show that K6's results did not change; each line has the route `plan`
+gives where the checkout has it, and torch.stft's device ms beside K6's.
+The shapes the DFT product took before the chirp-z and cluster routes
+(1018, 1102, 999, 1001, 1538, 2018, 10000, 16384, 8194) and 8192 / 2048 come
+last. `--variants`: K6 on a candidate route (`_launch`'s route_plan and
+slots, this checkout only) beside the planned one, in turns: 8192 / 2048
+on the FFT route's one frame a block and on one CTA of four frames
+against the planned cluster of four CTAs, 2402 / 600 (M = 4096) on the
+cluster kernel against the chirp route's one transform a block, 16384 /
+4096 with four transforms in each CTA against the planned one a CTA,
+and 10000 / 2500 by chirp-z on 4 CTAs against the planned 2 mixed-radix
+parts. Every line names the card.
 """
 from __future__ import annotations
 
@@ -87,6 +98,20 @@ K6_CASES += [(1, 1048576, 1024, 480, True), (8, 66304, 1024, 256, False),
              (1, 16000, 1001, 160, True), (4, 8000, 1018, 250, True), (8, 48000, 1018, 250, True),
              (32, 65536, 1000, 250, True), (32, 65536, 1920, 480, True),
              (32, 65536, 1408, 128, True)]
+# shapes the DFT product took before the chirp-z and cluster routes, and
+# 8192 / 2048 (the FFT route's one frame a block before the cluster route)
+K6_CASES += [(32, 65536, 1102, 441, True), (32, 65536, 999, 250, True),
+             (8, 48000, 2018, 2018, True), (1, 9000, 1538, 480, True),
+             (4, 262144, 8192, 2048, True), (4, 262144, 16384, 4096, True),
+             (4, 262144, 10000, 2500, True), (4, 262144, 8194, 2048, True)]
+# --variants: K6 on a candidate route beside the planned one, in turns:
+# (rows, T, n_fft, hop, route, radices, cluster slots)
+K6_VARIANTS = [(4, 262144, 8192, 2048, "fft", (8, 8, 8, 8), None),    # a frame a block
+               (16, 65536, 8192, 2048, "fft", (8, 8, 8, 8), None),
+               (4, 262144, 8192, 2048, "cluster", (1, 8, 8, 8, 8), 4),   # 4 frames a CTA
+               (32, 65536, 2402, 600, "cluster", (1, 8, 8, 8, 8), 1),    # M = 4096 chirp-z
+               (4, 262144, 16384, 4096, "cluster", (2, 8, 8, 8, 8), 4),
+               (4, 262144, 10000, 2500, "cluster", (4, 8, 8, 8, 8), None)]  # chirp-z
 K5_SHAPES = [((2, 512, 2048), "bfloat16", True), ((2, 1536, 2048), "bfloat16", False),
              ((2, 1024, 32), "bfloat16", True), ((2, 512, 2048), "float32", True),
              ((8, 512, 2048), "float32", True)]
@@ -347,7 +372,8 @@ def main(argv=None) -> int:
                     help="k5: device ms at every cluster size that fits; k3: the 64- "
                          "and 128-row query tiles at B <= 2, in turns; k4a: each block "
                          "(batch rows, query rows, keys a tile) of the f32 route, "
-                         "in turns")
+                         "in turns; k6: candidate routes beside the planned one, in "
+                         "turns")
     ap.add_argument("--trace", action="store_true",
                     help="r1, r2, r3: the device µs a call of each CUDA kernel, by "
                          "torch.profiler")
@@ -388,23 +414,49 @@ def main(argv=None) -> int:
     if args.kernel == "k6":
         import hashlib
         from audio_algebra_torch.ops import stft_kernel as stk
-        for rows, t_len, n_fft, hop, center in K6_CASES:
+        plan = getattr(stk, "plan", None)
+        for rows, t_len, n_fft, hop, center in ([] if args.variants else K6_CASES):
             gi = torch.Generator(device=dev).manual_seed(n_fft * 7 + hop)
             x = torch.randn((rows, t_len), generator=gi, device=dev) * 0.5
+            win = torch.hann_window(n_fft, device=dev)
 
             def call():
                 return stk.stft_fused(x, n_fft, hop, center)
             before = stk.fft_launches
             y = call()
             torch.cuda.synchronize()
+            route = plan(n_fft).route if plan else ("fft" if stk.fft_launches > before else "dft")
             print(json.dumps({
                 "kernel": "k6", "tree": os.getcwd(), "shape": [rows, t_len], "n_fft": n_fft,
-                "hop": hop, "center": center,
-                "route": "fft" if stk.fft_launches > before else "dft",
+                "hop": hop, "center": center, "route": route,
                 "sha256": hashlib.sha256(torch.view_as_real(y).contiguous().cpu().numpy()
                                          .tobytes()).hexdigest(),
-                "device_ms": device_ms(call, 20), "device": card}), flush=True)
+                "device_ms": device_ms(call, 20),
+                "library_device_ms": device_ms(lambda: torch.stft(
+                    x, n_fft, hop, window=win, center=center, pad_mode="reflect",
+                    return_complex=True), 20), "device": card}), flush=True)
             del x, y
+        for rows, t_len, n_fft, hop, route, radices, slots in (K6_VARIANTS if args.variants
+                                                                else []):
+            gi = torch.Generator(device=dev).manual_seed(n_fft * 7 + hop)
+            x = torch.randn((rows, t_len), generator=gi, device=dev) * 0.5
+            candidate = stk.StftPlan(route, radices)
+            planned = stk._launch(x, n_fft, hop, True)
+            got = stk._launch(x, n_fft, hop, True, candidate, slots)
+            torch.cuda.synchronize()
+            row = {"kernel": "k6", "variant": True, "shape": [rows, t_len], "n_fft": n_fft,
+                   "hop": hop, "planned": list(plan(n_fft)),
+                   "candidate": [route, list(radices), slots],
+                   "candidate_vs_planned_max_abs": float((got - planned).abs().max()),
+                   "device": card}
+            times = {"planned": [], "candidate": []}
+            for turn in ("planned", "candidate", "candidate", "planned"):
+                p, n = (None, None) if turn == "planned" else (candidate, slots)
+                times[turn].append(device_ms(
+                    lambda: stk._launch(x, n_fft, hop, True, p, n), 20))
+            print(json.dumps({**row, "planned_device_ms": times["planned"],
+                              "candidate_device_ms": times["candidate"]}), flush=True)
+            del x, planned, got
         return 0
     if args.kernel == "k3":
         for shape in K3_SHAPES:

@@ -69,23 +69,30 @@ Phases, each printing one JSON line:
                 latents for 10 steps on the amax carry against its float
                 route (rel-RMS in (1e-4, 0.08)); K1, K2a/b/c and int8-conv5
                 counts asserted
-  kernels (K6)  the fused STFT on both routes against its twin (atol 5e-4 +
+  kernels (K6)  the fused STFT on each route against its twin (atol 5e-4 +
                 rtol 1e-4, the JAX package's own tolerance) and float64: the
                 shared-memory FFT at the spectrogram models' (32, 65536)
                 1024/256, CLAP's (1, 1048576) 1024/480, DMAE's mel (8,
                 66304) 1024/256 at center=False and PitchShift's (4,
                 262144) 2048/512; its mixed-radix plans at (32, 65536)
-                1000/250, 1920/480, 1536/384, 1408/128 and 384/128, (4,
-                262144) 8192/2048 and (8, 48000) 2000/2000 (each no further
-                from float64 than the twin); the DFT product at (32, 65536)
-                1018/250 and (8, 48000) 2018/2018; each on its planned route
-                in one launch, timed beside the twin, torch.stft (cuFFT), its
-                byte bound and the DFT's operations bound, per call and on
-                the device alone (the card kept busy while the host queues).
-                Then clips of 1, 2, n_fft/4, n_fft/2 and n_fft/2 + 1 samples
-                (2-4 rows) at 1024/256, 1000/250, 1018/250 and 2048/512,
-                no longer than the reflect pad: against the twin and a
-                float64 STFT of numpy's reflect-padded clip
+                1000/250, 1920/480, 1536/384, 1408/128 and 384/128 and (8,
+                48000) 2000/2000 (each no further from float64 than the
+                twin); the chirp-z route at (32, 65536)
+                1018/250, 1102/441 and 999/250 (odd) and (8, 48000)
+                2018/2018; the cluster route at (4, 262144) 8192/2048 (a CTA
+                a frame), 16384/4096 (2 CTAs), 10000/2500 (2 mixed-radix
+                parts) and 8194/2048 (chirp-z on 4 CTAs); the DFT product at
+                (32, 65536) 14/4; each on its planned route in one launch,
+                within the tolerance of float64 too and no further from it
+                than the twin (the DFT product excepted), timed beside the
+                twin, torch.stft (cuFFT), its byte bound and the DFT's
+                operations bound, per call and on the device alone (the card
+                kept busy while the host queues). Then clips of 1, 2,
+                n_fft/4, n_fft/2 and n_fft/2 + 1 samples (2-4 rows) at
+                1024/256, 1000/250, 1018/250, 2048/512, 999/250 and
+                2049/512 (odd, 2 CTAs), no longer than the reflect pad: against the twin
+                and a float64 STFT of numpy's reflect-padded clip, timed
+                beside the twin and torch.stft of the padded clip
   spectrogram   the four spectrogram given models at (16, 2, 65536) f32
                 (1024/256, 32 Griffin-Lim rounds): the SpectrogramAE and
                 MagDPhase (init 'true') round trips under 1e-9 and 1e-8 rel
@@ -95,10 +102,13 @@ Phases, each printing one JSON line:
                 larger of 1e-3 and the twin's own spread under a 1e-6 input
                 change); spectral convergence, encode and decode times; K6
                 must launch 1 + 33 + 33 + 1 = 68 times, all on the FFT route.
-                Then MelSpectrogramAE at 1920/480 (40 ms windows, 10 ms
-                hops): an encode and a Griffin-Lim decode whose 33 K6
-                launches must all take the FFT route's mixed-radix plan,
-                the decode against the same through the twin
+                Then one model a route, an encode and a Griffin-Lim decode
+                whose 33 K6 launches must all take that route, the decode
+                against the same through the twin: MelSpectrogramAE at
+                1920/480 (40 ms windows, 10 ms hops at 48 kHz; the
+                mixed-radix FFT), MelSpectrogramAE at 44.1 kHz 1102/551 (25
+                ms windows; the chirp-z route) and MagSpectrogramAE at
+                16384/4096 (the cluster route)
   clap          the served model's CLAP module at full width in f32 with
                 seeded random weights (HTSAT-base with fusion, RoBERTa-base):
                 a 5 s clip (short path), a 22 s clip (fusion path) and two
@@ -328,15 +338,23 @@ STACKED_STEP = {"k1": 1, "k2a": 59, "k2b": 19, "k2c": 40}
 # MagDPhase encode once, Mag and Mel encode once and take 32 Griffin-Lim rounds
 SPEC_SHAPE, SPEC_ITERS = (16, 2, 65536), 32
 K6_SPECTROGRAM = 1 + (1 + SPEC_ITERS) + (1 + SPEC_ITERS) + 1
-# then MelSpectrogramAE at 40 ms windows, 10 ms hops (1920 / 480 at 48 kHz):
-# an encode and a Griffin-Lim decode on K6's mixed-radix FFT (8, 8, 3, 5)
-MEL_MIXED = (1920, 480)
-K6_MEL_MIXED = 1 + SPEC_ITERS
+# then one model a route, each an encode and a Griffin-Lim decode of the
+# same clips (1 + 32 launches, all on the route): MelSpectrogramAE at 40 ms
+# windows, 10 ms hops (1920 / 480 at 48 kHz) on K6's mixed-radix FFT (8, 8,
+# 3, 5); MelSpectrogramAE at 25 ms windows at 44.1 kHz (1102; half 551 = 19
+# x 29) on the chirp-z route, hop 551 (half a window: the overlap-add of
+# istft, JAX's and the port's, needs n_fft % hop == 0, so 441 cannot decode);
+# MagSpectrogramAE at 16384 / 4096 on the cluster route (2 CTAs)
+SPEC_ROUTES = (("MelSpectrogramAE", 48000, 1920, 480, "fft"),
+               ("MelSpectrogramAE", 44100, 1102, 551, "chirp"),
+               ("MagSpectrogramAE", 48000, 16384, 4096, "cluster"))
 STFT_TOL = (5e-4, 1e-4)        # (atol, rtol): the JAX package's for its kernel
 # clips no longer than the reflect pad n_fft / 2 (or one sample longer) on
 # each of K6's routes: the power-of-two FFT (and PitchShift's 2048 / 512),
-# the mixed radices, the DFT product
-SHORT_CLIP_STFT = ((1024, 256), (1000, 250), (1018, 250), (2048, 512))
+# the mixed radices, the chirp-z route (even and odd), the cluster route
+SHORT_CLIP_STFT = ((1024, 256), (1000, 250), (1018, 250), (2048, 512), (999, 250),
+                   (2049, 512))
+K6_ROUTES = ("fft", "chirp", "cluster", "dft")
 GL_REL_RMS = 1e-3
 # the exact round trips, rel MSE: SpectrogramAE's; MagDPhase integrates f32
 # phase increments over 257 frames, where JAX's own round trip reaches 1.9e-9
@@ -1407,14 +1425,21 @@ def stft_bounds(rows: int, t_len: int, n_fft: int, n_frames: int) -> dict:
             "dft_operations_ms": 4 * n_fft * n_bins * rows * n_frames / F32_OPS_PER_S * 1e3}
 
 
+def k6_route_launches() -> dict:
+    """K6's launch counters, by route."""
+    from audio_algebra_torch.ops import stft_kernel as stk
+    return {route: getattr(stk, f"{route}_launches") for route in K6_ROUTES}
+
+
 def phase_kernels_k6() -> tuple:
-    """K6 on both routes (ops/stft_kernel.plan), each row against its twin
+    """K6 on each route (ops/stft_kernel.plan), each row against its twin
     and float64 and timed beside the twin, torch.stft and the bounds: the
     power-of-two FFT at the spectrogram models' shape, at CLAP's 22 s clip,
     at DMAE's mel (center=False, no reflect pad) and at PitchShift's (2
     clips x 2 channels, 262144; n_fft 2048, hop 512) on the effects and
-    xae paths; the mixed-radix FFT at non-power-of-two n_fft; the DFT
-    product at n_fft whose half has a prime factor above 13; and shapes
+    xae paths; the mixed-radix FFT at non-power-of-two n_fft; the chirp-z
+    route at n_fft whose half has a prime factor above 13 and at odd n_fft;
+    the cluster route above 8192; the DFT product below 16; and shapes
     whose 32-frame span the card once refused. Then the short clips
     (`_short_clip_rows`) on each route. Returns the rows by case and the
     short clips' rows."""
@@ -1432,20 +1457,26 @@ def phase_kernels_k6() -> tuple:
         ("fft_1536", (32, 65536), 1536, 384, True),         # 4, 8, 8, 3
         ("fft_1408", (32, 65536), 1408, 128, True),         # 8, 8, 11: the JAX kernel's largest
         ("fft_384", (32, 65536), 384, 128, True),           # 8, 8, 3
-        ("fft_8192", (4, 262144), 8192, 2048, True),        # 8, 8, 8, 8: one frame a block
+        ("cluster_8192", (4, 262144), 8192, 2048, True),    # a CTA a frame, 4 a cluster
         ("fft_2000", (8, 48000), 2000, 2000, True),         # 8, 5, 5, 5: frames without overlap
-        ("dft", (32, 65536), 1018, 250, True),              # half 509, a prime
-        ("dft_2018", (8, 48000), 2018, 2018, True),         # half 1009: frames without overlap
+        ("chirp_1018", (32, 65536), 1018, 250, True),       # half 509, a prime: M = 1024
+        ("chirp_2018", (8, 48000), 2018, 2018, True),       # half 1009, no overlap: M = 2048
+        ("chirp_1102", (32, 65536), 1102, 441, True),       # 25 / 10 ms at 44.1 kHz: M = 2048
+        ("chirp_999", (32, 65536), 999, 250, True),         # odd, two frames a transform
+        ("cluster_16384", (4, 262144), 16384, 4096, True),  # 2 CTAs, no chirp
+        ("cluster_10000", (4, 262144), 10000, 2500, True),  # half 5000: 2 parts of 2500
+        ("cluster_8194", (4, 262144), 8194, 2048, True),    # half 4097: chirp-z on 4 CTAs
+        ("dft_14", (32, 65536), 14, 4, True),               # below 16: the DFT product
     ]
     rows = {}
     for case, shape, n_fft, hop, center in cases:
         g = torch.Generator(device=dev).manual_seed(400 + len(rows))
         x = torch.randn(shape, generator=g, device=dev) * 0.5
         route, radices = stk.plan(n_fft)
-        before = (stk.fft_launches, stk.dft_launches)
+        before = k6_route_launches()
         got = stk.stft_fused(x, n_fft, hop, center)
         torch.cuda.synchronize()
-        took = {"fft": stk.fft_launches - before[0], "dft": stk.dft_launches - before[1]}
+        took = {k: n - before[k] for k, n in k6_route_launches().items()}
         want = stk.stft_ref(x, n_fft, hop, center)
         atol, rtol = STFT_TOL
         err = (got - want).abs()
@@ -1460,6 +1491,7 @@ def phase_kernels_k6() -> tuple:
             "out_shape": list(got.shape), "max_abs_err": float(err.max()), "atol": atol,
             "rtol": rtol, "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
             "kernel_max_abs_err_vs_f64": float((got - exact).abs().max()),
+            "n_outside_tol_vs_f64": int(((got - exact).abs() > atol + rtol * exact.abs()).sum()),
             "plain_max_abs_err_vs_f64": float((want - exact).abs().max()),
             "kernel_ms": cuda_ms(lambda: stk.stft_fused(x, n_fft, hop, center), 20),
             "plain_ms": cuda_ms(lambda: stk.stft_ref(x, n_fft, hop, center), 20),
@@ -1476,13 +1508,14 @@ def phase_kernels_k6() -> tuple:
     emit({"phase": "kernels", "kernel": "stft", "cases": list(rows.values()),
           "short_clips": short})
     failed = [r for r in [*rows.values(), *short] if r["n_outside_tol"] or r["route_launches"]
-              != {k: int(k == r["route"]) for k in ("fft", "dft")}]
-    failed += [r for r in short if r["n_outside_tol_vs_f64"]]
+              != {k: int(k == r["route"]) for k in K6_ROUTES}]
+    failed += [r for r in [*rows.values(), *short] if r["n_outside_tol_vs_f64"]]
     if failed:
         raise AssertionError(f"K6 disagrees with its twin or float64, or took the wrong "
                              f"route: {failed}")
-    # the FFT rounds like log n_fft, the DFT product like sqrt(n_fft)
-    farther = [r for r in rows.values() if r["route"] == "fft"
+    # the FFTs (the chirp-z and cluster routes' too) round like log n_fft,
+    # the DFT product like sqrt(n_fft)
+    farther = [r for r in rows.values() if r["route"] != "dft"
                and r["kernel_max_abs_err_vs_f64"] > r["plain_max_abs_err_vs_f64"]]
     if farther:
         raise AssertionError(f"K6's FFT is farther from float64 than its twin: {farther}")
@@ -1494,7 +1527,10 @@ def _short_clip_rows(dev) -> list:
     samples (2-4 rows) for each SHORT_CLIP_STFT shape, centred: the reflect
     padding of n_fft / 2 folds as numpy's does, as often as the clip needs.
     Each against the twin and against a float64 torch.stft of numpy's
-    reflect-padded clip (center=False), both under STFT_TOL."""
+    reflect-padded clip (center=False), both under STFT_TOL, and timed
+    beside the twin and the library call, torch.stft of the padded clip
+    (center=False: torch.stft reflects a pad shorter than the clip only),
+    with the bounds."""
     import numpy as np
     import torch
     from audio_algebra_torch.ops import stft_kernel as stk
@@ -1507,14 +1543,15 @@ def _short_clip_rows(dev) -> list:
         for t_len in (1, 2, n_fft // 4, half, half + 1):
             g = torch.Generator(device=dev).manual_seed(500 + len(out))
             x = torch.randn((2 + t_len % 3, t_len), generator=g, device=dev) * 0.5
-            before = (stk.fft_launches, stk.dft_launches)
+            before = k6_route_launches()
             got = stk.stft_fused(x, n_fft, hop)
             torch.cuda.synchronize()
-            took = {"fft": stk.fft_launches - before[0], "dft": stk.dft_launches - before[1]}
+            took = {k: n - before[k] for k, n in k6_route_launches().items()}
             want = stk.stft_ref(x, n_fft, hop)
             padded = np.pad(x.double().cpu().numpy(), ((0, 0), (half, half)), mode="reflect")
             exact = torch.stft(torch.from_numpy(padded).to(dev), n_fft, hop, window=window,
                                center=False, return_complex=True)
+            padded32, window32 = torch.from_numpy(padded).float().to(dev), window.float()
             err, err64 = (got - want).abs(), (got.to(exact.dtype) - exact).abs()
             out.append({
                 "n_fft": n_fft, "hop": hop, "t_len": t_len, "shape": list(x.shape),
@@ -1523,7 +1560,13 @@ def _short_clip_rows(dev) -> list:
                 "n_outside_tol": int((err > atol + rtol * want.abs()).sum()),
                 "max_abs_err_vs_f64": float(err64.max()),
                 "n_outside_tol_vs_f64": int((err64 > atol + rtol * exact.abs()).sum()),
-                "plain_max_abs_err_vs_f64": float((want.to(exact.dtype) - exact).abs().max())})
+                "plain_max_abs_err_vs_f64": float((want.to(exact.dtype) - exact).abs().max()),
+                "kernel_ms": cuda_ms(lambda: stk.stft_fused(x, n_fft, hop), 20),
+                "plain_ms": cuda_ms(lambda: stk.stft_ref(x, n_fft, hop), 20),
+                "library_ms": cuda_ms(lambda: torch.stft(
+                    padded32, n_fft, hop, window=window32, center=False,
+                    return_complex=True), 20),
+                **stft_bounds(x.shape[0], t_len, n_fft, got.shape[-1])})
     return out
 
 
@@ -1547,13 +1590,14 @@ def _with_twin_stft(fn):
         stk.stft_fused = kernel
 
 
-def phase_spectrogram() -> int:
+def phase_spectrogram() -> tuple:
     """The four spectrogram given models at full size through their entry
     points, K6's launches counted over the run; then, outside the count,
-    the Mag and Mel decodes again through the twin. Then one
-    MelSpectrogramAE at MEL_MIXED through K6's mixed-radix FFT, its
-    launches counted alone, and its decode through the twin. Returns the
-    launches of both runs."""
+    the Mag and Mel decodes again through the twin. Then one model a K6
+    route (SPEC_ROUTES: the mixed-radix FFT, the chirp-z route, the cluster
+    route), each run's launches counted alone, and its decode through the
+    twin. Returns the launches of all runs and those of the route runs by
+    route."""
     import numpy as np
     import torch
     from audio_algebra_torch import given_models as gm
@@ -1619,48 +1663,57 @@ def phase_spectrogram() -> int:
     if launches != K6_SPECTROGRAM or fft_launches != launches:
         raise AssertionError(f"K6 launched {launches} times ({fft_launches} on the FFT "
                              f"route), expected {K6_SPECTROGRAM}, all FFT")
-    return launches + _mel_mixed_radix(x)
+    by_route = {r[-1]: _spectrogram_route(x, *r) for r in SPEC_ROUTES}
+    return launches + sum(by_route.values()), by_route
 
 
-def _mel_mixed_radix(x) -> int:
-    """MelSpectrogramAE at MEL_MIXED on the spectrogram phase's clips: an
-    encode and a Griffin-Lim decode through K6 (counted: all on the FFT
-    route, whose plan holds radices 3 and 5), the same decode through the
-    twin and the twin's spread under a 1e-6 change of the mel input.
+def _spectrogram_route(x, name: str, sample_rate: int, n_fft: int, hop: int,
+                       route: str) -> int:
+    """One spectrogram model of SPEC_ROUTES on the spectrogram phase's
+    clips: an encode and a Griffin-Lim decode through K6 (counted alone:
+    all on `route`), the same decode through the twin and the twin's
+    spread under a 1e-6 change of the model's input to Griffin-Lim.
     Returns K6's launches."""
     import torch
     from audio_algebra_torch import given_models as gm
     from audio_algebra_torch.ops import stft_kernel as stk
 
-    n_fft, hop = MEL_MIXED
     dev = x.device
-    model = gm.MelSpectrogramAE(device="cuda", n_fft=n_fft, hop_length=hop, n_iter=SPEC_ITERS)
+    kw = {"sample_rate": sample_rate} if name == "MelSpectrogramAE" else {}
+    model = getattr(gm, name)(device="cuda", n_fft=n_fft, hop_length=hop, n_iter=SPEC_ITERS,
+                              **kw)
+    assert stk.plan(n_fft).route == route, (n_fft, stk.plan(n_fft))
     angles = torch.rand((*SPEC_SHAPE[:2], n_fft // 2 + 1, SPEC_SHAPE[-1] // hop + 1),
                         generator=torch.Generator(device=dev).manual_seed(8),
                         device=dev) * (2 * math.pi)
     model.decode(model.encode(x[:1]), init_angle=angles[:1])      # warm-up: tables
-    stk.launches = stk.fft_launches = stk.dft_launches = 0
+    stk.launches = 0
+    for r in K6_ROUTES:
+        setattr(stk, f"{r}_launches", 0)
     reps, enc_s = _synced_s(lambda: model.encode(x))
     out, dec_s = _synced_s(lambda: model.decode(reps, init_angle=angles))
-    took = {"launches": stk.launches, "fft": stk.fft_launches, "dft": stk.dft_launches}
+    took = {"launches": stk.launches, **k6_route_launches()}
     twin = _with_twin_stft(lambda: model.decode(reps, init_angle=angles))
     nudge = 1 + 1e-6 * torch.randn(reps.shape, device=dev,
                                    generator=torch.Generator(device=dev).manual_seed(9))
     spread = _with_twin_stft(lambda: model.decode(reps * nudge, init_angle=angles))
-    row = {"n_fft": n_fft, "hop": hop, "radices": list(stk.plan(n_fft).radices),
+    expected = {"launches": 1 + SPEC_ITERS,
+                **{r: (1 + SPEC_ITERS) * (r == route) for r in K6_ROUTES}}
+    row = {"n_fft": n_fft, "hop": hop, "sample_rate": sample_rate, "route": route,
+           "radices": list(stk.plan(n_fft).radices),
            "encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3,
            "reps_shape": list(reps.shape), "out_shape": list(out.shape),
            "finite": bool(torch.isfinite(out).all()),
            "rel_rms_kernel_vs_twin": rel_rms(out, twin), "twin_spread_1e-6": rel_rms(spread, twin),
-           "k6_launches": took, "k6_expected": K6_MEL_MIXED}
-    emit({"phase": "spectrogram", "model": "MelSpectrogramAE", **row})
+           "k6_launches": took, "k6_expected": expected}
+    emit({"phase": "spectrogram", "model": name, **row})
     if row["out_shape"] != list(SPEC_SHAPE) or not row["finite"]:
-        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED} decoded {row}")
+        raise AssertionError(f"{name} at {n_fft} / {hop} decoded {row}")
     if not row["rel_rms_kernel_vs_twin"] < max(GL_REL_RMS, row["twin_spread_1e-6"]):
-        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED} through K6 vs twin: {row}")
-    if took != {"launches": K6_MEL_MIXED, "fft": K6_MEL_MIXED, "dft": 0}:
-        raise AssertionError(f"MelSpectrogramAE at {MEL_MIXED}: K6 launched {took}, "
-                             f"expected {K6_MEL_MIXED} on the FFT route")
+        raise AssertionError(f"{name} at {n_fft} / {hop} through K6 vs twin: {row}")
+    if took != expected:
+        raise AssertionError(f"{name} at {n_fft} / {hop}: K6 launched {took}, "
+                             f"expected {expected}")
     return took["launches"]
 
 
@@ -3634,7 +3687,9 @@ def _zero_effect_counts() -> None:
         rec.launches[key] = 0
     for key in rec.cuda_launches:
         rec.cuda_launches[key] = 0
-    stk.launches = stk.fft_launches = stk.dft_launches = 0
+    stk.launches = 0
+    for route in K6_ROUTES:
+        setattr(stk, f"{route}_launches", 0)
 
 
 def phase_effects() -> dict:
@@ -4467,7 +4522,7 @@ def main() -> int:
     model, counts, mirage_ref = run(phase_mirage)
     turbo_paths = run(phase_mirage_turbo, model, mirage_ref)
     k6, k6_short = run(phase_kernels_k6)
-    spectrogram_k6 = run(phase_spectrogram)
+    spectrogram_k6, spectrogram_k6_routes = run(phase_spectrogram)
     clap_k6 = run(phase_clap, model)
     io_files = run(phase_io, tmp)
     serve_k6 = run(phase_serve, model, io_files)
@@ -4604,8 +4659,12 @@ def main() -> int:
                   "plain_max_abs_err_vs_f64")}
                   for case, row in k6.items()},
               route_rule="fft: every even n_fft from 16 to 8192 whose half has no "
-                         "prime factor above 13 (mixed radices 2-13); dft: any other "
-                         "n_fft",
+                         "prime factor above 13 (mixed radices 2-13); otherwise the "
+                         "L-point DFT (L = n_fft / 2, or n_fft when odd) as an M-point "
+                         "power-of-two FFT (M = L, or M >= 2 L - 1 by chirp-z): chirp "
+                         "for M <= 4096 in one block, cluster for M <= 65536 on M / "
+                         "4096 CTAs; dft: n_fft below 16 and larger frames",
+              launches_by_route={"spectrogram_runs": spectrogram_k6_routes},
               short_clips={"rows": len(k6_short),
                            "shapes": sorted({(r["n_fft"], r["hop"]) for r in k6_short}),
                            "t_lens": sorted({r["t_len"] for r in k6_short}),

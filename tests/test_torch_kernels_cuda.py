@@ -14,9 +14,11 @@ each alone with a same-bits check of two launches (K4c at every head
 dim, B = 1 to 17 and both bias dtypes); the
 autograd Functions around K1, K5 and K6 against autograd of their twins,
 and the refusal of K2 and K3 to take inputs that require grad; K6 (the
-fused STFT) on both routes, the mixed-radix FFT at powers of two from 16 to
-8192 and at n_fft with odd radices 3 to 13, and the DFT product at other
-n_fft, against its twin and float64, at frame spans past shared memory
+fused STFT) on its routes, the mixed-radix FFT at powers of two from 16 to
+8192 and at n_fft with odd radices 3 to 13, the chirp-z route (even n_fft
+whose half has a prime factor above 13, odd n_fft) within one block, the
+cluster route for frames of more than 4096 points, and the DFT product
+below 16, against its twin and float64, at frame spans past shared memory
 and rows past 65,535, and at clips no longer than its reflect padding on
 each route; the attention site of a
 training UNet at T = 1024 without the training kernels; the turbo int8 conv (int8 tensor cores) against the
@@ -331,14 +333,31 @@ def test_stft_kernel_matches_twin_on_card(cuda_device, shape, n_fft, hop, center
 
 def _stft_vs_exact(x, n_fft, hop, center):
     """(kernel, twin, max |kernel - f64|, max |twin - f64|)."""
+    got, want, exact = _stft_kernel_twin_exact(x, n_fft, hop, center)
+    return got, want, float((got - exact).abs().max()), float((want - exact).abs().max())
+
+
+def _stft_kernel_twin_exact(x, n_fft, hop, center):
+    """K6, its twin and a float64 torch.stft of x."""
     got = stk.stft_fused(x, n_fft, hop, center)
     torch.cuda.synchronize()
     want = stk.stft_ref(x, n_fft, hop, center)
     win = torch.hann_window(n_fft, dtype=torch.float64, device=x.device)
     exact = torch.stft(x.double().reshape(-1, x.shape[-1]), n_fft, hop, window=win,
                        center=center, pad_mode="reflect", return_complex=True)
-    exact = exact.reshape(want.shape)
-    return got, want, float((got - exact).abs().max()), float((want - exact).abs().max())
+    return got, want, exact.reshape(want.shape)
+
+
+ROUTES = ("fft", "chirp", "cluster", "dft")
+
+
+def _route_launches() -> dict:
+    return {route: getattr(stk, f"{route}_launches") for route in ROUTES}
+
+
+def _took(before: dict) -> dict:
+    """K6's launches by route since `before`."""
+    return {route: n - before[route] for route, n in _route_launches().items()}
 
 
 # rows by hop: hop 1 gives a frame per sample, so one row
@@ -348,22 +367,23 @@ def _stft_vs_exact(x, n_fft, hop, center):
 @pytest.mark.parametrize("hop", [1, 480, "quarter"])
 @pytest.mark.parametrize("center", [True, False])
 def test_stft_fft_route_matches_twin_and_f64_on_card(cuda_device, n_fft, hop, center):
-    """The FFT route at powers of two from 16 to 8192 and at n_fft whose
+    """The FFT route at powers of two from 16 to 4096 (8192: the same
+    radix-8 stages on the cluster route, one CTA a frame) and at n_fft whose
     plans hold odd radices (26: 13 alone; 384: 8, 8, 3; 400: 8, 5, 5, 25 ms
     at 16 kHz; 750: 3, 5, 5, 5, an odd half; 1000: 4, 5, 5, 5; 1408: 8, 8,
     11; 1536: 4, 8, 8, 3; 1920: 8, 8, 3, 5): within the JAX kernel's tolerance of the twin, and no further
     from an exact (float64) STFT than the twin; a length that leaves the
     last frame tile partial."""
-    assert stk.plan(n_fft).route == "fft"
+    route = "cluster" if n_fft == 8192 else "fft"
+    assert stk.plan(n_fft).route == route
     hop = n_fft // 4 if hop == "quarter" else hop
     rows = {1: (1,), 480: (40,)}.get(hop, (3,))
     t_len = 3 * n_fft + 333 + (480 * 7 if hop == 480 else 0)
     g = torch.Generator(device=cuda_device).manual_seed(n_fft + hop)
     x = torch.randn((*rows, t_len), generator=g, device=cuda_device) * 0.5
-    before = (stk.launches, stk.fft_launches, stk.dft_launches)
+    before, launches = _route_launches(), stk.launches
     got, want, k_err, t_err = _stft_vs_exact(x, n_fft, hop, center)
-    assert (stk.launches, stk.fft_launches, stk.dft_launches) == \
-        (before[0] + 1, before[1] + 1, before[2])
+    assert stk.launches == launches + 1 and _took(before) == {r: int(r == route) for r in ROUTES}
     assert got.shape == want.shape and got.dtype == torch.complex64
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
     # at 16 and 64 points both are a few f32 ulps of the peak, and the real
@@ -374,38 +394,51 @@ def test_stft_fft_route_matches_twin_and_f64_on_card(cuda_device, n_fft, hop, ce
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_fft,hop,center", [
     ((32, 65536), 1018, 250, True), ((3, 5000), 999, 160, False), ((1, 9000), 1538, 480, True),
-    ((2, 30000), 10000, 2500, True)])
+    ((2, 30000), 10000, 2500, True), ((4, 262144), 8192, 2048, True),
+    ((4, 262144), 16384, 4096, True), ((2, 40000), 4097, 1000, True),
+    ((2, 70000), 20001, 5000, False), ((3, 9000), 1102, 441, True), ((5, 3000), 14, 7, True),
+    ((2, 60000), 24000, 6000, True), ((2, 40000), 8194, 2048, True)])
 def test_stft_dft_route_matches_twin_on_card(cuda_device, shape, n_fft, hop, center):
-    """An odd n_fft, a prime factor of the half above 13 (509, 769), or
-    above 8192 takes the DFT product."""
+    """The n_fft that took the DFT product before the chirp-z and cluster
+    routes, on the route `plan` gives them now: an odd n_fft (999; 4097 and
+    20001 on clusters of 4 and 16 CTAs), a prime factor of the half above
+    13 (509, 769, 551 = 19 x 29) on the chirp route, above 8192 on the
+    cluster route (16384 on 2 CTAs; 10000 and 24000 on 2 and 4 mixed-radix
+    parts; 8194 by chirp-z on 4 CTAs), 8192 on the cluster route (a CTA a
+    frame; on the FFT route before), and n_fft 14 on the DFT product. One
+    launch on the planned route, within the JAX kernel's tolerance of the
+    twin and of a float64 STFT."""
     g = torch.Generator(device=cuda_device).manual_seed(n_fft)
     x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
-    assert stk.plan(n_fft).route == "dft"
-    before = (stk.launches, stk.fft_launches, stk.dft_launches)
-    got, want, _, _ = _stft_vs_exact(x, n_fft, hop, center)
-    assert (stk.launches, stk.fft_launches, stk.dft_launches) == \
-        (before[0] + 1, before[1], before[2] + 1)
+    route = stk.plan(n_fft).route
+    assert route == {14: "dft"}.get(
+        n_fft, "chirp" if n_fft in (1018, 999, 1538, 1102) else "cluster")
+    before, launches = _route_launches(), stk.launches
+    got, want, exact = _stft_kernel_twin_exact(x, n_fft, hop, center)
+    assert stk.launches == launches + 1 and _took(before) == {r: int(r == route) for r in ROUTES}
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    torch.testing.assert_close(got.to(exact.dtype), exact, atol=5e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_fft,hop", [
     ((4, 262144), 8192, 2048), ((8, 48000), 2000, 2000), ((2, 40000), 6144, 1536),
-    ((8, 48000), 2018, 2018), ((70000, 64), 16, 16), ((70000, 64), 34, 34)])
+    ((8, 48000), 2018, 2018), ((70000, 64), 16, 16), ((70000, 64), 34, 34),
+    ((70000, 64), 33, 33), ((66000, 8), 2049, 2049)])
 def test_stft_long_spans_and_many_rows_on_card(cuda_device, shape, n_fft, hop):
     """Shapes the JAX package computes whose 32-frame span passes a block's
-    shared memory (8192 / 2048, 2000 / 2000, 6144 / 1536 on the FFT, 2018 /
-    2018 on the DFT product) and more than 65,535 rows on either route: one
-    launch each, on the planned route, within the JAX kernel's tolerance of
-    the twin."""
+    shared memory (2000 / 2000, 6144 / 1536 on the FFT, 8192 / 2048 on the
+    cluster route, 2018 / 2018 on the chirp-z route) and more than 65,535 rows on the FFT, chirp
+    (34 even, 33 odd) and cluster routes (2049 odd, on 2 CTAs, rows shorter
+    than the pad): one launch each, on the planned route, within the JAX
+    kernel's tolerance of the twin."""
     g = torch.Generator(device=cuda_device).manual_seed(n_fft + hop)
     x = torch.randn(shape, generator=g, device=cuda_device) * 0.5
     route = stk.plan(n_fft).route
-    before = (stk.fft_launches, stk.dft_launches)
+    before = _route_launches()
     got = stk.stft_fused(x, n_fft, hop)
     torch.cuda.synchronize()
-    assert (stk.fft_launches - before[0], stk.dft_launches - before[1]) == \
-        ((1, 0) if route == "fft" else (0, 1))
+    assert _took(before) == {r: int(r == route) for r in ROUTES}
     want = stk.stft_ref(x, n_fft, hop)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
@@ -413,12 +446,13 @@ def test_stft_long_spans_and_many_rows_on_card(cuda_device, shape, n_fft, hop):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop", [(1024, 256), (1000, 250), (1018, 250), (2048, 512),
-                                       (64, 16)])
+                                       (64, 16), (999, 250), (2049, 512)])
 @pytest.mark.parametrize("length", ["1", "2", "quarter", "half", "half+1"])
 def test_stft_short_clips_match_twin_and_f64_on_card(cuda_device, n_fft, hop, length):
     """Clips no longer than the pad n_fft / 2, or one sample longer, on
     each route (1024 / 256 and 2048 / 512 PitchShift's the power-of-two
-    FFT, 1000 / 250 the mixed radices, 1018 / 250 the DFT product): the
+    FFT, 1000 / 250 the mixed radices, 1018 / 250 and 999 / 250 the
+    chirp-z route, 2049 / 512 the cluster route on 2 CTAs): the
     reflect padding folds as numpy's does, as often as it needs. Within the
     JAX kernel's tolerance of the twin and of a float64 STFT of numpy's
     reflect-padded clip, 2-4 rows."""
@@ -430,13 +464,12 @@ def test_stft_short_clips_match_twin_and_f64_on_card(cuda_device, n_fft, hop, le
     g = torch.Generator(device=cuda_device).manual_seed(n_fft + t_len)
     x = torch.randn((rows, t_len), generator=g, device=cuda_device) * 0.5
     route = stk.plan(n_fft).route
-    before = (stk.fft_launches, stk.dft_launches)
+    before = _route_launches()
     got = stk.stft_fused(x, n_fft, hop)
     torch.cuda.synchronize()
-    assert (stk.fft_launches - before[0], stk.dft_launches - before[1]) == \
-        ((1, 0) if route == "fft" else (0, 1))
+    assert _took(before) == {r: int(r == route) for r in ROUTES}
     want = stk.stft_ref(x, n_fft, hop)
-    assert got.shape == want.shape == (rows, half + 1, 1 + t_len // hop)
+    assert got.shape == want.shape == (rows, half + 1, 1 + (t_len + 2 * half - n_fft) // hop)
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
     padded = np.pad(x.double().cpu().numpy(), ((0, 0), (half, half)), mode="reflect")
     exact = torch.stft(torch.from_numpy(padded).to(cuda_device), n_fft, hop,
@@ -446,10 +479,12 @@ def test_stft_short_clips_match_twin_and_f64_on_card(cuda_device, n_fft, hop, le
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (1024, 480), (1000, 250)])
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (1024, 480), (1000, 250), (1018, 250),
+                                       (999, 250)])
 def test_stft_gradient_through_the_kernel_on_card(cuda_device, n_fft, hop):
-    """K6 under grad launches inside its autograd.Function; the gradient of
-    sum(|X|^2 w) equals the one through the twin."""
+    """K6 under grad launches inside its autograd.Function (the FFT and the
+    chirp-z routes); the gradient of sum(|X|^2 w) equals the one through
+    the twin."""
     g = torch.Generator(device=cuda_device).manual_seed(12)
     x = (torch.randn((2, 16384), generator=g, device=cuda_device) * 0.5).requires_grad_()
     before = stk.launches

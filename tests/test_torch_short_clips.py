@@ -10,7 +10,7 @@ step).
 Held here: `stft`, `stft_plain` and `stft_fused` (K6's twin on a CPU
 tensor) at T in {1, 2, n_fft/4, n_fft/2, n_fft/2 + 1} for an n_fft of each
 of K6's routes on the card (1024 the power-of-two FFT, 1000 the mixed-radix
-FFT, 1018 the DFT product, 64 the JAX kernel's interpret mode), their
+FFT, 1018 the chirp-z route, 64 the JAX kernel's interpret mode), their
 gradient against jax.grad, and the consumers at short T: spectrogram,
 melspectrogram, griffin_lim (given JAX's angles), pitch_shift,
 utils/viz.spectrogram_db and DMAE's MelE1d.mel, whose pre-pad is the same
@@ -35,7 +35,7 @@ jstft = importlib.import_module("audio_algebra_tpu.ops.stft")   # ops/ exports a
 jmel = importlib.import_module("audio_algebra_tpu.ops.mel")
 REL = 1e-5
 ROUTES = {(1024, 256): ("fft", (8, 8, 8)), (1000, 250): ("fft", (4, 5, 5, 5)),
-          (1018, 250): ("dft", ()), (64, 16): ("fft", (4, 8))}
+          (1018, 250): ("chirp", (2, 8, 8, 8)), (64, 16): ("fft", (4, 8))}
 
 
 def short_lengths(n_fft):
