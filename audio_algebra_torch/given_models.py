@@ -77,7 +77,6 @@ import hashlib
 import inspect
 import os
 import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -89,6 +88,7 @@ from .convert import (convert_dmae_state_dict, convert_ldm_state_dict,
                       convert_rave_state_dict, convert_stacked_state_dict,
                       extract_rave_latent_transform, load_torchscript_state_dict, pour)
 from .convert_dvae import convert_dvae_state_dict
+from . import tracing
 from .device import resolve_device
 from .models.blocks import TURBO_MIN_B, turbo_batch_ok
 from .models.clap import CLAPModule
@@ -429,36 +429,38 @@ class DVAEWrapper(_TorchWrapper):
     @torch.inference_mode()
     def encode(self, waveform) -> torch.Tensor:
         """(B, 2, T) audio -> (B, latent_dim, T/128) tanh latents."""
-        waveform = self._as_input(waveform)
-        self.orig_shape = tuple(waveform.shape)
-        self.demo_samples = waveform.shape[-1]
-        self.ensure_params()
-        reps = self.model.encode_it(waveform)
-        self.noise = self._draw_noise(waveform.shape[0])
-        return reps
+        with tracing.span("dvae.encode", self.device):
+            waveform = self._as_input(waveform)
+            self.orig_shape = tuple(waveform.shape)
+            self.demo_samples = waveform.shape[-1]
+            self.ensure_params()
+            reps = self.model.encode_it(waveform)
+            self.noise = self._draw_noise(waveform.shape[0])
+            return reps
 
     @torch.inference_mode()
     def decode(self, reps, demo_steps: Optional[int] = None) -> torch.Tensor:
         """Latents (B, latent_dim, n) -> audio (2, B * sample_size)."""
         if demo_steps is None:
             demo_steps = self.demo_steps
-        self.ensure_params()
-        reps = self._as_input(reps)
-        noise = self.noise
-        if noise is None or noise.shape[0] != reps.shape[0]:
-            noise = self._draw_noise(reps.shape[0])
-        if self.turbo:
-            # the amax carry: each step quantises on the previous step's grids
-            def model_fn(x, t, aux, cond):
-                return self.model.decode_v_aux(x, t, cond, q_aux=aux,
-                                               turbo_min_b=self.turbo_min_b)
-            fakes = vddim_sample(model_fn, self._as_input(noise), demo_steps, 0, reps,
-                                 aux_mode=True)
-        else:
-            fakes = vddim_sample(self.model.decode_v, self._as_input(noise),
-                                 demo_steps, 0, reps)
-        b, d, n = fakes.shape                     # 'b d n -> d (b n)'
-        return fakes.transpose(0, 1).reshape(d, b * n)
+        with tracing.span("dvae.decode", self.device):
+            self.ensure_params()
+            reps = self._as_input(reps)
+            noise = self.noise
+            if noise is None or noise.shape[0] != reps.shape[0]:
+                noise = self._draw_noise(reps.shape[0])
+            if self.turbo:
+                # the amax carry: each step quantises on the previous step's grids
+                def model_fn(x, t, aux, cond):
+                    return self.model.decode_v_aux(x, t, cond, q_aux=aux,
+                                                   turbo_min_b=self.turbo_min_b)
+                fakes = vddim_sample(model_fn, self._as_input(noise), demo_steps, 0, reps,
+                                     aux_mode=True)
+            else:
+                fakes = vddim_sample(self.model.decode_v, self._as_input(noise),
+                                     demo_steps, 0, reps)
+            b, d, n = fakes.shape                     # 'b d n -> d (b n)'
+            return fakes.transpose(0, 1).reshape(d, b * n)
 
     @torch.inference_mode()
     def decode_seqpar(self, reps, world, demo_steps: Optional[int] = None,
@@ -700,6 +702,10 @@ def _kwargs_of(cls, exclude=()) -> set:
             if n not in ("self", *exclude)}
 
 
+_STAGE_KEYS = {"clapdae.inner": "inner_s", "clapdae.outer": "outer_s",
+               "clapdae.ae_decode": "decode_s"}   # `last_stage_times`' keys
+
+
 class CLAPDAE(GivenModelClass):
     """The MIRAGE model: CLAP-conditioned stacked latent diffusion.
 
@@ -917,14 +923,15 @@ class CLAPDAE(GivenModelClass):
         self.ensure_params()
         return self.latent_diffae.encode(self._as_input(audio))
 
-    def _stage(self, name: str, t0: float, timed: bool) -> float:
-        if not timed:
-            return t0
+    def _keep_stage_times(self, rows) -> None:
+        """`last_stage_times` from the stage spans' device intervals (host
+        intervals off a card), summed over micro-batches, after the one
+        synchronise of a timed generate."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.last_stage_times[name] = self.last_stage_times.get(name, 0.0) + now - t0
-        return now
+        for row in rows:
+            key = _STAGE_KEYS[row.name]
+            self.last_stage_times[key] = self.last_stage_times.get(key, 0.0) + row.seconds()
 
     def _outer(self, noise, lat, steps: int) -> torch.Tensor:
         """The outer v-DDIM of one micro-batch (JAX given_models.py:984-1022):
@@ -958,53 +965,57 @@ class CLAPDAE(GivenModelClass):
         (B, 32, n), s1_noise (B, 32, 16 n), init_noise like the init
         latents) are drawn from `generator` unless given. With
         `stage_times`, the inner, outer and AE-decode seconds land in
-        `last_stage_times` (the card is synchronised at each stage)."""
+        `last_stage_times`: the device intervals of the `clapdae.inner`,
+        `clapdae.outer` and `clapdae.ae_decode` spans, read after one
+        synchronise at the end."""
         self.ensure_params()
-        emb = self._as_input(audio_embeddings)
-        while emb.dim() < 3:
-            emb = emb[None]
-        cfg_scale = float(cfg_scales[0] if isinstance(cfg_scales, (list, tuple))
-                          else cfg_scales)
-        unet = self.latent_diffusion_model.diffusion
         self.last_stage_times = {}
-        if stage_times and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+        stages = [] if stage_times else None
+        with tracing.span("clapdae.generate", self.device):
+            emb = self._as_input(audio_embeddings)
+            while emb.dim() < 3:
+                emb = emb[None]
+            cfg_scale = float(cfg_scales[0] if isinstance(cfg_scales, (list, tuple))
+                              else cfg_scales)
+            unet = self.latent_diffusion_model.diffusion
 
-        def ldm_fn(t_len: int):
-            rb = precompute_rel_biases(unet, t_len)     # once per generate
-            return lambda x, t, embedding: unet(x, t, embedding=embedding,
-                                                embedding_scale=cfg_scale, rel_biases=rb)
+            def ldm_fn(t_len: int):
+                rb = precompute_rel_biases(unet, t_len)     # once per generate
+                return lambda x, t, embedding: unet(x, t, embedding=embedding,
+                                                    embedding_scale=cfg_scale, rel_biases=rb)
 
-        if init_audio_latents is not None:
-            lat = self._as_input(init_audio_latents)
-            noise = None if init_noise is None else self._as_input(init_noise)
-            fake_latents = torch.clamp(resample_diffusion(
-                ldm_fn(lat.shape[-1]), lat, steps=demo_steps,
-                noise_level=1.0 - init_strength, generator=self.generator, noise=noise,
-                embedding=emb), -1, 1)
-        else:
-            n_latent = self.demo_samples // self.downsampling_ratio
-            noise = self._noise((batch_size, self.latent_dim, n_latent), latent_noise)
-            fake_latents = torch.clamp(
-                kdiff_sample(ldm_fn(n_latent), noise, demo_steps, embedding=emb), -1, 1)
-        t0 = self._stage("inner_s", t0, stage_times)
+            with tracing.span("clapdae.inner", self.device, into=stages):
+                if init_audio_latents is not None:
+                    lat = self._as_input(init_audio_latents)
+                    noise = None if init_noise is None else self._as_input(init_noise)
+                    fake_latents = torch.clamp(resample_diffusion(
+                        ldm_fn(lat.shape[-1]), lat, steps=demo_steps,
+                        noise_level=1.0 - init_strength, generator=self.generator,
+                        noise=noise, embedding=emb), -1, 1)
+                else:
+                    n_latent = self.demo_samples // self.downsampling_ratio
+                    noise = self._noise((batch_size, self.latent_dim, n_latent), latent_noise)
+                    fake_latents = torch.clamp(
+                        kdiff_sample(ldm_fn(n_latent), noise, demo_steps, embedding=emb), -1, 1)
 
-        la = self.latent_diffae
-        b = fake_latents.shape[0]
-        s1 = self._noise((b, la.latent_dim,
-                          fake_latents.shape[2] * la.latent_downsampling_ratio), s1_noise)
-        parts = []
-        for i in range(0, b, self.decode_batch):
-            sl = slice(i, min(i + self.decode_batch, b))
-            first = torch.clamp(self._outer(s1[sl], fake_latents[sl], outer_steps), -1, 1)
-            t0 = self._stage("outer_s", t0, stage_times)
-            parts.append(la.decode_first_stage(first))
-            t0 = self._stage("decode_s", t0, stage_times)
-        fakes = torch.cat(parts)
-        if flatten:                                 # 'b d n -> d (b n)'
-            bb, d, n = fakes.shape
-            fakes = fakes.transpose(0, 1).reshape(d, bb * n)
+            la = self.latent_diffae
+            b = fake_latents.shape[0]
+            s1 = self._noise((b, la.latent_dim,
+                              fake_latents.shape[2] * la.latent_downsampling_ratio), s1_noise)
+            parts = []
+            for i in range(0, b, self.decode_batch):
+                sl = slice(i, min(i + self.decode_batch, b))
+                with tracing.span("clapdae.outer", self.device, into=stages):
+                    first = torch.clamp(self._outer(s1[sl], fake_latents[sl], outer_steps),
+                                        -1, 1)
+                with tracing.span("clapdae.ae_decode", self.device, into=stages):
+                    parts.append(la.decode_first_stage(first))
+            fakes = torch.cat(parts)
+            if flatten:                                 # 'b d n -> d (b n)'
+                bb, d, n = fakes.shape
+                fakes = fakes.transpose(0, 1).reshape(d, bb * n)
+        if stage_times:
+            self._keep_stage_times(stages)
         return fakes, fake_latents
 
     @torch.inference_mode()
@@ -1038,19 +1049,17 @@ class CLAPDAE(GivenModelClass):
                           else cfg_scales)
         unet = self.latent_diffusion_model.diffusion
         self.last_stage_times = {}
-        if stage_times and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+        stages = [] if stage_times else None
 
         n_latent = self.demo_samples // self.downsampling_ratio
-        noise = self._noise((batch_size, self.latent_dim, n_latent), latent_noise)
-        rb = precompute_rel_biases(unet, n_latent)
-        fake_latents = torch.clamp(kdiff_sample(
-            lambda x, t, embedding: unet(x, t, embedding=embedding, embedding_scale=cfg_scale,
-                                         rel_biases=rb),
-            noise, demo_steps, embedding=emb), -1, 1).contiguous()
-        world.broadcast_([fake_latents])
-        t0 = self._stage("inner_s", t0, stage_times)
+        with tracing.span("clapdae.inner", self.device, into=stages):
+            noise = self._noise((batch_size, self.latent_dim, n_latent), latent_noise)
+            rb = precompute_rel_biases(unet, n_latent)
+            fake_latents = torch.clamp(kdiff_sample(
+                lambda x, t, embedding: unet(x, t, embedding=embedding,
+                                             embedding_scale=cfg_scale, rel_biases=rb),
+                noise, demo_steps, embedding=emb), -1, 1).contiguous()
+            world.broadcast_([fake_latents])
 
         la = self.latent_diffae
         b = fake_latents.shape[0]
@@ -1066,16 +1075,18 @@ class CLAPDAE(GivenModelClass):
         parts = []
         for i in range(0, b, self.decode_batch):
             sl = slice(i, min(i + self.decode_batch, b))
-            local = torch.clamp(vddim_sample(model_fn, s1[sl][..., slab].contiguous(),
-                                             outer_steps, 0, fake_latents[sl]), -1, 1)
-            first = world.all_gather_time(local)
-            t0 = self._stage("outer_s", t0, stage_times)
-            parts.append(la.decode_first_stage(first))
-            t0 = self._stage("decode_s", t0, stage_times)
+            with tracing.span("clapdae.outer", self.device, into=stages):
+                local = torch.clamp(vddim_sample(model_fn, s1[sl][..., slab].contiguous(),
+                                                 outer_steps, 0, fake_latents[sl]), -1, 1)
+                first = world.all_gather_time(local)
+            with tracing.span("clapdae.ae_decode", self.device, into=stages):
+                parts.append(la.decode_first_stage(first))
         fakes = torch.cat(parts)
         if flatten:                                 # 'b d n -> d (b n)'
             bb, d, n = fakes.shape
             fakes = fakes.transpose(0, 1).reshape(d, bb * n)
+        if stage_times:
+            self._keep_stage_times(stages)
         return fakes, fake_latents
 
     def decode(self, *args, **kwargs):

@@ -4,7 +4,8 @@ Port of audio_algebra_tpu/models/unet1d.py, with its turbo int8 route.
 Every level carries a down-stack and an up-stack of three ResConvBlocks
 (`_Stack3`), with self-attention after each block in the deepest
 n_attn_layers levels. Stacks are named stack_000... in forward order, their
-blocks m0..m5, as in flax.
+blocks m0..m5, as in flax; each stack's call in `forward` is the span
+`unet.stack_NNN` of the same index (audio_algebra_torch.tracing).
 
 The input is cat[x, Fourier features of t broadcast, nearest-upsampled
 cond]; up-stacks consume cat[deep, skip] (in turbo, the pair of parts).
@@ -29,6 +30,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .. import tracing
 from .blocks import (TURBO_MIN_B, Downsample1d, FourierFeatures, ResConvBlock,
                      SelfAttention1d, Upsample1d, timestep_broadcast, turbo_batch_ok,
                      upsample_to)
@@ -133,6 +135,7 @@ class DiffusionAttnUnet1D(nn.Module):
                     _Stack3(c_in, c_mults[j], c_out, attn=j >= attn_start,
                             is_last=j == 0))
             idx += 1
+        self._span_names = tuple(f"unet.stack_{i:03d}" for i in range(idx))
 
     def forward(self, x, t, cond=None, q_aux=None, collect_q_aux: bool = False,
                 turbo: bool = False, turbo_min_b: int = TURBO_MIN_B, int8_levels: int = 0):
@@ -162,9 +165,10 @@ class DiffusionAttnUnet1D(nn.Module):
 
         def stack(h, a):
             level = min(idx, 2 * self.depth - 1 - idx)
-            out = getattr(self, f"stack_{idx:03d}")(
-                h, x_amax=a, q_in=None if q_aux is None else q_aux[idx], turbo=turbo,
-                dynamic_int8=level < int8_levels)
+            with tracing.span(self._span_names[idx], x):
+                out = getattr(self, f"stack_{idx:03d}")(
+                    h, x_amax=a, q_in=None if q_aux is None else q_aux[idx], turbo=turbo,
+                    dynamic_int8=level < int8_levels)
             q_out.append(out[2])
             return out[0], out[1]
 

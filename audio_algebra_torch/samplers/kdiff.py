@@ -3,7 +3,8 @@
 Port of audio_algebra_tpu/samplers/kdiff.py. The JAX `lax.scan` is a
 Python loop. The step coefficients are computed in f32 and cast to x's
 dtype before they touch x, so a bf16 x stays bf16 through the loop, as in
-JAX (kdiff.py:41-50, :75-93).
+JAX (kdiff.py:41-50, :75-93). Each DPM++ step is a `kdiff.step` span
+(audio_algebra_torch.tracing).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 def _in_dtype(c: torch.Tensor, dtype: torch.dtype) -> float:
@@ -66,21 +69,22 @@ def sample_dpmpp_2m(denoiser: Callable, x: torch.Tensor, sigmas: torch.Tensor,
     t_of = -torch.log(sigmas.clamp(min=1e-20))              # t_fn, in f32
     old_denoised = None
     for i in range(sigmas.shape[0] - 1):
-        sigma = torch.full((x.shape[0],), float(sigmas[i]), dtype=torch.float32,
-                           device=x.device)
-        denoised = denoiser(x, sigma, **extra_args)
-        t, t_next = t_of[i], t_of[i + 1]
-        h = t_next - t
-        if i == 0 or float(sigmas[i + 1]) == 0.0:
-            denoised_d = denoised
-        else:
-            r = (t - t_of[i - 1]) / h
-            ca = _in_dtype(1 + 1 / (2 * r), x.dtype)
-            cb = _in_dtype(1 / (2 * r), x.dtype)
-            denoised_d = ca * denoised - cb * old_denoised
-        x = _in_dtype(torch.exp(-t_next) / torch.exp(-t), x.dtype) * x \
-            - _in_dtype(torch.expm1(-h), x.dtype) * denoised_d
-        old_denoised = denoised
+        with tracing.span("kdiff.step", x, step=i):
+            sigma = torch.full((x.shape[0],), float(sigmas[i]), dtype=torch.float32,
+                               device=x.device)
+            denoised = denoiser(x, sigma, **extra_args)
+            t, t_next = t_of[i], t_of[i + 1]
+            h = t_next - t
+            if i == 0 or float(sigmas[i + 1]) == 0.0:
+                denoised_d = denoised
+            else:
+                r = (t - t_of[i - 1]) / h
+                ca = _in_dtype(1 + 1 / (2 * r), x.dtype)
+                cb = _in_dtype(1 / (2 * r), x.dtype)
+                denoised_d = ca * denoised - cb * old_denoised
+            x = _in_dtype(torch.exp(-t_next) / torch.exp(-t), x.dtype) * x \
+                - _in_dtype(torch.expm1(-h), x.dtype) * denoised_d
+            old_denoised = denoised
     return x
 
 

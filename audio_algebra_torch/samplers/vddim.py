@@ -9,6 +9,8 @@ noise comes from the caller's torch.Generator (a fixed seed of 0 when none
 is given), so the trajectory differs from JAX's fold-in draws: compare
 those by distribution.
 
+Each step is a `vddim.step` span (audio_algebra_torch.tracing).
+
 `model_fn(x, t, **extra_args)` is any callable. With `aux_mode` (the
 turbo amax carry, JAX `_ddim_scan(aux_mode=True)`) it is
 `model_fn(x, t, aux, **extra_args) -> (v, aux)`: step 0 runs with
@@ -21,6 +23,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 def get_alphas_sigmas(t: torch.Tensor):
@@ -50,31 +54,32 @@ def _ddim_loop(model_fn: Callable, x: torch.Tensor, t_steps: torch.Tensor,
         generator = torch.Generator(device=x.device).manual_seed(0)
     aux = None
     for idx in range(steps):
-        nxt = min(idx + 1, steps - 1)
-        alpha_i, sigma_i = alphas[idx].item(), sigmas[idx].item()
-        alpha_n, sigma_n = alphas[nxt].item(), sigmas[nxt].item()
-        t = torch.full((x.shape[0],), t_steps[idx].item(), dtype=x.dtype,
-                       device=x.device)
-        if aux_mode:
-            v, aux = model_fn(x, t, aux, **extra_args)
-        else:
-            v = model_fn(x, t, **extra_args)
-        v = v.float()
-        xf = x.float()
-        pred = xf * alpha_i - v * sigma_i
-        if idx == steps - 1:
-            return pred.to(x.dtype)
-        eps = xf * sigma_i + v * alpha_i
-        if eta:
-            ddim_sigma = eta * math.sqrt(sigma_n ** 2 / max(sigma_i ** 2, 1e-20)) \
-                * math.sqrt(max(1 - alpha_i ** 2 / max(alpha_n ** 2, 1e-20), 0.0))
-            adjusted_sigma = math.sqrt(max(sigma_n ** 2 - ddim_sigma ** 2, 0.0))
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=torch.float32)
-            x_next = pred * alpha_n + eps * adjusted_sigma + noise * ddim_sigma
-        else:
-            x_next = pred * alpha_n + eps * sigma_n
-        x = x_next.to(x.dtype)
+        with tracing.span("vddim.step", x, step=idx):
+            nxt = min(idx + 1, steps - 1)
+            alpha_i, sigma_i = alphas[idx].item(), sigmas[idx].item()
+            alpha_n, sigma_n = alphas[nxt].item(), sigmas[nxt].item()
+            t = torch.full((x.shape[0],), t_steps[idx].item(), dtype=x.dtype,
+                           device=x.device)
+            if aux_mode:
+                v, aux = model_fn(x, t, aux, **extra_args)
+            else:
+                v = model_fn(x, t, **extra_args)
+            v = v.float()
+            xf = x.float()
+            pred = xf * alpha_i - v * sigma_i
+            if idx == steps - 1:
+                return pred.to(x.dtype)
+            eps = xf * sigma_i + v * alpha_i
+            if eta:
+                ddim_sigma = eta * math.sqrt(sigma_n ** 2 / max(sigma_i ** 2, 1e-20)) \
+                    * math.sqrt(max(1 - alpha_i ** 2 / max(alpha_n ** 2, 1e-20), 0.0))
+                adjusted_sigma = math.sqrt(max(sigma_n ** 2 - ddim_sigma ** 2, 0.0))
+                noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                    dtype=torch.float32)
+                x_next = pred * alpha_n + eps * adjusted_sigma + noise * ddim_sigma
+            else:
+                x_next = pred * alpha_n + eps * sigma_n
+            x = x_next.to(x.dtype)
     return x
 
 

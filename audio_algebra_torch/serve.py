@@ -34,7 +34,10 @@ single-program generate, as JAX's do.
 
 Endpoints:
   GET  /          -> the HTML GUI (prompts, slerp / algebra, init audio)
-  GET  /health    -> {"ok": true, "model": "22s", "sample_size": N, ...}
+  GET  /health    -> {"ok": true, "model": "22s", "sample_size": N, ...}; with
+                     the micro-batcher on, its batched_runs, coalesced_requests
+                     and queue_wait_s (a request's mean wait in the queue is
+                     queue_wait_s / coalesced_requests)
   POST /generate  -> JSON spec -> 16-bit PCM WAV bytes (48 kHz stereo)
   POST /embed     -> {"embedding": [[...512 floats]]} for a JSON
                      {"text": "..."} or for posted WAV / FLAC / OGG / MP3
@@ -61,6 +64,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import os
 import tempfile
@@ -73,6 +77,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .embedding_math import (TURBO_SEQPAR_REFUSAL, decode_batch_from_env, get_model_ready,
                              interp_embeddings, weighted_algebra)
 from .utils.audio_io import crossfade_flatten, load_audio
@@ -202,13 +207,16 @@ $('go').onclick=async()=>{
 
 
 class _Pending:
-    """One queued generate request waiting for its micro-batch."""
+    """One queued generate request waiting for its micro-batch: its request
+    id and the host time it was queued at (ns)."""
 
-    __slots__ = ("emb", "key", "event", "result", "error")
+    __slots__ = ("emb", "key", "rid", "t_queued", "event", "result", "error")
 
-    def __init__(self, emb, key):
+    def __init__(self, emb, key, rid):
         self.emb = emb
         self.key = key
+        self.rid = rid
+        self.t_queued = time.time_ns()
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -221,7 +229,8 @@ class _MicroBatcher:
     each slot draws its own noise inside generate, so the requests get
     independent samples. The group runs at its own size: JAX pads it to a
     power of two only to bound its jit programs, a TPU trick that eager
-    torch does not need."""
+    torch does not need. `queue_wait_s` sums each request's wait from
+    `submit` to the group that takes it (its `serve.queue` span)."""
 
     def __init__(self, service: "MirageService", window_s: float = 0.05, max_batch: int = 8):
         self.service = service
@@ -231,13 +240,15 @@ class _MicroBatcher:
         self.cv = threading.Condition()
         self.batched_runs = 0
         self.coalesced_requests = 0
+        self.queue_wait_s = 0.0
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, emb, key: tuple) -> np.ndarray:
-        """Queue one embedding (1, 1, 512); returns its (2, N) audio."""
+    def submit(self, emb, key: tuple, rid: int) -> np.ndarray:
+        """Queue one embedding (1, 1, 512) of request `rid`; returns its
+        (2, N) audio."""
         emb = emb.float().cpu().numpy() if isinstance(emb, torch.Tensor) else emb
-        p = _Pending(np.asarray(emb, np.float32).reshape(1, 1, -1), key)
+        p = _Pending(np.asarray(emb, np.float32).reshape(1, 1, -1), key, rid)
         with self.cv:
             self.queue.append(p)
             self.cv.notify()
@@ -259,8 +270,11 @@ class _MicroBatcher:
                     break
             key = self.queue[0].key
             group = [p for p in self.queue if p.key == key][: self.max_batch]
+            now = time.time_ns()
             for p in group:
                 self.queue.remove(p)
+                self.queue_wait_s += (now - p.t_queued) * 1e-9
+                tracing.record("serve.queue", p.t_queued, now, requests=(p.rid,))
             return group
 
     def _loop(self):
@@ -268,7 +282,8 @@ class _MicroBatcher:
             group = self._take_group()
             steps, outer_steps, cfg_scale = group[0].key
             try:
-                with self.service.lock:
+                with self.service.lock, tracing.request([p.rid for p in group]), \
+                        tracing.span("serve.batch", getattr(self.service.model, "device", None)):
                     fakes, _ = self.service._model_generate(
                         np.concatenate([p.emb for p in group], axis=0), cfg_scales=cfg_scale,
                         demo_steps=steps, outer_steps=outer_steps, batch_size=len(group),
@@ -362,6 +377,7 @@ class MirageService:
         self.lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.requests_served = 0
+        self._request_ids = itertools.count(1)
         user = os.environ.get("MIRAGE_USERNAME", "")
         password = os.environ.get("MIRAGE_PASSWORD", "")
         self.auth: Optional[tuple] = (user, password) if user and password else None
@@ -433,7 +449,13 @@ class MirageService:
         """Embed the text prompts, combine them with the given embeddings,
         generate, crossfade; returns (wav_bytes, info). Raises ValueError on
         a bad spec and TokenizerUnavailable on a text prompt in strict-text
-        mode."""
+        mode. The request takes the next id of the service; its spans
+        (`serve.request` and those under it) carry it."""
+        rid = next(self._request_ids)
+        with tracing.request(rid), tracing.span("serve.request"):
+            return self._generate_wav(spec, rid)
+
+    def _generate_wav(self, spec: dict, rid: int) -> tuple[bytes, dict]:
         texts = spec.get("text") or []
         if isinstance(texts, str):
             texts = [texts]
@@ -479,7 +501,7 @@ class MirageService:
         if (self.batcher is not None and batch_size == 1 and seed < 0
                 and init_latents is None):
             # one variation and no pinned seed: it may share a generate call
-            fakes = self.batcher.submit(emb, (steps, outer_steps, cfg_scale))[None]
+            fakes = self.batcher.submit(emb, (steps, outer_steps, cfg_scale), rid)[None]
         else:
             with self.lock:
                 if seed >= 0:
@@ -491,12 +513,14 @@ class MirageService:
                 fakes = fakes.float().cpu().numpy()
         with self._stats_lock:
             self.requests_served += 1
-        out = crossfade_flatten(fakes, sr=SAMPLE_RATE)
+        with tracing.span("serve.wav"):
+            out = crossfade_flatten(fakes, sr=SAMPLE_RATE)
+            wav = encode_wav(out, SAMPLE_RATE)
         info = {"batch_size": batch_size, "samples": int(out.shape[-1]),
                 "sample_rate": SAMPLE_RATE}
         if tok_warning:
             info["tokenizer_warning"] = tok_warning
-        return encode_wav(out, SAMPLE_RATE), info
+        return wav, info
 
     def health(self) -> dict:
         h = {"ok": True, "model": self.model_choice,
@@ -508,6 +532,7 @@ class MirageService:
         if self.batcher is not None:
             h["batched_runs"] = self.batcher.batched_runs
             h["coalesced_requests"] = self.batcher.coalesced_requests
+            h["queue_wait_s"] = self.batcher.queue_wait_s
         if self.world is not None:
             h["mesh"] = {self.world.axis: self.world.size}
         return h
